@@ -1,0 +1,116 @@
+"""Stem convolution (7x7, stride 4), optionally fused with the density
+pyramid: hand-written CUDA kernel and its plain version.
+
+Replaces the TPU kernels ``stem_conv_density_raw_7x4`` / ``stem_conv_raw_7x4``
+(sast_tpu/ops/pallas/stem_conv.py, ``_stem_fwd_raw``) and, as the same
+function, ``stem_conv_density_7x4`` / ``stem_conv_7x4`` (``_stem_fwd_pallas``).
+The kernel is ``csrc/stem_conv.cu``; its note says what bounds it on the H100
+and how it is laid out. It reads the native uint8 NHWC tensor and does the
+replicate pad by clamping coordinates, so no padded or widened copy of the
+input is ever written.
+
+``stem_conv7x4`` dispatches on the tensor's device: a CPU tensor goes to
+``stem_conv7x4_plain``, a CUDA tensor launches the kernel or raises.
+Inference only: no gradient flows through the kernel (training is not part
+of the port yet).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from sast_tpu_torch import build
+from sast_tpu_torch.ops.density import cell_counts, density_ratio_plain
+
+KSIZE, STRIDE, PAD = 7, 4, 3
+
+
+def stem_supported(shape, dtype, cout: int) -> bool:
+    """Static gate of the kernel: uint8 input (widened in registers), H and W
+    divisible by 32 (one block per 32x32 input tile, which is also one
+    pool-32 density cell), C <= 32 and C % 4 == 0 (4-byte loads), and
+    Cout % 16 == 0 with Cout <= 128 (16 output channels per thread, one
+    kernel row's weights in shared memory)."""
+    if len(shape) != 4 or dtype != torch.uint8:
+        return False
+    _, H, W, C = shape
+    return (
+        H % 32 == 0 and W % 32 == 0 and C <= 32 and C % 4 == 0
+        and cout % 16 == 0 and cout <= 128
+    )
+
+
+def stem_conv7x4_plain(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
+    """Plain PyTorch version of ``stem_conv7x4`` (any device): the JAX
+    package's ``stem_conv_xla`` — replicate pad 3, VALID 7x7/stride-4 conv,
+    no bias, in ``w.dtype`` — plus the plain density ratio."""
+    xc = x.to(w.dtype).permute(0, 3, 1, 2)
+    xp = F.pad(xc, (PAD, PAD, PAD, PAD), mode="replicate")
+    y = F.conv2d(xp, w, stride=STRIDE).permute(0, 2, 3, 1)
+    return (y, density_ratio_plain(x)) if with_density else y
+
+
+@functools.cache
+def _kernel():
+    fn = build.load("stem_conv").sast_stem_conv7x4
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stem_conv7x4(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
+    """7x7/stride-4 replicate-padded conv of a uint8 NHWC input.
+
+    Args:
+      x: (B, H, W, C) uint8 event histogram.
+      w: (Cout, C, 7, 7) OIHW weight in the compute dtype (fp32 or bf16).
+      with_density: also return the (B, 4, C) fp32 density ratio.
+
+    Returns y (B, H/4, W/4, Cout) in ``w.dtype`` (accumulated in fp32), and
+    the ratio when ``with_density``.
+    """
+    cout = w.shape[0]
+    if not stem_supported(x.shape, x.dtype, cout) or w.shape[1:] != (
+        x.shape[-1], KSIZE, KSIZE
+    ):
+        raise ValueError(
+            f"stem kernel gate fails for x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}"
+        )
+    if x.device.type == "cpu":
+        return stem_conv7x4_plain(x, w, with_density)
+    if x.device.type != "cuda":
+        raise ValueError(f"stem_conv7x4: unsupported device {x.device}")
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"stem kernel computes in fp32 or bf16, not {w.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 4:
+        raise ValueError("stem kernel needs a contiguous, 4-byte aligned input")
+    B, H, W, C = x.shape
+    # (kh, kw, cin, cout) fp32 holding the compute-dtype values.
+    wk = w.float().permute(2, 3, 1, 0).contiguous()
+    y = torch.empty((B, H // 4, W // 4, cout), dtype=w.dtype, device=x.device)
+    counts = (
+        torch.zeros((B, 4, C), dtype=torch.int32, device=x.device)
+        if with_density
+        else None
+    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(
+        _kernel()(
+            x.data_ptr(), wk.data_ptr(), y.data_ptr(),
+            counts.data_ptr() if with_density else None,
+            B, H, W, C, cout, int(w.dtype == torch.bfloat16), stream,
+        ),
+        "stem kernel",
+    )
+    stem_conv7x4.launches += 1
+    if not with_density:
+        return y
+    ratio = counts.to(torch.float32) / cell_counts(H, W, C, x.device)[None, :, None]
+    return y, ratio
+
+
+stem_conv7x4.launches = 0  # kernel launches, read by chip_smoke.py

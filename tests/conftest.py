@@ -115,6 +115,12 @@ def make_sequence(root, name, num_repr, labeled_reprs, seed=0, hw=(240, 304), ch
     )
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where CUDA is absent"
+    )
+
+
 @pytest.fixture(scope="session")
 def dataset_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("genx")
