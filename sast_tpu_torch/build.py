@@ -38,6 +38,8 @@ KERNELS: Dict[str, tuple] = {
     "stem_conv": (),
     "density": (),
     "nms_keep": ("-fmad=false",),
+    "fused_block": (),
+    "sparse_block": (),
 }
 
 

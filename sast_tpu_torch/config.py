@@ -18,9 +18,13 @@ How the port reads the kernel switches of ``BackboneConfig``:
 - ``stem_raw_fetch``: no effect in the port; its stem kernel always reads
   the native uint8 tensor.
 
-The attention switches ``fused_block`` and ``gather_budget`` and the
-``use_pallas`` sparse block are not ported yet; the port always runs the
-masked attention path.
+How the port reads the attention switches of ``AttentionConfig``
+(``models/sast.py`` has the dispatch): ``fused_block`` sends the block
+through the dense fused kernel (``ops/fused_block.py``), ``gather_budget``
+through the masked torch-op math on a gathered prefix of kept windows, and
+``pallas_density_threshold`` is the window density up to which the
+window-skipping kernel (``ops/sparse_block.py``) runs when the model was
+built with ``sparse_kernel`` (the JAX package's ``use_pallas``).
 """
 
 from __future__ import annotations
@@ -135,8 +139,8 @@ class AttentionConfig:
     drop_path: float = 0.0
     ls_init_value: float = 1e-5
     enable_cb: bool = False  # Context Broadcasting
-    # Opt-in TPU execution paths of the attention block (see the
-    # module docstring); kept so that configurations stay interchangeable.
+    # Opt-in execution paths of the attention block (see the module
+    # docstring).
     pallas_density_threshold: float = 1.0
     fused_block: bool = False
     gather_budget: float = 0.0

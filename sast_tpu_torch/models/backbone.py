@@ -42,7 +42,8 @@ def fused_stem_density(cfg: BackboneConfig, x: torch.Tensor) -> bool:
 class SASTStage(nn.Module):
     """One backbone stage: strided-conv downsample -> SAST blocks -> ConvLSTM."""
 
-    def __init__(self, cfg: BackboneConfig, idx: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: BackboneConfig, idx: int, dtype: torch.dtype = torch.float32,
+                 sparse_kernel: bool = False):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         dim = cfg.stage_dims[idx]
@@ -59,7 +60,7 @@ class SASTStage(nn.Module):
         for i in range(self.num_blocks):
             self.add_module(
                 f"block{i}",
-                SASTBlock(dim, cfg.input_channels, cfg.attention, i == 0, dtype),
+                SASTBlock(dim, cfg.input_channels, cfg.attention, i == 0, dtype, sparse_kernel),
             )
         self.lstm = DWSConvLSTM2d(
             dim, cfg.lstm.dws_conv, cfg.lstm.dws_conv_only_hidden,
@@ -106,13 +107,16 @@ class SASTStage(nn.Module):
 class SASTBackbone(nn.Module):
     """forward(x, prev_states, token_mask) -> (features {stage: (B,h,w,c)},
     new_states, P), with ``P`` the (num_stages,) selected-token telemetry.
-    x is NHWC (B, H, W, input_channels), uint8 or float."""
+    x is NHWC (B, H, W, input_channels), uint8 or float. ``sparse_kernel``
+    (the JAX package's ``use_pallas``) sends every attention layer through
+    the window-skipping block kernel."""
 
-    def __init__(self, cfg: BackboneConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: BackboneConfig, dtype: torch.dtype = torch.float32,
+                 sparse_kernel: bool = False):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         for idx in range(cfg.num_stages):
-            self.add_module(f"stage{idx}", SASTStage(cfg, idx, dtype))
+            self.add_module(f"stage{idx}", SASTStage(cfg, idx, dtype, sparse_kernel))
 
     def forward(
         self,

@@ -18,6 +18,7 @@ from sast_tpu_torch.models.backbone import LstmState, SASTBackbone
 from sast_tpu_torch.models.head import YoloXHead
 from sast_tpu_torch.models.layers import Conv, Dense, lecun_normal_
 from sast_tpu_torch.models.pafpn import YoloPAFPN
+from sast_tpu_torch.models.sast import MaskedSparseAttention
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -35,14 +36,17 @@ def resolve_device(device) -> torch.device:
 
 
 class YoloXDetector(nn.Module):
-    def __init__(self, config: ModelConfig):
+    """``sparse_kernel`` is the JAX detector's ``use_pallas``: the attention
+    layers run the window-skipping block kernel (``ops/sparse_block.py``)."""
+
+    def __init__(self, config: ModelConfig, sparse_kernel: bool = False):
         super().__init__()
         self.config = config
         dtype = DTYPES[config.compute_dtype]
         bb = config.backbone
         in_channels = tuple(bb.stage_dims[s - 1] for s in config.fpn.in_stages)
         strides = tuple(bb.stage_strides[s - 1] for s in config.fpn.in_stages)
-        self.backbone = SASTBackbone(bb, dtype)
+        self.backbone = SASTBackbone(bb, dtype, sparse_kernel)
         self.fpn = YoloPAFPN(config.fpn.depth, in_channels, config.fpn.depthwise,
                              config.fpn.act, dtype)
         self.head = YoloXHead(config.head.num_classes, strides, in_channels,
@@ -66,6 +70,14 @@ class YoloXDetector(nn.Module):
         return self.forward_detect(features), states, p
 
 
+def set_sparse_kernel(model: nn.Module, on: bool) -> None:
+    """Switch every attention layer of ``model`` to (or off) the
+    window-skipping block kernel; the weights are shared by all paths."""
+    for module in model.modules():
+        if isinstance(module, MaskedSparseAttention):
+            module.sparse_kernel = on
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """flax's default initialisers: lecun-normal conv and dense kernels from
     ``generator``; the constants (zero biases, unit norms, LayerScale,
@@ -86,10 +98,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def build_detector(config: ModelConfig, seed: int = 0, device="cuda") -> YoloXDetector:
+def build_detector(config: ModelConfig, seed: int = 0, device="cuda",
+                   sparse_kernel: bool = False) -> YoloXDetector:
     """A detector with random weights from ``torch.Generator().manual_seed(seed)``,
     in inference mode on ``device`` (CUDA unless the caller asks for the CPU)."""
     device = resolve_device(device)
-    model = YoloXDetector(config)
+    model = YoloXDetector(config, sparse_kernel)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -1,6 +1,6 @@
 """SAST block: scene-adaptive sparse transformer layers (port).
 
-Port of sast_tpu/models/sast.py, masked path only. Per token position:
+Port of sast_tpu/models/sast.py. Per token position:
 
 - the whole tensor is layer-normed (norm1);
 - a token that lies in a kept window and is itself selected gets norm2 +
@@ -10,9 +10,23 @@ Port of sast_tpu/models/sast.py, masked path only. Per token position:
 - every other position passes through as norm1(x).
 
 The attention is written out as matmul, mask, softmax, matmul: no library
-attention kernel stands in for it. Not ported yet: the budget-gather path,
-the fused and sparse block kernels (``fused_block``, ``use_pallas``) and
-Context Broadcasting (``enable_cb``); the last raises.
+attention kernel stands in for it. ``MaskedSparseAttention.forward`` picks
+one of four execution paths of that same function, as the JAX module does:
+
+- budget-gather (``attention.gather_budget`` > 0): the masked torch-op math
+  on the first ``K = ceil(budget * M)`` windows of the kept-first work list,
+  scattered back; exact while ``n_win <= K``, else the masked path;
+- sparse block kernel (``sparse_kernel``, JAX's ``use_pallas``):
+  ``ops/sparse_block.py`` on kept windows only, below the window density
+  ``attention.pallas_density_threshold`` (1.0: always);
+- dense fused block kernel (``attention.fused_block``):
+  ``ops/fused_block.py`` on every window;
+- masked torch ops otherwise, and always with Context Broadcasting
+  (``enable_cb``), which needs the full layout.
+
+Both data-dependent choices (``n_win <= K`` when ``K < M``, the density test
+when the threshold is below 1) read one number back from the device: a host
+synchronisation per attention layer, where JAX has a ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -25,6 +39,9 @@ import torch.nn as nn
 
 from sast_tpu_torch.config import AttentionConfig
 from sast_tpu_torch.models.layers import Dense, LayerNorm, get_activation
+from sast_tpu_torch.ops import sparse_block
+from sast_tpu_torch.ops.block import kernel_params
+from sast_tpu_torch.ops.fused_block import fused_window_block
 from sast_tpu_torch.ops.partition import (
     grid_partition,
     grid_reverse,
@@ -88,16 +105,24 @@ class GatedMlpParams(nn.Module):
 
 class MaskedSparseAttention(nn.Module):
     """MS-WSA on (B, N, hw, C) partitioned tokens with a (B, N, hw) bool
-    ``token_keep`` mask."""
+    ``token_keep`` mask and, for the paths that skip windows, the (B, N)
+    bool ``win_keep``. ``sparse_kernel`` is the JAX module's ``use_pallas``.
 
-    def __init__(self, dim: int, cfg: AttentionConfig, dtype: torch.dtype = torch.float32):
+    The block kernels run forward only and always use GELU, like the TPU
+    kernels they replace."""
+
+    def __init__(self, dim: int, cfg: AttentionConfig, dtype: torch.dtype = torch.float32,
+                 sparse_kernel: bool = False):
         super().__init__()
         if dim % cfg.dim_head:
             raise ValueError(f"attention dim {dim} must divide by dim_head {cfg.dim_head}")
-        if cfg.enable_cb:
-            raise NotImplementedError("Context Broadcasting is not ported yet")
         self.dim, self.dim_head, self.eps = dim, cfg.dim_head, cfg.norm_eps
         self.num_heads = dim // cfg.dim_head
+        self.enable_cb = cfg.enable_cb
+        self.sparse_kernel = sparse_kernel
+        self.density_threshold = cfg.pallas_density_threshold
+        self.gather_budget = cfg.gather_budget
+        self.fused = cfg.fused_block
         self.act = get_activation(cfg.mlp_activation)
         inner = max(32, math.floor(dim * cfg.mlp_ratio * 2 / 3 / 32) * 32)
         self.norm1 = LayerNorm(dim)
@@ -108,10 +133,11 @@ class MaskedSparseAttention(nn.Module):
         self.ls2 = Gamma(dim, cfg.ls_init_value)
         self.mlp = GatedMlpParams(dim, inner, cfg.mlp_bias, dtype)
 
-    def forward(self, x: torch.Tensor, token_keep: torch.Tensor) -> torch.Tensor:
-        B, N, hw, C = x.shape
+    def block_math(self, y: torch.Tensor, token_keep: torch.Tensor) -> torch.Tensor:
+        """The masked block in torch ops on any (B', N', hw, C) layout of
+        norm1-ed tokens; equals ``y`` at unselected tokens."""
+        B, N, hw, C = y.shape
         heads, dh = self.num_heads, self.dim_head
-        y = _layernorm(x, self.norm1.scale, self.norm1.bias, self.eps)
         k4 = token_keep[..., None]
         z = torch.where(k4, _layernorm(y, self.norm2.scale, self.norm2.bias, self.eps), y)
 
@@ -121,8 +147,9 @@ class MaskedSparseAttention(nn.Module):
         v = qkv[:, :, :, 2 * heads :].permute(0, 1, 3, 2, 4)
         logits = (q @ k.transpose(-1, -2)) * dh ** -0.5  # (B, N, h, q, k)
         key_mask = token_keep[:, :, None, None, :]
-        logits = torch.where(key_mask, logits, torch.tensor(MASK_VALUE, dtype=logits.dtype,
-                                                              device=logits.device))
+        # A Python scalar, not a device tensor made here: building one from
+        # a Python number copies it to the card and waits for the stream.
+        logits = torch.where(key_mask, logits, MASK_VALUE)
         attn = torch.softmax(logits, dim=-1)
         out = (attn @ v).permute(0, 1, 3, 2, 4).reshape(B, N, hw, C)
         out = self.proj(out)
@@ -130,8 +157,56 @@ class MaskedSparseAttention(nn.Module):
 
         val, gate = self.mlp.GLU_0.Dense_0(h).chunk(2, dim=-1)
         mlp_out = self.mlp.Dense_0(val * self.act(gate))
+        if self.enable_cb:
+            # Context Broadcasting: mix each selected token's MLP output with
+            # the mean over all token slots (unselected ones count as zero).
+            masked = torch.where(k4, mlp_out, 0.0)
+            mlp_out = 0.5 * masked + 0.5 * masked.mean(dim=(1, 2), keepdim=True)
         h2 = h + self.ls2.gamma.to(h.dtype) * mlp_out
         return torch.where(k4, h2, y)
+
+    def forward(self, x: torch.Tensor, token_keep: torch.Tensor,
+                win_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = _layernorm(x, self.norm1.scale, self.norm1.bias, self.eps)
+        return self.run_block(y, token_keep, win_keep)
+
+    def run_block(self, y: torch.Tensor, token_keep: torch.Tensor,
+                  win_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block on norm1-ed tokens ``y``, on the path the switches and
+        the scene pick (module docstring)."""
+        B, N, hw, C = y.shape
+        M = B * N
+        skipping = win_keep is not None and not self.enable_cb
+
+        if self.gather_budget > 0.0 and skipping:
+            K = max(1, min(M, int(math.ceil(self.gather_budget * M))))
+            wk = win_keep.reshape(M)
+            # One host read where JAX has a lax.cond; none when K == M.
+            if K == M or int(wk.sum()) <= K:
+                order = torch.argsort(~wk, stable=True)[:K]
+                y_flat = y.reshape(M, hw, C)
+                out_g = self.block_math(y_flat[order][None], token_keep.reshape(M, hw)[order][None])
+                return y_flat.index_copy(0, order, out_g[0]).reshape(B, N, hw, C)
+            return self.block_math(y, token_keep)
+
+        if self.sparse_kernel and skipping:
+            # One host read below a threshold of 1; none at the default 1.0.
+            if self.density_threshold >= 1.0 or (
+                float(win_keep.float().mean()) <= self.density_threshold
+            ):
+                run = (sparse_block.sparse_window_block_looped
+                       if sparse_block.MODEL_USES_LOOPED else sparse_block.sparse_window_block)
+                out = run(y.reshape(M, hw, C), token_keep.reshape(M, hw), win_keep.reshape(M),
+                          kernel_params(self), self.num_heads, self.dim_head, self.eps)
+                return out.reshape(B, N, hw, C)
+            return self.block_math(y, token_keep)
+
+        if self.fused and not self.enable_cb:
+            out = fused_window_block(y.reshape(M, hw, C), token_keep.reshape(M, hw),
+                                     kernel_params(self), self.num_heads, self.dim_head, self.eps)
+            return out.reshape(B, N, hw, C)
+
+        return self.block_math(y, token_keep)
 
 
 class SASTBlock(nn.Module):
@@ -145,14 +220,15 @@ class SASTBlock(nn.Module):
     """
 
     def __init__(self, dim: int, in_channels: int, cfg: AttentionConfig,
-                 first_block: bool, dtype: torch.dtype = torch.float32):
+                 first_block: bool, dtype: torch.dtype = torch.float32,
+                 sparse_kernel: bool = False):
         super().__init__()
         self.cfg, self.first_block = cfg, first_block
         if first_block:
             self.to_controls = PositiveDense(in_channels, dim, dtype)
             self.to_scores = Dense(dim, dim, dtype=dtype)
-        self.win_attn = MaskedSparseAttention(dim, cfg, dtype)
-        self.grid_attn = MaskedSparseAttention(dim, cfg, dtype)
+        self.win_attn = MaskedSparseAttention(dim, cfg, dtype, sparse_kernel)
+        self.grid_attn = MaskedSparseAttention(dim, cfg, dtype, sparse_kernel)
 
     def forward(
         self,
@@ -183,10 +259,10 @@ class SASTBlock(nn.Module):
             masks = (win_keep_w, tok_keep_w, win_keep_g, tok_keep_g)
         elif masks is None:
             raise ValueError("non-first blocks must reuse the selection masks")
-        _, tok_keep_w, _, tok_keep_g = masks
+        win_keep_w, tok_keep_w, win_keep_g, tok_keep_g = masks
 
-        x = window_reverse(self.win_attn(xw, tok_keep_w), p, (H, W))
-        xg = self.grid_attn(grid_partition(x, p), tok_keep_g)
+        x = window_reverse(self.win_attn(xw, tok_keep_w, win_keep_w), p, (H, W))
+        xg = self.grid_attn(grid_partition(x, p), tok_keep_g, win_keep_g)
         x = grid_reverse(xg, p, (H, W))
 
         p_count = (

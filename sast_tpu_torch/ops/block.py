@@ -1,0 +1,248 @@
+"""The masked SAST block of one window: shared math of the block kernels.
+
+Counterpart of ``_fwd_window`` (sast_tpu/ops/pallas/sparse_block.py) and
+``fused_block_xla`` (sast_tpu/ops/pallas/fused_block.py): the function that
+the fused, sparse and looped block kernels all compute, here as plain
+PyTorch batched over windows, plus the pieces their wrappers share
+(``kernel_params``, the kept-first work list, the launcher of
+``csrc/window_block.cuh``).
+
+Numerics of the kernels, which differ from the masked torch-op path of
+``models/sast.py``: every activation is fp32; the LayerNorm variance is
+two-pass over the real channels; only the operands of the matrix products
+(z, q, k, v, the attention weights, attn_out, h1, the gated activation) are
+rounded to the weights' dtype, and every product accumulates and returns
+fp32; logits are scaled after the product; masked keys get exactly -1e4;
+GELU is the tanh form.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from sast_tpu_torch import build
+
+MASK_VALUE = -1e4
+MAX_HW = 80  # rows of one window the kernels hold (5 tiles of 16)
+
+# Order of the weight operands of the C entry points. Matrices are read as
+# (out, in) rows, vectors as fp32.
+MATRICES = ("wqkv", "wproj", "wglu", "wout")
+PARAM_KEYS = ("ln2_scale", "ln2_bias", "wqkv", "bqkv", "wproj", "bproj", "ls1",
+              "wglu", "bglu", "wout", "bout", "ls2")
+
+MODE_FUSED, MODE_SPARSE, MODE_LOOPED = 0, 1, 2
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` with ``a`` rounded to ``w``'s dtype, fp32 accumulation and
+    an fp32 result (a product of bf16 values is exact in fp32)."""
+    return a.to(w.dtype).to(torch.float32) @ w.to(torch.float32)
+
+
+def block_window_plain(
+    y: torch.Tensor,
+    token_keep: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    num_heads: int,
+    dim_head: int,
+    norm_eps: float = 1e-5,
+    return_h1: bool = False,
+):
+    """The masked block on every window of ``y``: plain PyTorch version of
+    the block kernels' device routine.
+
+    Args:
+      y: (M, hw, C) norm1-ed window tokens.
+      token_keep: (M, hw) bool.
+      params: the weight dict of ``kernel_params`` (matrices ``(in, out)``).
+
+    Returns (M, hw, C) in ``y``'s dtype, equal to ``y`` at unkept tokens;
+    with ``return_h1`` also the post-attention residual h1 in fp32.
+    """
+    M, hw, C = y.shape
+    wdt = params["wqkv"].dtype
+    keep = token_keep[..., None]
+    y32 = y.to(torch.float32)
+    mu = y32.mean(dim=-1, keepdim=True)
+    var = ((y32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    z_ln = (y32 - mu) * torch.rsqrt(var + norm_eps)
+    z_ln = z_ln * params["ln2_scale"].float() + params["ln2_bias"].float()
+    z = torch.where(keep, z_ln, y32)
+
+    qkv = _mm(z, params["wqkv"]) + params["bqkv"].float()
+    qkv = qkv.to(wdt).to(torch.float32).reshape(M, hw, 3, num_heads, dim_head)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # (M, h, hw, dh)
+    logits = (q @ k.transpose(-1, -2)) * dim_head ** -0.5
+    logits = torch.where(token_keep[:, None, None, :], logits, MASK_VALUE)
+    attn = torch.softmax(logits, dim=-1).to(wdt).to(torch.float32)
+    attn_out = (attn @ v).permute(0, 2, 1, 3).reshape(M, hw, C)
+    h1 = z + params["ls1"].float() * (_mm(attn_out, params["wproj"]) + params["bproj"].float())
+
+    u = _mm(h1, params["wglu"]) + params["bglu"].float()
+    inner = u.shape[-1] // 2
+    m = u[..., :inner] * F.gelu(u[..., inner:], approximate="tanh")
+    h2 = h1 + params["ls2"].float() * (_mm(m, params["wout"]) + params["bout"].float())
+    out = torch.where(keep, h2, y32).to(y.dtype)
+    return (out, h1) if return_h1 else out
+
+
+def kernel_params(attn) -> Dict[str, torch.Tensor]:
+    """The weight dict the block kernels share, from a port
+    ``MaskedSparseAttention``: the keys, shapes and dtypes of the JAX
+    module's ``kernel_params`` (matrices ``(in, out)`` in the compute dtype,
+    vectors as stored, zeros for absent biases).
+
+    The port stores ``Dense`` kernels ``(out, in)``, which is how the CUDA
+    kernels read a matrix, so each matrix here is the transposed *view* of a
+    contiguous ``(out, in)`` tensor in the compute dtype: the plain version
+    multiplies by the view, the launcher takes the tensor under it without a
+    copy. The dict is cached on the module and rebuilt when a parameter is
+    written, moved or cast."""
+    dense = (attn.qkv, attn.proj, attn.mlp.GLU_0.Dense_0, attn.mlp.Dense_0)
+    vectors = (attn.norm2.scale, attn.norm2.bias, attn.ls1.gamma, attn.ls2.gamma)
+    source = [d.kernel for d in dense] + [d.bias for d in dense if d.bias is not None]
+    source += list(vectors)
+    stamp = (attn.qkv.dtype,) + tuple((t.data_ptr(), t._version) for t in source)
+    cached = getattr(attn, "_kernel_params", None)
+    if cached is not None and cached[0] == stamp:
+        return cached[1]
+    dt = attn.qkv.dtype
+
+    def bias(d):
+        if d.bias is not None:
+            return d.bias.detach()
+        return torch.zeros(d.kernel.shape[0], device=d.kernel.device)
+
+    params = {
+        "ln2_scale": attn.norm2.scale.detach(),
+        "ln2_bias": attn.norm2.bias.detach(),
+        "ls1": attn.ls1.gamma.detach(),
+        "ls2": attn.ls2.gamma.detach(),
+    }
+    for key, bkey, d in zip(MATRICES, ("bqkv", "bproj", "bglu", "bout"), dense):
+        params[key] = d.kernel.detach().to(dt).contiguous().t()
+        params[bkey] = bias(d)
+    attn._kernel_params = (stamp, params)
+    return params
+
+
+def work_list(win_keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kept-first permutation of all window ids (int32) and the number of
+    kept windows as a one-element int32 tensor; both stay on the device."""
+    ids = torch.argsort(~win_keep, stable=True).to(torch.int32)
+    n_win = win_keep.sum(dtype=torch.int32).reshape(1)
+    return ids, n_win
+
+
+def check_no_grad(name: str, y: torch.Tensor, params: Dict[str, torch.Tensor]) -> None:
+    """The block kernels have no backward yet: refuse to sit in a graph."""
+    if torch.is_grad_enabled() and (
+        y.requires_grad or any(p.requires_grad for p in params.values())
+    ):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only; call it under torch.no_grad()"
+        )
+
+
+_C_ARGS = (
+    [ctypes.c_int]                      # mode
+    + [ctypes.c_void_p] * 6             # y, keep, out, h1, ids, n_win
+    + [ctypes.c_void_p] * 12            # weights, PARAM_KEYS order
+    + [ctypes.c_void_p, ctypes.c_longlong]  # scratch, its bytes
+    + [ctypes.c_int] * 6                # M, hw, C, inner, heads, dim_head
+    + [ctypes.c_float]                  # eps
+    + [ctypes.c_int] * 2                # y is bf16, weights are bf16
+    + [ctypes.c_void_p]                 # stream
+)
+_PLAN_ARGS = [ctypes.c_int] * 8  # mode, M, hw, C, inner, dim_head, y bf16, w bf16
+
+
+def bind(library: str, entry: str):
+    """The launch and scratch-size entry points of one built library."""
+    lib = build.load(library)
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = _C_ARGS, ctypes.c_int
+    plan = getattr(lib, entry + "_scratch_bytes")
+    plan.argtypes, plan.restype = _PLAN_ARGS, ctypes.c_longlong
+    return fn, plan
+
+
+def launch(
+    entry,
+    mode: int,
+    y: torch.Tensor,
+    token_keep: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    num_heads: int,
+    dim_head: int,
+    norm_eps: float,
+    out: torch.Tensor,
+    h1: Optional[torch.Tensor] = None,
+    ids: Optional[torch.Tensor] = None,
+    n_win: Optional[torch.Tensor] = None,
+    what: str = "window block kernel",
+) -> None:
+    """Check the operands and launch one block kernel (``entry`` is the pair
+    from ``bind``) on the current stream. ``out`` may be ``y`` itself only
+    in the looped mode. Raises on anything the kernel does not take."""
+    fn, plan = entry
+    M, hw, C = y.shape
+    if y.device.type != "cuda":
+        raise ValueError(f"{what}: needs CUDA tensors, got {y.device}")
+    wdt = params["wqkv"].dtype
+    if y.dtype not in (torch.float32, torch.bfloat16) or wdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: y {y.dtype} / weights {wdt} must be float32 or bfloat16")
+    if y.dtype == torch.bfloat16 and wdt == torch.float32:
+        raise ValueError(f"{what}: bfloat16 tokens with float32 weights are not built")
+    inner = params["wglu"].shape[1] // 2
+    if hw > MAX_HW or C % 16 or dim_head % 16 or inner % 16 or C != num_heads * dim_head:
+        raise ValueError(
+            f"{what}: needs hw <= {MAX_HW}, C = heads * dim_head and C, dim_head, inner "
+            f"multiples of 16; got hw {hw}, C {C}, heads {num_heads}, dim_head {dim_head}, "
+            f"inner {inner}"
+        )
+    if not y.is_contiguous() or token_keep.shape != (M, hw) or token_keep.dtype != torch.bool:
+        raise ValueError(f"{what}: y must be contiguous and token_keep (M, hw) bool")
+    keep = token_keep.contiguous()
+    shapes = {"wqkv": (C, 3 * C), "wproj": (C, C), "wglu": (C, 2 * inner), "wout": (inner, C),
+              "ln2_scale": (C,), "ln2_bias": (C,), "bqkv": (3 * C,), "bproj": (C,),
+              "ls1": (C,), "bglu": (2 * inner,), "bout": (C,), "ls2": (C,)}
+    ops = {}
+    for key in PARAM_KEYS:
+        t = params[key]
+        if tuple(t.shape) != shapes[key] or t.device != y.device:
+            raise ValueError(f"{what}: {key} is {tuple(t.shape)} on {t.device}, "
+                             f"expected {shapes[key]} on {y.device}")
+        if key in MATRICES:
+            if t.dtype != wdt:
+                raise ValueError(f"{what}: {key} is {t.dtype}, wqkv is {wdt}")
+            ops[key] = t.t().contiguous()  # no copy for kernel_params' views
+        else:
+            ops[key] = t.detach().to(torch.float32).contiguous()
+    tensors = [y, out] + list(ops.values()) + ([h1] if h1 is not None else [])
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
+    flags = (int(y.dtype == torch.bfloat16), int(wdt == torch.bfloat16))
+    n_scratch = plan(mode, M, hw, C, inner, dim_head, *flags)
+    if n_scratch < 0:
+        raise ValueError(
+            f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} in {wdt} does not "
+            "fit the card's shared memory"
+        )
+    scratch = torch.empty(max(int(n_scratch), 16), dtype=torch.uint8, device=y.device)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    rc = fn(
+        mode, y.data_ptr(), keep.data_ptr(), out.data_ptr(),
+        h1.data_ptr() if h1 is not None else None,
+        ids.data_ptr() if ids is not None else None,
+        n_win.data_ptr() if n_win is not None else None,
+        *(ops[k].data_ptr() for k in PARAM_KEYS),
+        scratch.data_ptr(), n_scratch, M, hw, C, inner, num_heads, dim_head,
+        float(norm_eps), *flags, stream,
+    )
+    build.check(rc, what)

@@ -34,8 +34,10 @@ def density_supported(shape, dtype) -> bool:
     return H % 32 == 0 and W % 32 == 0 and C <= 32 and C % 4 == 0
 
 
+@functools.lru_cache(maxsize=16)
 def cell_counts(H: int, W: int, C: int, device) -> torch.Tensor:
-    """(4,) fp32 normaliser ``(H/k) * (W/k) * C`` of each pyramid level."""
+    """(4,) fp32 normaliser ``(H/k) * (W/k) * C`` of each pyramid level
+    (kept per shape and device: building it copies from the host)."""
     return torch.tensor(
         [float((H // k) * (W // k) * C) for k in POOLS], device=device
     )

@@ -59,7 +59,9 @@ def select_windows_and_tokens(
     # true division of the JAX package.
     scores = scores.to(torch.float32)
     absval = scores.abs()
-    hw_t = torch.tensor(float(hw), device=scores.device)
+    # torch.full fills on the device; torch.tensor would copy from the host
+    # and wait for the stream.
+    hw_t = torch.full((), float(hw), dtype=torch.float32, device=scores.device)
     win_l1 = absval.sum(dim=(2, 3)) / hw_t  # (B, N)
     win_soft = torch.softmax(win_l1, dim=-1)
     window_keep = win_soft >= (1.0 / N) / (1.0 + bounce)

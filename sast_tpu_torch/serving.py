@@ -20,7 +20,12 @@ import torch
 from sast_tpu_torch.config import ExperimentConfig
 from sast_tpu_torch.data.representations import stacked_histogram
 from sast_tpu_torch.models.backbone import zero_states
-from sast_tpu_torch.models.detector import DTYPES, YoloXDetector, resolve_device
+from sast_tpu_torch.models.detector import (
+    DTYPES,
+    YoloXDetector,
+    resolve_device,
+    set_sparse_kernel,
+)
 from sast_tpu_torch.models.head import inference_outputs
 from sast_tpu_torch.ops.nms import postprocess
 from sast_tpu_torch.packing import pack_event_batch
@@ -44,6 +49,13 @@ class StreamingDetector:
     with ``weights.load_jax_variables``); it is moved to ``device``. The
     device is CUDA unless the caller passes ``device="cpu"``, which runs the
     kernels' plain versions.
+
+    ``sparse_kernel`` (the JAX runtime's ``use_pallas``, ``--sparse_kernel``
+    on its validation CLI) decides the attention path as the JAX runtime
+    does when it builds its model: True sends every attention layer through
+    the window-skipping block kernel, False (the default) leaves the masked
+    path, or the ``attention.fused_block`` / ``attention.gather_budget``
+    path of the configuration. It is set on ``model``.
     """
 
     def __init__(
@@ -55,6 +67,7 @@ class StreamingDetector:
         count_cutoff: int = 10,
         num_streams: int = 1,
         device="cuda",
+        sparse_kernel: bool = False,
     ):
         self.device = resolve_device(device)
         bb = cfg.model.backbone
@@ -66,6 +79,7 @@ class StreamingDetector:
         self.bins, self.count_cutoff = bins, count_cutoff
         self.native_hw = cfg.dataset.resolution_hw
         self.model = model.to(self.device).eval()
+        set_sparse_kernel(self.model, sparse_kernel)
         self.dtype = DTYPES[cfg.model.compute_dtype]
         self.padder = InputPadder(bb.in_res_hw)
         self.token_mask = (
