@@ -4,12 +4,13 @@
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
 CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
 
-1. Print the card's name and power limit; build the six kernels (five
+1. Print the card's name and power limit; build the eight kernels (six
    libraries) from ``sast_tpu_torch/csrc`` (one nvcc per source, all started
    together).
 2. Hold each kernel against its plain PyTorch version on the card, TF32
    off, at the gen4-base b4 serving shapes, and time kernel, plain version,
-   bound and library call. The three block kernels (fused, sparse, looped)
+   bound and library call; the stem kernel also at the training step's 12
+   lanes and the NMS kernel at the 36 frames of its ``eval_step``. The three block kernels (fused, sparse, looped)
    run at the four stage shapes, in bf16 and fp32, at window densities 0.1,
    0.4 and 1.0, beside the masked torch-op path and the gather path.
 3. Drive the port's main path: ``StreamingDetector`` at gen4-base width
@@ -22,9 +23,26 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    Then the same weights and frames on the sparse-kernel, looped-kernel,
    fused-kernel and budget-gather attention paths: 8 block-kernel launches
    per step, the kept-window share per stage, ms/step of each.
+   Then, at the four stage shapes of the gen4-base B = 12 training step,
+   bf16 and fp32, window densities 0.1, 0.4, 1.0 and no kept window: the
+   sparse forward kernel (output and saved h1) and the two backward kernels
+   (MLP branch, attention branch) against their plain versions, and the
+   whole ``autograd.Function`` against ``torch.autograd`` of the plain
+   block; time per layer beside autograd through the masked torch-op block.
 4. Hold the whole path on the card (kernels, fp32, TF32 off) on the masked,
    sparse, fused and gather attention paths against the same port on the
    CPU (plain versions, masked path) at gen4-base B=1 for 2 frames.
+5. Train: ``Trainer.fit`` for 4 steps at gen4-base width (B 12, T 5, L 3,
+   bf16, remat ``full``) on the sparse-kernel path and on the masked path
+   from one seed and the same batches (synthetic at sparsity 0.9, then
+   clustered scenes that leave windows unkept): finite losses and
+   gradients, the launch counters of the forward and both backward kernels,
+   first-step losses of the two paths compared, ms/step, kernel time per
+   step and peak memory of both. Then two fp32 steps on the card (sparse
+   path, kernels) against the same steps on the CPU (plain versions) and on
+   the masked path at a cut size, gradients compared leaf by leaf; the
+   first step again under remat ``none`` and ``dots``; ``infer_step``
+   against ``eval_step``.
 
 Prints the kernel table as one JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Longer output (build
@@ -46,13 +64,19 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 DEVICE = "cuda"
 KERNEL_SHAPE = (4, 384, 640, 20)  # the stem input of the gen4-base b4 step
-FRAMES = 8
-PATH_FRAMES = 4  # frames driven on each of the other attention paths
+TRAIN_KERNEL_SHAPE = (12, 384, 640, 20)  # the stem input of the B = 12 training step
+NMS_FRAMES = (4, 36)  # frames per NMS launch: the b4 step; eval_step at B 12, L 3
+FRAMES = 6
+PATH_FRAMES = 3  # frames driven on each of the other attention paths
 STREAMS = 4
 # (M windows, C, heads) of one attention layer per stage of the gen4-base b4
 # step; hw = 60 tokens per window, dim_head 32.
 BLOCK_SHAPES = ((1024, 64, 2), (256, 128, 4), (64, 256, 8), (16, 512, 16))
 BLOCK_HW = 60
+# The same layers in the gen4-base training step: B = 12 lanes.
+TRAIN_BLOCK_SHAPES = tuple((3 * M, C, heads) for M, C, heads in BLOCK_SHAPES)
+BWD_DENSITIES = (0.1, 0.4, 1.0, 0.0)
+TRAIN_STEPS = 4
 BLOCK_DENSITIES = (0.1, 0.4, 1.0)
 BLOCK_TABLE_DENSITY = 0.4  # the density whose times go into the kernels line
 LAYER_SCALE = 0.05  # LayerScale of the CPU-parity model
@@ -68,7 +92,11 @@ def fail(msg: str) -> None:
 
 
 def log(msg: str) -> None:
+    """Print a line, and keep it in ``chiprun_out/chip_smoke_log.txt``."""
     print(msg, flush=True)
+    if OUT_DIR.is_dir():
+        with open(OUT_DIR / "chip_smoke_log.txt", "a") as f:
+            f.write(msg + "\n")
 
 
 _AHEAD = []
@@ -176,6 +204,23 @@ def phase_kernels(torch, np):
                 log(f"kernel stem_conv7x4 {dt} density={with_density} input {i}: "
                     f"max_abs_err {err:.3e} (max|y| {scale:.3f}, tol {tol:.3e})")
                 results[f"stem_err_{dt}_{with_density}_{i}"] = err
+    # The training step gives the kernel 12 lanes per timestep.
+    x12 = torch.from_numpy(np.random.RandomState(3).poisson(0.1, TRAIN_KERNEL_SHAPE)
+                           .clip(0, 10).astype(np.uint8)).to(DEVICE)
+    for dt in (torch.float32, torch.bfloat16):
+        got = stem_conv.stem_conv7x4(x12, w32.to(dt), True)
+        ref = stem_conv.stem_conv7x4_plain(x12, w32.to(dt), True)
+        scale = ref[0].float().abs().max().item()
+        err = (got[0].float() - ref[0].float()).abs().max().item()
+        tol = (1e-5 if dt == torch.float32 else 2 ** -7) * max(scale, 1.0)
+        if not err <= tol or not torch.equal(got[1], ref[1]):
+            fail(f"stem kernel {dt} at the training shape {TRAIN_KERNEL_SHAPE}: max err {err} "
+                 f"> {tol}, or the density ratio differs")
+        log(f"kernel stem_conv7x4 {dt} density=True at {TRAIN_KERNEL_SHAPE}: max_abs_err "
+            f"{err:.3e} (max|y| {scale:.3f}, tol {tol:.3e}); density ratio exact")
+        results[f"stem_err_{dt}_train"] = err
+    ms_b12 = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x12, w32.to(torch.bfloat16), True))
+    del x12
     x = xs[0]
     wb = w32.to(torch.bfloat16)
     ms = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x, wb, True))
@@ -191,11 +236,12 @@ def phase_kernels(torch, np):
     err_a = max(v for k, v in results.items() if k.startswith("stem_err_torch.bfloat16"))
     log(f"kernel stem_conv7x4 bf16+density {ms:.4f} ms, no density {ms_nd:.4f} ms, "
         f"fp32+density {ms_fp32:.4f} ms, plain {plain:.4f} ms, F.conv2d {lib:.4f} ms, "
-        f"bound {a_bound:.4f} ms ({a_by}: {a_bytes / 1e6:.1f} MB, {a_flops / 1e9:.2f} GFLOP)")
+        f"bound {a_bound:.4f} ms ({a_by}: {a_bytes / 1e6:.1f} MB, {a_flops / 1e9:.2f} GFLOP); "
+        f"at the B = 12 training shape {ms_b12:.4f} ms")
     stem = dict(name="stem_conv7x4", route="cuda", source="sast_tpu_torch/csrc/stem_conv.cu",
                 replaces="sast_tpu/ops/pallas/stem_conv.py:604", launches=None,
                 max_abs_err=err_a, ms=ms, plain_ms=plain, bound_ms=a_bound, bound_by=a_by,
-                library_ms=lib, ms_no_density=ms_nd, ms_fp32=ms_fp32)
+                library_ms=lib, ms_no_density=ms_nd, ms_fp32=ms_fp32, ms_b12=ms_b12)
 
     # Kernel B.
     for i, xi in enumerate(xs):
@@ -211,22 +257,27 @@ def phase_kernels(torch, np):
                 max_abs_err=0.0, ms=ms_b, plain_ms=plain_b, bound_ms=b_bound,
                 bound_by=b_by, library_ms=None)
 
-    # Kernel C: (4, 1000) clustered, score-sorted candidates.
-    rng = np.random.RandomState(2)
-    n, k = 4, 1000
-    centers = rng.rand(n, 12, 2) * 600
-    idx = rng.randint(0, 12, (n, k))
-    xy = centers[np.arange(n)[:, None], idx] + rng.randn(n, k, 2) * 15
-    wh = 10 + rng.rand(n, k, 2) * 60
-    boxes = torch.from_numpy(
-        np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)).to(DEVICE)
-    sc = np.sort(rng.rand(n, k).astype(np.float32), axis=-1)[:, ::-1].copy()
-    sc[:, -100:] = 0.0
-    scores = torch.from_numpy(sc).to(DEVICE)
-    keep = nms_keep.greedy_keep(boxes, scores, 0.45)
-    keep_ref = nms_keep.greedy_keep_plain(boxes, scores, 0.45)
-    if not torch.equal(keep, keep_ref):
-        fail(f"greedy keep kernel differs at {int((keep != keep_ref).sum())} candidates")
+    # Kernel C: (n, 1000) clustered, score-sorted candidates, for the frame
+    # count of the serving step (timed) and that of eval_step in training.
+    k = 1000
+    for n in NMS_FRAMES[::-1]:
+        rng = np.random.RandomState(2)
+        centers = rng.rand(n, 12, 2) * 600
+        idx = rng.randint(0, 12, (n, k))
+        xy = centers[np.arange(n)[:, None], idx] + rng.randn(n, k, 2) * 15
+        wh = 10 + rng.rand(n, k, 2) * 60
+        boxes = torch.from_numpy(
+            np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)).to(DEVICE)
+        sc = np.sort(rng.rand(n, k).astype(np.float32), axis=-1)[:, ::-1].copy()
+        sc[:, -100:] = 0.0
+        scores = torch.from_numpy(sc).to(DEVICE)
+        keep = nms_keep.greedy_keep(boxes, scores, 0.45)
+        keep_ref = nms_keep.greedy_keep_plain(boxes, scores, 0.45)
+        if not torch.equal(keep, keep_ref):
+            fail(f"greedy keep kernel differs at {int((keep != keep_ref).sum())} candidates "
+                 f"of {n} frames")
+        log(f"kernel greedy_keep ({n}, {k}, 4): exact; kept {int(keep.sum())} of "
+            f"{int((scores > 0).sum())}")
     ms_c = cuda_ms(torch, lambda: nms_keep.greedy_keep(boxes, scores, 0.45))
     plain_c = cuda_ms(torch, lambda: nms_keep.greedy_keep_plain(boxes, scores, 0.45),
                       iters=3, warmup=1)
@@ -236,8 +287,8 @@ def phase_kernels(torch, np):
     tests = float((kept_before * (scores > 0)).sum())
     c_bound, c_by = bound_ms(boxes.numel() * 4 + scores.numel() * 4 + keep.numel(),
                              12.0 * tests, "fp32")
-    log(f"kernel greedy_keep {ms_c:.4f} ms, plain {plain_c:.4f} ms, bound {c_bound:.6f} ms "
-        f"({c_by}); exact; kept {int(keep.sum())} of {int((scores > 0).sum())}")
+    log(f"kernel greedy_keep ({n}, {k}, 4) {ms_c:.4f} ms, plain {plain_c:.4f} ms, bound "
+        f"{c_bound:.6f} ms ({c_by})")
     nmsk = dict(name="greedy_keep", route="cuda", source="sast_tpu_torch/csrc/nms_keep.cu",
                 replaces="sast_tpu/ops/pallas/nms_keep.py:79", launches=None,
                 max_abs_err=0.0, ms=ms_c, plain_ms=plain_c, bound_ms=c_bound,
@@ -274,10 +325,10 @@ def block_case(torch, np, M, C, heads, dtype, density, seed):
             p.copy_(torch.from_numpy(v.astype(np.float32)))
     attn = attn.to(DEVICE).eval()
     win = rng.rand(M) < density
-    win[0] = True
+    win[0] = density > 0.0
     tok = (rng.rand(M, hw) < 0.5) & win[:, None]
     tok[0] = False
-    tok[0, hw // 2] = True
+    tok[0, hw // 2] = density > 0.0
     win &= tok.any(-1)
     y = torch.from_numpy(rng.randn(M, hw, C).astype(np.float32)).to(DEVICE, dtype)
     return (attn, kernel_params(attn), y, torch.from_numpy(tok).to(DEVICE),
@@ -421,6 +472,233 @@ def phase_block_kernels(torch, np):
     return out
 
 
+def bwd_bounds(M_run, M, C, inner, y_bytes, w_bytes, kind):
+    """Least times of the two backward kernels on ``M_run`` kept of ``M``
+    windows. MLP kernel: recompute (u, mlp) plus dWout, g_m, dWglu, g_h1 =
+    18 hw C I operations per kept window; h1 of the kept windows and g of all
+    windows read, gh1 of all windows written, the two matrices read in both
+    layouts, their fp32 gradients written. Attention kernel: recompute (qkv,
+    logits, P v, proj) plus dWproj, g_ao, dP, gq, gk, gv, dWqkv, g_z =
+    24 hw C^2 + 12 hw^2 C per kept window; y of the kept windows and gh1 of
+    all read, dy of all written, wqkv and wproj in both layouts, gradients."""
+    hw = BLOCK_HW
+    tok = hw * C
+    mlp_bytes = (M_run * tok * 4 + M * tok * (y_bytes + 4) + M * hw + 4 * M
+                 + 2 * 3 * C * inner * w_bytes + 3 * C * inner * 4 + (4 * C + 6 * inner) * 4)
+    mlp_flops = M_run * 18.0 * hw * C * inner
+    attn_bytes = (M_run * tok * y_bytes + M * tok * (4 + y_bytes) + M * hw + 4 * M
+                  + 2 * 4 * C * C * w_bytes + 4 * C * C * 4 + 20 * C * 4)
+    attn_flops = M_run * (24.0 * hw * C * C + 12.0 * hw * hw * C)
+    return bound_ms(mlp_bytes, mlp_flops, kind), bound_ms(attn_bytes, attn_flops, kind)
+
+
+def close_enough(got, ref, rtol, atol):
+    err = (got.float() - ref.float()).abs()
+    return bool((err <= atol + rtol * ref.float().abs()).all()), err.max().item()
+
+
+def phase_bwd_kernels(torch, np):
+    """Kernels G (``sparse_block_mlp_bwd``) and H (``sparse_block_attn_bwd``)
+    against their plain versions, and the ``autograd.Function`` of
+    ``sparse_window_block`` against ``torch.autograd`` of the plain block on
+    the kept windows, per stage shape of the B = 12 training step, dtype and
+    window density; then their times beside autograd through the masked
+    torch-op block."""
+    from sast_tpu_torch.ops import block, sparse_block
+
+    names = ("sparse_block_mlp_bwd", "sparse_block_attn_bwd")
+    worst = dict.fromkeys(names, 0.0)      # largest absolute error of any output
+    worst_rel = dict.fromkeys(names, 0.0)  # largest error over max|ref| of its tensor
+    worst_fn = {"bf16": 0.0, "fp32": 0.0}
+    worst_fwd = {"bf16": 0.0, "fp32": 0.0}  # the forward kernel at these shapes
+    problems = []  # every violation of the phase, reported together
+    totals = {n: dict(ms=0.0, plain=0.0, bound=0.0, by={}) for n in names}
+    totals["function"] = dict(fwd_bwd=0.0, bwd=0.0, masked_fwd_bwd=0.0, masked_bwd=0.0)
+    table = []
+    for si, (M, C, heads) in enumerate(TRAIN_BLOCK_SHAPES):
+        dh = C // heads
+        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            for density in BWD_DENSITIES:
+                attn, params, y, tok, win = block_case(
+                    torch, np, M, C, heads, dtype, density, 200 + si)
+                inner = params["wout"].shape[0]
+                n_win = int(win.sum())
+                where = f"stage {si + 1} {kind} density {density}"
+                g = torch.randn(y.shape, generator=torch.Generator().manual_seed(si)).to(
+                    DEVICE, dtype)
+                work = block.work_list(win)
+                with torch.no_grad():
+                    fwd, h1 = sparse_block.sparse_window_block(
+                        y, tok, win, params, heads, dh, save_h1=True)
+                    fwd_ref, h1_ref = sparse_block.sparse_window_block_plain(
+                        y, tok, win, params, heads, dh, save_h1=True)
+                    gh1, acc_g = sparse_block.sparse_block_mlp_bwd(
+                        h1, tok, work, params, g, heads, dh)
+                    gh1_ref, acc_g_ref = sparse_block.sparse_block_mlp_bwd_plain(
+                        h1, tok, work, params, g)
+                    dy, acc_h = sparse_block.sparse_block_attn_bwd(
+                        y, tok, work, params, gh1_ref, heads, dh)
+                    dy_ref, acc_h_ref = sparse_block.sparse_block_attn_bwd_plain(
+                        y, tok, work, params, gh1_ref, heads, dh)
+                torch.cuda.synchronize()
+                # The forward kernel at this shape, whose h1 both backward
+                # versions take: the forward tolerances of the serving shapes
+                # (fp32 rtol 2e-4 + atol 2e-5 max|ref|; bf16 two bf16 ulps at
+                # max|ref|; unkept tokens and skipped windows bit-equal).
+                rtol_f, rel_f = (2e-4, 2e-5) if dtype == torch.float32 else (0.0, 2 ** -7)
+
+                def hold_forward(what, got_out, got_h1=None):
+                    pairs = [("out", got_out, fwd_ref)]
+                    if got_h1 is not None:
+                        pairs.append(("h1", got_h1, h1_ref))
+                    for key, a, b in pairs:
+                        scale = b.float().abs().max().item()
+                        ok, err = close_enough(a, b, rtol_f, rel_f * scale)
+                        if not ok or not bool(torch.isfinite(a.float()).all()):
+                            problems.append(f"{what} {where} {key}: max err {err} at max|ref| "
+                                            f"{scale}")
+                        worst_fwd[kind] = max(worst_fwd[kind], err / max(scale, 1e-30))
+                    if not torch.equal(got_out[~tok], y[~tok]) or (
+                            got_h1 is not None and not torch.equal(got_h1[~win], y[~win].float())):
+                        problems.append(f"{what} {where}: unkept tokens or skipped windows are "
+                                        "not bit-equal to y")
+
+                hold_forward("sparse_window_block", fwd, h1)
+                # fp32: the forward kernels' tolerance (other summation order,
+                # atomics in any order). bf16: the products g W^T round their
+                # first operand to bf16, and a sum that differs in its last
+                # fp32 bits flips such a rounding: four bf16 ulps at max|ref|.
+                rtol, rel = (2e-4, 2e-5) if dtype == torch.float32 else (0.0, 2 ** -6)
+                checks = [("sparse_block_mlp_bwd", "gh1", gh1, gh1_ref)]
+                checks += [("sparse_block_mlp_bwd", k, acc_g[k], acc_g_ref[k]) for k in acc_g_ref]
+                checks += [("sparse_block_attn_bwd", "dy", dy, dy_ref)]
+                checks += [("sparse_block_attn_bwd", k, acc_h[k], acc_h_ref[k]) for k in acc_h_ref]
+                for name, what, got, ref in checks:
+                    scale = ref.float().abs().max().item()
+                    ok, err = close_enough(got, ref, rtol, rel * scale)
+                    if not ok or not bool(torch.isfinite(got.float()).all()):
+                        problems.append(f"{name} {where} {what}: max err {err} at max|ref| {scale}")
+                    worst[name] = max(worst[name], err)
+                    worst_rel[name] = max(worst_rel[name], err / max(scale, 1e-30))
+                if not torch.equal(gh1[~win], g[~win].float()) \
+                        or not torch.equal(dy[~win], gh1_ref[~win].to(dtype)):
+                    problems.append(f"backward kernels {where}: skipped windows do not pass g on")
+                if n_win == 0 and any(bool(v.any()) for v in (*acc_g.values(), *acc_h.values())):
+                    problems.append(f"backward kernels {where}: a parameter gradient is not 0")
+
+                # The Function (kernel E forward, G and H backward) against
+                # torch.autograd of the plain block on the kept windows.
+                leaves = [t.detach().clone().requires_grad_() for t in block.kernel_leaves(attn)]
+                yg = y.detach().clone().requires_grad_()
+                out = sparse_block.sparse_window_block(yg, tok, win, params, heads, dh,
+                                                       leaves=leaves)
+                hold_forward("sparse_window_block Function forward", out.detach())
+                got = torch.autograd.grad(out, [yg] + leaves, g, retain_graph=True)
+                ref_out = sparse_block.sparse_window_block_plain(
+                    yg, tok, win, block.params_from_leaves(leaves, dtype), heads, dh)
+                ref = torch.autograd.grad(ref_out, [yg] + leaves, g, allow_unused=True)
+                ref = [torch.zeros_like(a) if b is None else b for a, b in zip(got, ref)]
+                # bf16: autograd of the plain block also rounds every
+                # cotangent that crosses a cast to bf16, which the kernels
+                # keep in fp32: eight bf16 ulps at max|ref|.
+                rel_fn = 2e-5 if dtype == torch.float32 else 2 ** -5
+                for key, a, b in zip(("y",) + block.PARAM_KEYS, got, ref):
+                    scale = b.float().abs().max().item()
+                    ok, err = close_enough(a, b, rtol, rel_fn * scale)
+                    if not ok:
+                        problems.append(f"sparse_window_block Function {where} d{key}: max err "
+                                        f"{err} at max|ref| {scale}")
+                    worst_fn[kind] = max(worst_fn[kind], err / max(scale, 1e-30))
+                if density == 0.0:
+                    log(f"bwd {where}: dy == g, every parameter gradient exactly zero")
+                    continue
+
+                # Times: each kernel's wrapper alone; backward only and
+                # forward + backward of the Function and of the masked
+                # torch-op block under autograd.
+                y4, tok4, win4 = yg[None], tok[None], win[None]
+                out_m = attn.run_block(y4, tok4, win4)
+                mparams = [p for p in attn.parameters() if p.requires_grad]
+
+                def masked_fwd_bwd():
+                    o = attn.run_block(y4, tok4, win4)
+                    torch.autograd.grad(o, [yg] + mparams, g[None], allow_unused=True)
+
+                def fn_fwd_bwd():
+                    o = sparse_block.sparse_window_block(yg, tok, win, params, heads, dh,
+                                                         leaves=leaves)
+                    torch.autograd.grad(o, [yg] + leaves, g)
+
+                calls = dict(
+                    mlp=lambda: sparse_block.sparse_block_mlp_bwd(h1, tok, work, params, g, heads, dh),
+                    attn=lambda: sparse_block.sparse_block_attn_bwd(
+                        y, tok, work, params, gh1_ref, heads, dh),
+                    fn_bwd=lambda: torch.autograd.grad(out, [yg] + leaves, g, retain_graph=True),
+                    fn_fwd_bwd=fn_fwd_bwd,
+                    masked_bwd=lambda: torch.autograd.grad(
+                        out_m, [yg] + mparams, g[None], retain_graph=True, allow_unused=True),
+                    masked_fwd_bwd=masked_fwd_bwd,
+                )
+                t = {k: cuda_ms(torch, fn, iters=5, warmup=2, ahead=True) for k, fn in calls.items()}
+                with torch.no_grad():
+                    t["mlp_plain"] = cuda_ms(torch, lambda: sparse_block.sparse_block_mlp_bwd_plain(
+                        h1, tok, work, params, g), iters=3, warmup=1)
+                    t["attn_plain"] = cuda_ms(torch, lambda: sparse_block.sparse_block_attn_bwd_plain(
+                        y, tok, work, params, gh1_ref, heads, dh), iters=3, warmup=1)
+                nb = 2 if dtype == torch.bfloat16 else 4
+                (bg, bg_by), (bh, bh_by) = bwd_bounds(n_win, M, C, inner, nb, nb, kind)
+                table.append(dict(stage=si + 1, M=M, C=C, dtype=kind, density=density,
+                                  n_win=n_win, mlp_bound_ms=bg, attn_bound_ms=bh,
+                                  mlp_bound_by=bg_by, attn_bound_by=bh_by, **t))
+                log(f"bwd {where} ({n_win}/{M} windows), card ms: G {t['mlp']:.4f} "
+                    f"(plain {t['mlp_plain']:.3f}, bound {bg:.5f} {bg_by}) H {t['attn']:.4f} "
+                    f"(plain {t['attn_plain']:.3f}, bound {bh:.5f} {bh_by}); Function bwd "
+                    f"{t['fn_bwd']:.4f}, fwd+bwd {t['fn_fwd_bwd']:.4f}; masked autograd bwd "
+                    f"{t['masked_bwd']:.4f}, fwd+bwd {t['masked_fwd_bwd']:.4f}")
+                if kind == "bf16" and density == BLOCK_TABLE_DENSITY:
+                    for name, key, b, by in (("sparse_block_mlp_bwd", "mlp", bg, bg_by),
+                                             ("sparse_block_attn_bwd", "attn", bh, bh_by)):
+                        tot = totals[name]
+                        tot["ms"] += t[key]
+                        tot["plain"] += t[key + "_plain"]
+                        tot["bound"] += b
+                        tot["by"][by] = tot["by"].get(by, 0.0) + b
+                    f = totals["function"]
+                    f["bwd"] += t["fn_bwd"]
+                    f["fwd_bwd"] += t["fn_fwd_bwd"]
+                    f["masked_bwd"] += t["masked_bwd"]
+                    f["masked_fwd_bwd"] += t["masked_fwd_bwd"]
+                del out, out_m, ref_out, got, ref
+    (OUT_DIR / "bwd_kernels.json").write_text(json.dumps(table, indent=1))
+    log(f"backward kernels: worst error over max|ref| of its tensor: {worst_rel}; Function "
+        f"against autograd of the plain block: {worst_fn}; the forward kernel (out, h1) "
+        f"against its plain version at these shapes: {worst_fwd}")
+    if problems:
+        fail("backward-kernel phase:\n  " + "\n  ".join(problems))
+    replaces = dict(sparse_block_mlp_bwd="sast_tpu/ops/pallas/sparse_block.py:572",
+                    sparse_block_attn_bwd="sast_tpu/ops/pallas/sparse_block.py:606")
+    f = totals["function"]
+    log(f"sparse_window_block under autograd, sum over the 4 B=12 stage shapes, bf16, density "
+        f"{BLOCK_TABLE_DENSITY}: backward {f['bwd']:.4f} ms, forward + backward "
+        f"{f['fwd_bwd']:.4f} ms; masked torch ops under autograd: backward "
+        f"{f['masked_bwd']:.4f} ms, forward + backward {f['masked_fwd_bwd']:.4f} ms")
+    out = []
+    for name in names:
+        tot = totals[name]
+        log(f"kernel {name}: sum over the 4 B=12 stage shapes, bf16, density "
+            f"{BLOCK_TABLE_DENSITY}: {tot['ms']:.4f} ms on the card, plain {tot['plain']:.4f} ms, "
+            f"bound {tot['bound']:.5f} ms; worst absolute error {worst[name]:.3e}, "
+            f"{worst_rel[name]:.3e} of max|ref|")
+        out.append(dict(name=name, route="cuda", source="sast_tpu_torch/csrc/sparse_block_bwd.cu",
+                        replaces=replaces[name], launches=None, max_abs_err=worst[name],
+                        ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
+                        bound_by=max(tot["by"], key=tot["by"].get), library_ms=None,
+                        rel_err=worst_rel[name], forward_rel_err=worst_fwd,
+                        masked_autograd_bwd_ms=f["masked_bwd"],
+                        function_bwd_ms=f["bwd"], function_fwd_bwd_ms=f["fwd_bwd"],
+                        masked_autograd_fwd_bwd_ms=f["masked_fwd_bwd"]))
+    return out
+
 
 def reset_counters():
     from sast_tpu_torch.ops import density, fused_block, nms_keep, sparse_block, stem_conv
@@ -431,6 +709,8 @@ def reset_counters():
     fused_block.fused_window_block.launches = 0
     sparse_block.sparse_window_block.launches = 0
     sparse_block.sparse_window_block_looped.launches = 0
+    sparse_block.sparse_block_mlp_bwd.launches = 0
+    sparse_block.sparse_block_attn_bwd.launches = 0
 
 
 def read_counters():
@@ -441,7 +721,9 @@ def read_counters():
                 greedy_keep=nms_keep.greedy_keep.launches,
                 fused_window_block=fused_block.fused_window_block.launches,
                 sparse_window_block=sparse_block.sparse_window_block.launches,
-                sparse_window_block_looped=sparse_block.sparse_window_block_looped.launches)
+                sparse_window_block_looped=sparse_block.sparse_window_block_looped.launches,
+                sparse_block_mlp_bwd=sparse_block.sparse_block_mlp_bwd.launches,
+                sparse_block_attn_bwd=sparse_block.sparse_block_attn_bwd.launches)
 
 
 def phase_serving(torch, np, card):
@@ -675,6 +957,358 @@ def phase_attention_paths(torch, np, cfg, model, det_masked, frames, masked_outs
     return results
 
 
+def clustered_train_batch(torch, np, cfg, rng, step, batch_size=None, seq_len=None):
+    """A training batch whose scenes leave windows unkept: the labels of
+    ``synthetic_train_batch``, and as events three blobs per lane
+    (``clustered_events``), tensorized on the device by the serving path's
+    ``stacked_histogram`` at the dataset's native resolution (the train step
+    pads to the model's)."""
+    from sast_tpu_torch.data.representations import stacked_histogram
+    from sast_tpu_torch.data.synthetic import synthetic_train_batch
+    from sast_tpu_torch.packing import pack_event_batch
+
+    batch = synthetic_train_batch(cfg, rng, batch_size=batch_size, seq_len=seq_len)
+    T, B = batch["ev_repr"].shape[:2]
+    h, w = cfg.dataset.resolution_hw
+    bins = cfg.model.backbone.input_channels // 2
+    frames = []
+    for t in range(T):
+        lanes = [clustered_events(np, rng, EVENTS_PER_FRAME, h, w, step * T + t, b)
+                 for b in range(B)]
+        packed, n = pack_event_batch(lanes, B, EVENTS_PER_FRAME)
+        rep = stacked_histogram(torch.from_numpy(packed).to(DEVICE),
+                                torch.from_numpy(n).to(DEVICE), bins, h, w, 10)
+        frames.append(rep.reshape(B, h, -1).cpu().numpy())
+    batch["ev_repr"] = np.stack(frames)
+    return batch
+
+
+def phase_training(torch, np, card):
+    """``Trainer.fit`` at gen4-base width on the sparse-kernel and the masked
+    path, then fp32 steps on the card against the CPU at a cut size."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.batch import to_device
+    from sast_tpu_torch.data.synthetic import synthetic_train_batch
+    from sast_tpu_torch.models.sast import MaskedSparseAttention
+    from sast_tpu_torch.training.loop import Trainer
+
+    cfg = get_config("gen4", "base")
+    tr = cfg.training
+    B, T, L = tr.batch_size_train, cfg.dataset.sequence_length, tr.max_labeled_frames_per_lane
+    log(f"training gen4-base: B {B}, T {T}, L {L}, {cfg.model.compute_dtype}, remat "
+        f"{tr.remat_policy}, max_gt {cfg.model.head.max_gt}, simota_topk "
+        f"{cfg.model.head.simota_topk}, lr {tr.learning_rate}")
+    rng = np.random.RandomState(21)
+    batches = [synthetic_train_batch(cfg, rng, sparsity=0.9) for _ in range(2)]
+    batches += [clustered_train_batch(torch, np, cfg, rng, i) for i in range(TRAIN_STEPS - 2)]
+    for i, b in enumerate(batches):
+        b["is_first"] = np.full((B,), i == 0)
+    dev_batches = [to_device(b, DEVICE) for b in batches]
+    layers = 8  # 4 stages x (window layer + grid layer)
+    results = {}
+    for name, sparse in (("sparse", True), ("masked", False)):
+        workdir = OUT_DIR / f"train_{name}"
+        (workdir / "metrics.jsonl").unlink(missing_ok=True)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, str(workdir), log_every=1, sparse_kernel_train=sparse,
+                          device=DEVICE)
+        reset_counters()
+        t0 = time.perf_counter()
+        trainer.fit(iter(batches), max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counters()
+        rows = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/loss"] for r in rows]
+        if len(rows) != TRAIN_STEPS or not all(np.isfinite(v) for v in losses):
+            fail(f"training {name}: {len(rows)} logged steps, losses {losses}")
+        if not all(np.isfinite(r["train/grad_norm"]) for r in rows):
+            fail(f"training {name}: a gradient norm is not finite")
+        bad = [n for n, p in trainer.model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if bad:
+            fail(f"training {name}: parameters without a finite gradient: {bad[:5]}")
+        per_step = layers * T
+        expect = dict(sparse_window_block=2 * per_step * TRAIN_STEPS if sparse else 0,
+                      sparse_block_mlp_bwd=per_step * TRAIN_STEPS if sparse else 0,
+                      sparse_block_attn_bwd=per_step * TRAIN_STEPS if sparse else 0,
+                      stem_conv7x4=2 * T * TRAIN_STEPS)
+        for k, v in expect.items():
+            if counts[k] != v:
+                fail(f"training {name}: {counts[k]} launches of {k} over {TRAIN_STEPS} steps, "
+                     f"expected {v} (forward and recomputation): {counts}")
+        peak = torch.cuda.max_memory_allocated()
+
+        # One evaluation step (backbone over the clip, detection at the
+        # labeled frames, NMS kernel) on the path this trainer trains on.
+        trainer.sparse_kernel_eval = sparse
+        reset_counters()
+        _, dets = trainer.eval_step(dev_batches[-1], trainer.lstm_states)
+        eval_counts = read_counters()
+        if tuple(dets["boxes"].shape[:1]) != (B * L,) or not bool(
+                torch.isfinite(dets["boxes"][dets["valid"]]).all()):
+            fail(f"training {name}: eval_step detections malformed")
+        if eval_counts["greedy_keep"] != 1 or eval_counts["sparse_window_block"] != (
+                per_step if sparse else 0):
+            fail(f"training {name}: eval_step launches {eval_counts}")
+        log(f"training {name}: eval_step on {B * L} labeled frames, "
+            f"{int(dets['valid'].sum())} detections, launches greedy_keep "
+            f"{eval_counts['greedy_keep']}, sparse_window_block "
+            f"{eval_counts['sparse_window_block']}")
+
+        # Steady state: more steps on batches already on the card, host
+        # clock around work that ends in a synchronise; then kernel time on
+        # the card from the profiler over one step.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in dev_batches[2:]:
+            trainer.state, trainer.lstm_states, _ = trainer.train_step(
+                trainer.state, b, trainer.lstm_states)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / len(dev_batches[2:]) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(trainer.state, dev_batches[-1], trainer.lstm_states)
+            torch.cuda.synchronize()
+        rows_k = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(getattr(e, "self_device_time_total", 0)
+                      or getattr(e, "self_cuda_time_total", 0) for e in rows_k)
+        if busy_us <= 0:
+            fail(f"training {name}: the profiler saw no kernel time on the card")
+        ours = {e.key[:60]: (getattr(e, "self_device_time_total", 0)
+                             or getattr(e, "self_cuda_time_total", 0)) / 1e3
+                for e in rows_k if "window_block_kernel" in e.key or "_bwd_kernel" in e.key
+                or "stem" in e.key}
+        if name == "sparse":
+            table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+            (OUT_DIR / "training_profile.txt").write_text(table)
+        results[name] = dict(losses=losses, first_step=rows[0],
+                             grad_norms=[r["train/grad_norm"] for r in rows],
+                             selected_tokens=[r["train/SN"] for r in rows], counts=counts,
+                             fit_seconds=fit_s, step_ms=step_ms, card_ms=busy_us / 1e3,
+                             idle_share=1 - busy_us / 1e3 / step_ms, peak_bytes=peak,
+                             hand_written_kernels_ms=ours)
+        log(f"training {name} on {card}: losses {[round(v, 4) for v in losses]}, grad norms "
+            f"{[round(r['train/grad_norm'], 3) for r in rows]}; launches {counts}")
+        log(f"training {name}: {step_ms:.1f} ms/step on batches on the card ({fit_s:.1f} s for "
+            f"the {TRAIN_STEPS} logged steps with upload), kernel time on the card "
+            f"{busy_us / 1e3:.1f} ms/step, idle share {1 - busy_us / 1e3 / step_ms:.3f}, peak "
+            f"memory {peak / 2 ** 30:.2f} GiB; hand-written kernels ms/step: "
+            f"{ {k: round(v, 2) for k, v in ours.items()} }")
+        if name == "sparse":
+            # Kept-window share per attention layer on one clustered timestep.
+            shares = []
+            hooks = [m.register_forward_pre_hook(
+                lambda _m, args: shares.append(float(args[2].float().mean())))
+                for m in trainer.model.modules() if isinstance(m, MaskedSparseAttention)]
+            with torch.no_grad():
+                x = dev_batches[-1]["ev_repr"][0]
+                x = x.reshape(x.shape[0], x.shape[1], -1, cfg.model.backbone.input_channels)
+                trainer.model.forward_backbone(torch.nn.functional.pad(
+                    x, (0, 0, 0, 0, 0, cfg.model.backbone.in_res_hw[0] - x.shape[1])))
+            for h in hooks:
+                h.remove()
+            log(f"training: kept-window share per attention layer on a clustered timestep: "
+                f"{[round(v, 3) for v in shares]}")
+            if min(shares) >= 1.0:
+                fail("training: every window is kept in every layer of the clustered batch")
+            results[name]["window_share"] = shares
+        del trainer
+        torch.cuda.empty_cache()
+    # Same seed, same batches: the two paths compute one function and round
+    # at other places in bf16 (the block kernels keep activations in fp32).
+    # At a random init every candidate's SimOTA cost is nearly tied, so such
+    # rounding moves a few of the ~70 foreground assignments, and every loss
+    # term is divided by their count: 5% covers that, and the foreground
+    # count per ground truth is printed beside the loss to show it. The
+    # selected-token count comes from fp32 scores of the same input on both
+    # paths and must agree to 1e-3. The fp32 steps below hold the two paths
+    # to 1e-4.
+    first = {name: results[name]["first_step"] for name in ("sparse", "masked")}
+    a, b = first["sparse"]["train/loss"], first["masked"]["train/loss"]
+    rel = abs(a - b) / abs(b)
+    sn_rel = abs(first["sparse"]["train/SN"] - first["masked"]["train/SN"]) / first["masked"]["train/SN"]
+    for name, row in first.items():
+        log(f"training {name}, first step: loss {row['train/loss']:.5f} = iou "
+            f"{row['train/iou_loss']:.5f} + conf {row['train/conf_loss']:.5f} + cls "
+            f"{row['train/cls_loss']:.5f}; foreground per ground truth "
+            f"{row['train/num_fg']:.5f}; selected tokens {row['train/SN']:.1f}; gradient norm "
+            f"{row['train/grad_norm']:.3f}")
+    log(f"training: first-step loss sparse {a:.5f} masked {b:.5f}, relative difference "
+        f"{rel:.3e} (tol 5e-2); selected tokens relative difference {sn_rel:.3e} (tol 1e-3)")
+    if rel > 5e-2 or sn_rel > 1e-3:
+        fail(f"training: first step of the two paths differs: loss {rel}, selected tokens "
+             f"{sn_rel}")
+    results["first_step_loss_rel_diff"] = rel
+    results["cut_fp32"] = training_cpu_parity(torch, np)
+    return results
+
+
+CUT_STEPS = 2  # fp32 train steps of the cut-size comparison
+
+
+def worst_leaf(named_a, named_b):
+    """Largest ``|a - b|`` over ``max|b|`` of its leaf, and that leaf's name,
+    over two lists of ``(name, tensor)`` in the same order."""
+    worst, where = 0.0, ""
+    for (name, a), (_, b) in zip(named_a, named_b):
+        rel = (a.cpu() - b.cpu()).abs().max().item() / max(b.abs().max().item(), 1e-12)
+        if rel > worst:
+            worst, where = rel, name
+    return worst, where
+
+
+def training_cpu_parity(torch, np):
+    """Two fp32 train steps at gen4-base width, B 2, T 2, L 1, LayerScale
+    0.05, clustered batches, the second step after an optimizer update and
+    with carried LSTM states: the sparse-kernel path on the card (kernels)
+    against the same steps on the CPU (plain versions) and against the masked
+    path on the card; loss, selected tokens, gradients and carried states
+    after each step. Then the first step again on the
+    card under ``remat_policy`` ``none`` and ``dots`` against ``full``, and
+    ``infer_step`` over the clip against ``eval_step`` at its last frame."""
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.batch import to_device
+    from sast_tpu_torch.models.backbone import zero_states
+    from sast_tpu_torch.models.detector import build_detector, set_sparse_kernel
+    from sast_tpu_torch.training.steps import (
+        make_eval_step, make_inference_step, make_train_step, train_state_for)
+
+    cfg = get_config("gen4", "base")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="float32",
+            # Scores sit at the prior (1e-4) at a random init: let them through.
+            postprocess=dataclasses.replace(cfg.model.postprocess, confidence_threshold=1e-6)),
+        dataset=dataclasses.replace(cfg.dataset, sequence_length=2),
+        training=dataclasses.replace(cfg.training, batch_size_train=2,
+                                     max_labeled_frames_per_lane=1))
+    T = cfg.dataset.sequence_length
+    model_cpu = build_detector(cfg.model, seed=5, device="cpu", sparse_kernel=True)
+    with torch.no_grad():
+        for name, p in model_cpu.named_parameters():
+            if name.endswith(("ls1.gamma", "ls2.gamma")):
+                p.fill_(LAYER_SCALE)
+    model_gpu = copy.deepcopy(model_cpu).to(DEVICE)
+    model_masked = copy.deepcopy(model_gpu)
+    set_sparse_kernel(model_masked, False)
+    remat_models = {policy: copy.deepcopy(model_gpu) for policy in ("none", "dots")}
+    rng = np.random.RandomState(31)
+    batches = [clustered_train_batch(torch, np, cfg, rng, i) for i in range(CUT_STEPS)]
+    for i, batch in enumerate(batches):
+        batch["is_first"] = np.full((2,), i == 0)
+
+    def run(model, device, run_cfg, steps):
+        """``steps`` train steps from zero states; per step the metrics, the
+        gradients and the carried states."""
+        state = train_state_for(model, run_cfg)
+        step = make_train_step(model, run_cfg)
+        states = zero_states(run_cfg.model.backbone, 2, device=device)
+        record = []
+        t0 = time.perf_counter()
+        for batch in batches[:steps]:
+            state, states, metrics = step(state, to_device(batch, device), states)
+            record.append(dict(
+                loss=float(metrics["loss"]), P=float(metrics["P"]),
+                grad_norm=float(metrics["grad_norm"]),
+                grads=[(n, p.grad.detach().clone()) for n, p in model.named_parameters()],
+                states=[(f"stage{i}.{hc}", s) for i, pair in enumerate(states)
+                        for hc, s in zip("hc", pair)]))
+        return record, (time.perf_counter() - t0) / steps
+
+    reset_counters()
+    rec_cpu, cpu_s = run(model_cpu, "cpu", cfg, CUT_STEPS)
+    rec_card, _ = run(model_gpu, DEVICE, cfg, CUT_STEPS)
+    counts = read_counters()
+    rec_masked, _ = run(model_masked, DEVICE, cfg, CUT_STEPS)
+    per_step = 8 * T  # 8 attention layers per timestep
+    if counts["sparse_window_block"] != 2 * per_step * CUT_STEPS \
+            or counts["sparse_block_mlp_bwd"] != per_step * CUT_STEPS \
+            or counts["sparse_block_attn_bwd"] != per_step * CUT_STEPS:
+        fail(f"fp32 train steps on the card did not launch the block kernels: {counts}")
+
+    # fp32 on both sides; convolutions, products and atomics sum in other
+    # orders, through two timesteps of recurrence and their recomputation.
+    # The second step starts from parameters that one AdamW update has moved
+    # by about +-lr (1.7e-5) each, with the sign of a gradient that is
+    # rounding noise where it is tiny: the updated parameters themselves are
+    # therefore not compared. A leaf is compared at its own max.
+    out = dict(cpu_step_seconds=cpu_s, steps=[])
+    for what, ref_name, ref in (("card (kernels) vs CPU (plain)", "cpu", rec_cpu),
+                                ("sparse-kernel vs masked path on the card", "masked",
+                                 rec_masked)):
+        for i, (got, want) in enumerate(zip(rec_card, ref)):
+            loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            p_rel = abs(got["P"] - want["P"]) / want["P"]
+            grad, grad_at = worst_leaf(got["grads"], want["grads"])
+            st, st_at = worst_leaf(got["states"], want["states"])
+            log(f"fp32 train step {i + 1}, {what}: loss {got['loss']:.6f} vs {want['loss']:.6f} "
+                f"(rel {loss_rel:.2e}, tol 1e-4), selected tokens {got['P']} vs "
+                f"{want['P']} (tol 1e-3), worst gradient leaf {grad_at}: {grad:.3e} of its max "
+                f"(tol 1e-2), worst carried state {st_at}: {st:.3e} (tol 1e-3)")
+            out["steps"].append(dict(step=i + 1, against=ref_name, loss=got["loss"],
+                                     ref_loss=want["loss"], loss_rel_diff=loss_rel,
+                                     P_rel_diff=p_rel, worst_grad_rel_diff=grad,
+                                     worst_grad_leaf=grad_at,
+                                     worst_state_rel_diff=st))
+            if loss_rel > 1e-4 or p_rel > 1e-3 or grad > 1e-2 or st > 1e-3:
+                fail(f"fp32 train step {i + 1}: {what} disagree")
+
+    # The other two remat policies on the card: the same forward kernels, so
+    # the same loss to fp32 rounding of one sum; gradients differ by the
+    # order of the atomics. ``none`` recomputes nothing: one forward launch
+    # per layer and timestep.
+    for policy, model in remat_models.items():
+        cfg_p = dataclasses.replace(
+            cfg, training=dataclasses.replace(cfg.training, remat_policy=policy))
+        reset_counters()
+        rec, _ = run(model, DEVICE, cfg_p, 1)
+        c = read_counters()
+        loss_rel = abs(rec[0]["loss"] - rec_card[0]["loss"]) / abs(rec_card[0]["loss"])
+        grad, grad_at = worst_leaf(rec[0]["grads"], rec_card[0]["grads"])
+        log(f"fp32 train step, remat {policy} vs full on the card: loss rel {loss_rel:.2e} "
+            f"(tol 1e-6), worst gradient leaf {grad_at}: {grad:.3e} of its max (tol 1e-3); "
+            f"launches forward {c['sparse_window_block']}, backward "
+            f"{c['sparse_block_mlp_bwd']} + {c['sparse_block_attn_bwd']}")
+        forward = per_step if policy == "none" else 2 * per_step
+        if loss_rel > 1e-6 or grad > 1e-3 or c["sparse_window_block"] != forward \
+                or c["sparse_block_mlp_bwd"] != per_step or c["sparse_block_attn_bwd"] != per_step:
+            fail(f"fp32 train step under remat {policy} disagrees with remat full: {c}")
+        out[f"remat_{policy}"] = dict(loss_rel_diff=loss_rel, worst_grad_rel_diff=grad)
+
+    # Streaming inference, frame by frame with carried states, against
+    # eval_step over the same clip with every lane labeled at its last frame:
+    # the same kernels on the same values, so the slates must agree.
+    batch = to_device(batches[0], DEVICE)
+    batch["frame_tidx"] = torch.full_like(batch["frame_tidx"], T - 1)
+    batch["frame_valid"] = torch.ones_like(batch["frame_valid"])
+    zeros = zero_states(cfg.model.backbone, 2, device=DEVICE)
+    reset_counters()
+    _, want = make_eval_step(model_gpu, cfg)(batch, zeros)
+    infer_step = make_inference_step(model_gpu, cfg)
+    states = zeros
+    for t in range(T):
+        x = batch["ev_repr"][t]
+        x = x.reshape(x.shape[0], x.shape[1], -1, cfg.model.backbone.input_channels)
+        got, states, _ = infer_step(x, states)
+    c = read_counters()
+    n = int(want["valid"].sum())
+    same = torch.equal(got["valid"], want["valid"]) and torch.equal(got["classes"], want["classes"])
+    box = (got["boxes"] - want["boxes"]).abs().max().item()
+    score = ((got["scores"] - want["scores"]).abs() / want["scores"].clamp_min(1e-12)).max().item()
+    log(f"infer_step over {T} frames vs eval_step at the last frame, fp32, sparse-kernel path: "
+        f"{n} detections, valid and classes {'equal' if same else 'DIFFER'}, max box diff "
+        f"{box:.3e} px (tol 1e-3), max score rel diff {score:.3e} (tol 1e-5); launches "
+        f"sparse_window_block {c['sparse_window_block']}, greedy_keep {c['greedy_keep']}")
+    if n == 0 or not same or box > 1e-3 or score > 1e-5 \
+            or c["sparse_window_block"] != 2 * per_step or c["greedy_keep"] != 1 + T:
+        fail("infer_step disagrees with eval_step on the card")
+    out["infer_step"] = dict(detections=n, box_diff_px=box, score_rel_diff=score)
+    return out
+
+
 def phase_cpu_parity(torch, np):
     from sast_tpu_torch.config import get_config
     from sast_tpu_torch.data.representations import stacked_histogram
@@ -784,6 +1418,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_log.txt").unlink(missing_ok=True)
     t_start = time.perf_counter()
 
     smi = subprocess.run(
@@ -804,6 +1439,10 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels = phase_kernels(torch, np) + phase_block_kernels(torch, np)
     log(f"phase 2: kernels hold against their plain versions ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    bwd_kernels = phase_bwd_kernels(torch, np)
+    log(f"phase 2: backward kernels hold against their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     serving = phase_serving(torch, np, smi)
@@ -828,8 +1467,18 @@ def main() -> None:
     parity = phase_cpu_parity(torch, np)
     log(f"phase 4: card matches the CPU plain path ({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    training = phase_training(torch, np, smi)
+    # The backward kernels' launches: the sparse-kernel training run.
+    for k in bwd_kernels:
+        k["launches"] = training["sparse"]["counts"][k["name"]]
+        if k["launches"] < 1:
+            fail(f"kernel {k['name']} was not launched by the training step")
+    kernels += bwd_kernels
+    log(f"phase 5: training step ok ({time.perf_counter() - t0:.1f} s)")
+
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
-                  seconds=time.perf_counter() - t_start)
+                  training=training, seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -40,6 +40,7 @@ KERNELS: Dict[str, tuple] = {
     "nms_keep": ("-fmad=false",),
     "fused_block": (),
     "sparse_block": (),
+    "sparse_block_bwd": (),
 }
 
 

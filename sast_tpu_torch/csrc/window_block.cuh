@@ -311,11 +311,10 @@ __device__ __forceinline__ float4 load_y4(const __nv_bfloat16* p) {
 // `src` is the window's hw x C tokens, in global memory or in the landing
 // buffer of the prefetch.
 template <typename YT, int MT>
-__device__ void load_window(const Args& a, int wid, const YT* src, unsigned char* smem) {
+__device__ void load_window(const Args& a, int wid, const YT* src, float* zf,
+                            unsigned char* skeep) {
   constexpr int R = MT * 16;
   const int C = a.C, ldz = C + PAD;
-  float* zf = reinterpret_cast<float*>(smem + a.L.zf);
-  unsigned char* skeep = smem + a.L.keep;
   for (int idx = threadIdx.x * 4; idx < R * C; idx += THREADS * 4) {
     const int r = idx / C, c = idx - r * C;
     const float4 v = r < a.hw ? load_y4(src + idx) : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -325,33 +324,16 @@ __device__ void load_window(const Args& a, int wid, const YT* src, unsigned char
     skeep[r] = r < a.hw ? a.keep[(size_t)wid * a.hw + r] : 0;
 }
 
-// The block on the window held in zf. Ends with a barrier. With `alias`
-// the output buffer is the input buffer, so unkept tokens are left alone.
-template <typename YT, typename WT, int MT>
-__device__ void compute_window(const Args& a, int wid, unsigned char* smem, unsigned char* scratch,
-                               bool alias) {
+// LN2 in place on the kept rows of zf, two-pass variance over the C
+// channels. With `stats`, row r's mean goes to stats[r] and its reciprocal
+// standard deviation to stats[R + r] (the backward's LayerNorm needs them).
+// No barrier inside.
+template <int MT>
+__device__ __forceinline__ void ln2_rows(const Args& a, float* zf, const unsigned char* skeep, float* stats) {
   constexpr int R = MT * 16;
-  const int hw = a.hw, C = a.C, I = a.I, dh = a.dh;
-  const int ldz = C + PAD, ldq = dh + PAD, ldv = R + PAD, ldp = R + PAD, lda = C + PAD,
-            ldm = I + PAD;
+  const int C = a.C, ldz = C + PAD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* zf = reinterpret_cast<float*>(smem + a.L.zf);
-  const unsigned char* skeep = smem + a.L.keep;
-  WT* qh = reinterpret_cast<WT*>(smem + a.L.qh);
-  WT* kh = reinterpret_cast<WT*>(smem + a.L.kh);
-  WT* vt = reinterpret_cast<WT*>(smem + a.L.vt);
-  float* P = reinterpret_cast<float*>(smem + a.L.p);
-  WT* attn = reinterpret_cast<WT*>(a.L.attn >= 0 ? smem + a.L.attn : scratch + a.L.attn_scratch);
-  WT* mbuf = reinterpret_cast<WT*>(a.L.m >= 0 ? smem + a.L.m : scratch + a.L.m_scratch);
-  const WT* wqkv = static_cast<const WT*>(a.wqkv);
-  const WT* wproj = static_cast<const WT*>(a.wproj);
-  const WT* wglu = static_cast<const WT*>(a.wglu);
-  const WT* wout = static_cast<const WT*>(a.wout);
-  const size_t base = (size_t)wid * hw * C;
-
-  __syncthreads();
-  // LN2 on kept tokens, two-pass variance over the C channels.
-  for (int r = warp; r < hw; r += WARPS) {
+  for (int r = warp; r < a.hw; r += WARPS) {
     if (!skeep[r]) continue;
     float* zr = zf + r * ldz;
     float s = 0.f;
@@ -361,45 +343,89 @@ __device__ void compute_window(const Args& a, int wid, unsigned char* smem, unsi
     for (int c = lane; c < C; c += 32) { const float d = zr[c] - mu; v += d * d; }
     const float rstd = rsqrtf(warp_sum(v) / (float)C + a.eps);
     for (int c = lane; c < C; c += 32) zr[c] = (zr[c] - mu) * rstd * a.ln2s[c] + a.ln2b[c];
+    if (stats != nullptr && lane == 0) { stats[r] = mu; stats[R + r] = rstd; }
   }
+}
+
+// Head h of the window in zf: q, k (R x dh) and v transposed (dh x R) in WT,
+// and the softmax P (R x R fp32; rows below hw, pad keys 0). With `vh`, v is
+// also kept as R x dh rows (the backward multiplies by v^T). Ends with a
+// barrier.
+template <typename WT, int MT>
+__device__ __forceinline__ void head_probs(const Args& a, int h, const float* zf, const unsigned char* skeep,
+                           WT* qh, WT* kh, WT* vt, WT* vh, float* P) {
+  constexpr int R = MT * 16;
+  const int hw = a.hw, C = a.C, dh = a.dh;
+  const int ldz = C + PAD, ldq = dh + PAD, ldv = R + PAD, ldp = R + PAD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const WT* wqkv = static_cast<const WT*>(a.wqkv);
+  // q, k, v of this head: columns [sec * C + h * dh, + dh) of z Wqkv.
+  block_gemm<MT, 1, 1, WT>(
+      zf, ldz,
+      [&](int, int n) {
+        const int sec = n / dh;
+        return wqkv + (size_t)(sec * C + h * dh + (n - sec * dh)) * C;
+      },
+      3 * dh, C,
+      [&](int m, int n, const float (&v)[1]) {
+        const int sec = n / dh, d = n - sec * dh;
+        const WT w = from_f<WT>(v[0] + a.bqkv[sec * C + h * dh + d]);
+        if (sec == 0) qh[m * ldq + d] = w;
+        else if (sec == 1) kh[m * ldq + d] = w;
+        else {
+          vt[d * ldv + m] = w;
+          if (vh != nullptr) vh[m * ldq + d] = w;
+        }
+      });
+  __syncthreads();
+  // logits = q k^T * scale; masked keys get exactly MASK_VALUE.
+  block_gemm<MT, 1, 1, WT>(
+      qh, ldq, [&](int, int n) { return kh + n * ldq; }, R, dh,
+      [&](int m, int n, const float (&v)[1]) {
+        P[m * ldp + n] = skeep[n] ? v[0] * a.scale : MASK_VALUE;
+      });
+  __syncthreads();
+  // Softmax over the hw real keys; the pad keys get weight 0.
+  for (int r = warp; r < hw; r += WARPS) {
+    float* pr = P + r * ldp;
+    float mx = -INFINITY;
+    for (int n = lane; n < hw; n += 32) mx = fmaxf(mx, pr[n]);
+    mx = warp_max(mx);
+    float s = 0.f;
+    for (int n = lane; n < hw; n += 32) { const float e = expf(pr[n] - mx); pr[n] = e; s += e; }
+    s = warp_sum(s);
+    for (int n = lane; n < R; n += 32) pr[n] = n < hw ? pr[n] / s : 0.f;
+  }
+  __syncthreads();
+}
+
+// The block on the window held in zf. Ends with a barrier. With `alias`
+// the output buffer is the input buffer, so unkept tokens are left alone.
+template <typename YT, typename WT, int MT>
+__device__ void compute_window(const Args& a, int wid, unsigned char* smem, unsigned char* scratch,
+                               bool alias) {
+  constexpr int R = MT * 16;
+  const int hw = a.hw, C = a.C, I = a.I, dh = a.dh;
+  const int ldz = C + PAD, ldv = R + PAD, ldp = R + PAD, lda = C + PAD, ldm = I + PAD;
+  float* zf = reinterpret_cast<float*>(smem + a.L.zf);
+  const unsigned char* skeep = smem + a.L.keep;
+  WT* qh = reinterpret_cast<WT*>(smem + a.L.qh);
+  WT* kh = reinterpret_cast<WT*>(smem + a.L.kh);
+  WT* vt = reinterpret_cast<WT*>(smem + a.L.vt);
+  float* P = reinterpret_cast<float*>(smem + a.L.p);
+  WT* attn = reinterpret_cast<WT*>(a.L.attn >= 0 ? smem + a.L.attn : scratch + a.L.attn_scratch);
+  WT* mbuf = reinterpret_cast<WT*>(a.L.m >= 0 ? smem + a.L.m : scratch + a.L.m_scratch);
+  const WT* wproj = static_cast<const WT*>(a.wproj);
+  const WT* wglu = static_cast<const WT*>(a.wglu);
+  const WT* wout = static_cast<const WT*>(a.wout);
+  const size_t base = (size_t)wid * hw * C;
+
+  __syncthreads();
+  ln2_rows<MT>(a, zf, skeep, nullptr);
   __syncthreads();
 
   for (int h = 0; h < a.heads; ++h) {
-    // q, k, v of this head: columns [sec * C + h * dh, + dh) of z Wqkv.
-    block_gemm<MT, 1, 1, WT>(
-        zf, ldz,
-        [&](int, int n) {
-          const int sec = n / dh;
-          return wqkv + (size_t)(sec * C + h * dh + (n - sec * dh)) * C;
-        },
-        3 * dh, C,
-        [&](int m, int n, const float (&v)[1]) {
-          const int sec = n / dh, d = n - sec * dh;
-          const WT w = from_f<WT>(v[0] + a.bqkv[sec * C + h * dh + d]);
-          if (sec == 0) qh[m * ldq + d] = w;
-          else if (sec == 1) kh[m * ldq + d] = w;
-          else vt[d * ldv + m] = w;
-        });
-    __syncthreads();
-    // logits = q k^T * scale; masked keys get exactly MASK_VALUE.
-    block_gemm<MT, 1, 1, WT>(
-        qh, ldq, [&](int, int n) { return kh + n * ldq; }, R, dh,
-        [&](int m, int n, const float (&v)[1]) {
-          P[m * ldp + n] = skeep[n] ? v[0] * a.scale : MASK_VALUE;
-        });
-    __syncthreads();
-    // Softmax over the hw real keys; the pad keys get weight 0.
-    for (int r = warp; r < hw; r += WARPS) {
-      float* pr = P + r * ldp;
-      float mx = -INFINITY;
-      for (int n = lane; n < hw; n += 32) mx = fmaxf(mx, pr[n]);
-      mx = warp_max(mx);
-      float s = 0.f;
-      for (int n = lane; n < hw; n += 32) { const float e = expf(pr[n] - mx); pr[n] = e; s += e; }
-      s = warp_sum(s);
-      for (int n = lane; n < R; n += 32) pr[n] = n < hw ? pr[n] / s : 0.f;
-    }
-    __syncthreads();
+    head_probs<WT, MT>(a, h, zf, skeep, qh, kh, vt, static_cast<WT*>(nullptr), P);
     block_gemm<MT, 1, 1, WT>(
         P, ldp, [&](int, int n) { return vt + n * ldv; }, dh, R,
         [&](int m, int n, const float (&v)[1]) { attn[m * lda + h * dh + n] = from_f<WT>(v[0]); });
@@ -450,7 +476,8 @@ __global__ void __launch_bounds__(THREADS) window_block_kernel(const Args a) {
   const size_t wsize = (size_t)a.hw * a.C;
   if (a.mode == FUSED) {
     const int wid = blockIdx.x;
-    load_window<YT, MT>(a, wid, y + wid * wsize, smem);
+    load_window<YT, MT>(a, wid, y + wid * wsize, reinterpret_cast<float*>(smem + a.L.zf),
+                        smem + a.L.keep);
     compute_window<YT, WT, MT>(a, wid, smem, scratch, false);
   } else if (a.mode == SPARSE) {
     const int wid = a.ids[blockIdx.x];
@@ -464,7 +491,8 @@ __global__ void __launch_bounds__(THREADS) window_block_kernel(const Args a) {
       }
       return;
     }
-    load_window<YT, MT>(a, wid, y + wid * wsize, smem);
+    load_window<YT, MT>(a, wid, y + wid * wsize, reinterpret_cast<float*>(smem + a.L.zf),
+                        smem + a.L.keep);
     compute_window<YT, WT, MT>(a, wid, smem, scratch, false);
   } else {
     // Persistent walk over the kept slots; out aliases y. While a window is
@@ -487,7 +515,8 @@ __global__ void __launch_bounds__(THREADS) window_block_kernel(const Args a) {
         asm volatile("cp.async.wait_all;\n" ::: "memory");
         __syncthreads();
       }
-      load_window<YT, MT>(a, wid, pf ? land : y + wid * wsize, smem);
+      load_window<YT, MT>(a, wid, pf ? land : y + wid * wsize,
+                          reinterpret_cast<float*>(smem + a.L.zf), smem + a.L.keep);
       __syncthreads();
       const int next = slot + gridDim.x;
       if (pf && next < n) prefetch(a.ids[next]);

@@ -64,7 +64,7 @@ class SASTStage(nn.Module):
             )
         self.lstm = DWSConvLSTM2d(
             dim, cfg.lstm.dws_conv, cfg.lstm.dws_conv_only_hidden,
-            cfg.lstm.dws_conv_kernel_size, dtype,
+            cfg.lstm.dws_conv_kernel_size, dtype, cfg.lstm.drop_cell_update,
         )
         self._pos: Dict[tuple, torch.Tensor] = {}
 
@@ -82,6 +82,7 @@ class SASTStage(nn.Module):
         lstm_state: Optional[LstmState],
         token_mask: Optional[torch.Tensor],
         r: Optional[torch.Tensor],
+        deterministic: bool = True,
     ):
         """``r=None`` asks the stem kernel for the density ratio; the stage
         then returns the full (B, 4, C_in) ratio as its last output."""
@@ -98,9 +99,9 @@ class SASTStage(nn.Module):
         p_total = torch.zeros((), dtype=torch.float32, device=x.device)
         masks = None
         for i in range(self.num_blocks):
-            x, p_count, masks = getattr(self, f"block{i}")(x, pos, r, masks)
+            x, p_count, masks = getattr(self, f"block{i}")(x, pos, r, masks, deterministic)
             p_total = p_total + p_count
-        h, c = self.lstm(x, lstm_state)
+        h, c = self.lstm(x, lstm_state, deterministic)
         return h, (h, c), p_total, ratio
 
 
@@ -109,7 +110,9 @@ class SASTBackbone(nn.Module):
     new_states, P), with ``P`` the (num_stages,) selected-token telemetry.
     x is NHWC (B, H, W, input_channels), uint8 or float. ``sparse_kernel``
     (the JAX package's ``use_pallas``) sends every attention layer through
-    the window-skipping block kernel."""
+    the window-skipping block kernel. ``deterministic=False`` is training:
+    it changes nothing while every stochastic rate is 0 and raises otherwise
+    (the regularizers are not ported)."""
 
     def __init__(self, cfg: BackboneConfig, dtype: torch.dtype = torch.float32,
                  sparse_kernel: bool = False):
@@ -123,6 +126,7 @@ class SASTBackbone(nn.Module):
         x: torch.Tensor,
         prev_states: Optional[List[Optional[LstmState]]] = None,
         token_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
     ) -> Tuple[Dict[int, torch.Tensor], List[LstmState], torch.Tensor]:
         cfg = self.cfg
         n = cfg.num_stages
@@ -141,7 +145,7 @@ class SASTBackbone(nn.Module):
         for idx in range(n):
             stage_r = None if fused and idx == 0 else r[:, idx].to(self.dtype)
             x, state, p, ratio = getattr(self, f"stage{idx}")(
-                x, prev_states[idx], token_mask if idx == 0 else None, stage_r
+                x, prev_states[idx], token_mask if idx == 0 else None, stage_r, deterministic
             )
             if ratio is not None:
                 r = ratio

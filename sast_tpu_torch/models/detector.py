@@ -16,7 +16,7 @@ import torch.nn as nn
 from sast_tpu_torch.config import ModelConfig
 from sast_tpu_torch.models.backbone import LstmState, SASTBackbone
 from sast_tpu_torch.models.head import YoloXHead
-from sast_tpu_torch.models.layers import Conv, Dense, lecun_normal_
+from sast_tpu_torch.models.layers import BatchNorm, Conv, Dense, lecun_normal_
 from sast_tpu_torch.models.pafpn import YoloPAFPN
 from sast_tpu_torch.models.sast import MaskedSparseAttention
 
@@ -57,13 +57,26 @@ class YoloXDetector(nn.Module):
         x: torch.Tensor,
         previous_states: Optional[List[Optional[LstmState]]] = None,
         token_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
     ) -> Tuple[Dict[int, torch.Tensor], List[LstmState], torch.Tensor]:
         """x: (B, H, W, C_in) NHWC event representation."""
-        return self.backbone(x, previous_states, token_mask)
+        return self.backbone(x, previous_states, token_mask, deterministic)
 
-    def forward_detect(self, backbone_features: Dict[int, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward_detect(self, backbone_features: Dict[int, torch.Tensor],
+                       train: bool = False) -> Dict[str, torch.Tensor]:
+        """Neck and head. With ``train`` every BatchNorm of both normalises
+        with the batch's statistics and updates its running ones in place
+        (flax's ``mutable=["batch_stats"]``)."""
         feats = tuple(backbone_features[s] for s in self.config.fpn.in_stages)
-        return self.head(self.fpn(feats))
+        norms = [m for part in (self.fpn, self.head) for m in part.modules()
+                 if isinstance(m, BatchNorm)]
+        for m in norms:
+            m.use_batch_stats = train
+        try:
+            return self.head(self.fpn(feats))
+        finally:
+            for m in norms:
+                m.use_batch_stats = False
 
     def forward(self, x, previous_states=None, token_mask=None):
         features, states, p = self.forward_backbone(x, previous_states, token_mask)

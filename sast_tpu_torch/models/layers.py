@@ -8,7 +8,8 @@ dense kernels ``(out, in)``). Parameters stay fp32; each module casts them
 to its compute ``dtype`` at use, as flax's ``dtype=`` does.
 
 - ``Conv`` / ``Dense`` / ``LayerNorm`` / ``BatchNorm``: the flax primitives
-  (LayerNorm and inference BatchNorm compute in fp32 and cast at the end).
+  (LayerNorm and BatchNorm compute in fp32 and cast at the end; BatchNorm
+  has flax's training mode: batch statistics, momentum-0.9 running ones).
 - ``ConvDownsample``: overlapping strided conv + LayerNorm; the 7x7/stride-4
   stem goes through the stem kernel (ops/stem_conv.py).
 - ``DWSConvLSTM2d``: ConvLSTM cell, gates and cell state in fp32.
@@ -107,20 +108,43 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in inference mode (running statistics,
-    eps 1e-5), computed in fp32 and cast to ``dtype``."""
+    """flax ``nn.BatchNorm`` (eps 1e-5, momentum 0.9), computed in fp32 and
+    cast to ``dtype``.
+
+    With ``use_batch_stats`` off (the default, flax's
+    ``use_running_average=True``) it normalises with the running ``mean`` and
+    ``var``. With it on (training; ``YoloXDetector.forward_detect(train=True)``
+    sets it for the call) it normalises with the statistics of the batch,
+    taken in fp32 over every axis but the last as flax takes them
+    (``E[x^2] - E[x]^2`` clamped at 0, the *biased* variance), and moves the
+    running statistics towards them in place: ``ra = 0.9 * ra + 0.1 * batch``.
+    flax stores the biased batch variance there, ``torch.nn.BatchNorm2d`` the
+    unbiased one."""
+
+    momentum = 0.9
 
     def __init__(self, dim: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps, self.dtype = eps, dtype
+        self.use_batch_stats = False
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return ((x.to(torch.float32) - self.mean) * mul + self.bias).to(self.dtype)
+        x32 = x.to(torch.float32)
+        if self.use_batch_stats:
+            axes = tuple(range(x32.dim() - 1))
+            mean = x32.mean(dim=axes)
+            var = ((x32 * x32).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((x32 - mean) * mul + self.bias).to(self.dtype)
 
 
 def replicate_pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -184,12 +208,15 @@ class ConvDownsample(nn.Module):
 class DWSConvLSTM2d(nn.Module):
     """Convolutional LSTM cell with optional depthwise conv on the hidden
     state. NHWC. Gates and the cell state are fp32; ``h`` is cast back to
-    the input dtype."""
+    the input dtype. A non-zero ``cell_update_dropout`` raises under
+    training (``deterministic=False``) rather than being ignored."""
 
     def __init__(self, dim: int, dws_conv: bool = False, dws_conv_only_hidden: bool = True,
-                 dws_conv_kernel_size: int = 3, dtype: torch.dtype = torch.float32):
+                 dws_conv_kernel_size: int = 3, dtype: torch.dtype = torch.float32,
+                 cell_update_dropout: float = 0.0):
         super().__init__()
         self.dim = dim
+        self.cell_update_dropout = cell_update_dropout
         self.dws_conv, self.only_hidden = dws_conv, dws_conv_only_hidden
         k = dws_conv_kernel_size
         mix = 0
@@ -200,7 +227,13 @@ class DWSConvLSTM2d(nn.Module):
         self.mix_name = f"Conv_{mix}"
         self.add_module(self.mix_name, Conv(2 * dim, 4 * dim, 1, dtype=dtype))
 
-    def forward(self, x: torch.Tensor, h_and_c: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    def forward(self, x: torch.Tensor, h_and_c: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                deterministic: bool = True):
+        if not deterministic and self.cell_update_dropout > 0.0:
+            raise NotImplementedError(
+                f"lstm.drop_cell_update = {self.cell_update_dropout}: the cell-update dropout "
+                "is not ported yet; train with a rate of 0"
+            )
         if h_and_c is None:
             h_tm1 = torch.zeros_like(x)
             c_tm1 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)

@@ -24,6 +24,13 @@ one of four execution paths of that same function, as the JAX module does:
 - masked torch ops otherwise, and always with Context Broadcasting
   (``enable_cb``), which needs the full layout.
 
+Under grad mode the sparse and the fused path go through their
+``torch.autograd.Function``s and land the gradients on this module's own
+parameters (``ops/block.kernel_leaves``); the gather and masked paths are
+plain autograd. The stochastic regularizers (``drop_path``, ``drop_mlp``)
+are not ported: with ``deterministic=False`` a non-zero rate raises, naming
+the rate, where the JAX module would apply it and turn the sparse paths off.
+
 Both data-dependent choices (``n_win <= K`` when ``K < M``, the density test
 when the threshold is below 1) read one number back from the device: a host
 synchronisation per attention layer, where JAX has a ``lax.cond``.
@@ -40,7 +47,7 @@ import torch.nn as nn
 from sast_tpu_torch.config import AttentionConfig
 from sast_tpu_torch.models.layers import Dense, LayerNorm, get_activation
 from sast_tpu_torch.ops import sparse_block
-from sast_tpu_torch.ops.block import kernel_params
+from sast_tpu_torch.ops.block import kernel_leaves, kernel_params
 from sast_tpu_torch.ops.fused_block import fused_window_block
 from sast_tpu_torch.ops.partition import (
     grid_partition,
@@ -108,8 +115,7 @@ class MaskedSparseAttention(nn.Module):
     ``token_keep`` mask and, for the paths that skip windows, the (B, N)
     bool ``win_keep``. ``sparse_kernel`` is the JAX module's ``use_pallas``.
 
-    The block kernels run forward only and always use GELU, like the TPU
-    kernels they replace."""
+    The block kernels always use GELU, like the TPU kernels they replace."""
 
     def __init__(self, dim: int, cfg: AttentionConfig, dtype: torch.dtype = torch.float32,
                  sparse_kernel: bool = False):
@@ -123,6 +129,7 @@ class MaskedSparseAttention(nn.Module):
         self.density_threshold = cfg.pallas_density_threshold
         self.gather_budget = cfg.gather_budget
         self.fused = cfg.fused_block
+        self.drop_path, self.drop_mlp = cfg.drop_path, cfg.drop_mlp
         self.act = get_activation(cfg.mlp_activation)
         inner = max(32, math.floor(dim * cfg.mlp_ratio * 2 / 3 / 32) * 32)
         self.norm1 = LayerNorm(dim)
@@ -166,7 +173,15 @@ class MaskedSparseAttention(nn.Module):
         return torch.where(k4, h2, y)
 
     def forward(self, x: torch.Tensor, token_keep: torch.Tensor,
-                win_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                win_keep: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        if not deterministic:
+            for name in ("drop_path", "drop_mlp"):
+                if getattr(self, name) > 0.0:
+                    raise NotImplementedError(
+                        f"attention.{name} = {getattr(self, name)}: the stochastic "
+                        "regularizers are not ported yet; train with a rate of 0"
+                    )
         y = _layernorm(x, self.norm1.scale, self.norm1.bias, self.eps)
         return self.run_block(y, token_keep, win_keep)
 
@@ -196,14 +211,16 @@ class MaskedSparseAttention(nn.Module):
             ):
                 run = (sparse_block.sparse_window_block_looped
                        if sparse_block.MODEL_USES_LOOPED else sparse_block.sparse_window_block)
+                extra = {} if sparse_block.MODEL_USES_LOOPED else {"leaves": kernel_leaves(self)}
                 out = run(y.reshape(M, hw, C), token_keep.reshape(M, hw), win_keep.reshape(M),
-                          kernel_params(self), self.num_heads, self.dim_head, self.eps)
+                          kernel_params(self), self.num_heads, self.dim_head, self.eps, **extra)
                 return out.reshape(B, N, hw, C)
             return self.block_math(y, token_keep)
 
         if self.fused and not self.enable_cb:
             out = fused_window_block(y.reshape(M, hw, C), token_keep.reshape(M, hw),
-                                     kernel_params(self), self.num_heads, self.dim_head, self.eps)
+                                     kernel_params(self), self.num_heads, self.dim_head, self.eps,
+                                     leaves=kernel_leaves(self))
             return out.reshape(B, N, hw, C)
 
         return self.block_math(y, token_keep)
@@ -236,6 +253,7 @@ class SASTBlock(nn.Module):
         pos_emb: torch.Tensor,
         r: Optional[torch.Tensor],
         masks: Optional[Masks] = None,
+        deterministic: bool = True,
     ) -> Tuple[torch.Tensor, torch.Tensor, Masks]:
         cfg = self.cfg
         B, H, W, C = x.shape
@@ -261,8 +279,8 @@ class SASTBlock(nn.Module):
             raise ValueError("non-first blocks must reuse the selection masks")
         win_keep_w, tok_keep_w, win_keep_g, tok_keep_g = masks
 
-        x = window_reverse(self.win_attn(xw, tok_keep_w, win_keep_w), p, (H, W))
-        xg = self.grid_attn(grid_partition(x, p), tok_keep_g, win_keep_g)
+        x = window_reverse(self.win_attn(xw, tok_keep_w, win_keep_w, deterministic), p, (H, W))
+        xg = self.grid_attn(grid_partition(x, p), tok_keep_g, win_keep_g, deterministic)
         x = grid_reverse(xg, p, (H, W))
 
         p_count = (

@@ -139,13 +139,63 @@ def work_list(win_keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return ids, n_win
 
 
+def kernel_leaves(attn) -> Tuple[Optional[torch.Tensor], ...]:
+    """The module's own parameters behind ``kernel_params``, in
+    ``PARAM_KEYS`` order and the port's layout (``Dense`` kernels ``(out,
+    in)`` fp32, ``None`` for an absent bias): the tensors on which the
+    trainable block wrappers land their gradients."""
+    qkv, proj, glu, out = (attn.qkv, attn.proj, attn.mlp.GLU_0.Dense_0, attn.mlp.Dense_0)
+    return (attn.norm2.scale, attn.norm2.bias, qkv.kernel, qkv.bias, proj.kernel, proj.bias,
+            attn.ls1.gamma, glu.kernel, glu.bias, out.kernel, out.bias, attn.ls2.gamma)
+
+
+def needs_grad(y: torch.Tensor, leaves) -> bool:
+    """Whether a block wrapper has to sit in the autograd graph."""
+    return torch.is_grad_enabled() and (
+        y.requires_grad or any(t is not None and t.requires_grad for t in leaves or ())
+    )
+
+
+def leaf_grads(dparams: Dict[str, torch.Tensor], leaves) -> Tuple[Optional[torch.Tensor], ...]:
+    """Gradients of the ``kernel_params`` dict (matrices ``(in, out)``) as
+    gradients of ``kernel_leaves``: transposed to ``(out, in)`` and cast to
+    each leaf's dtype; ``None`` where there is no leaf."""
+    out = []
+    for key, leaf in zip(PARAM_KEYS, leaves):
+        if leaf is None or not leaf.requires_grad:
+            out.append(None)
+            continue
+        grad = dparams[key].t() if key in MATRICES else dparams[key]
+        out.append(grad.to(leaf.dtype))
+    return tuple(out)
+
+
+def params_from_leaves(leaves, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """``kernel_params`` rebuilt differentiably from ``kernel_leaves``:
+    matrices cast to ``dtype`` and viewed ``(in, out)``, zeros for absent
+    biases."""
+    by_key = dict(zip(PARAM_KEYS, leaves))
+    widths = {"bqkv": "wqkv", "bproj": "wproj", "bglu": "wglu", "bout": "wout"}
+    params = {}
+    for key in PARAM_KEYS:
+        t = by_key[key]
+        if key in MATRICES:
+            params[key] = t.to(dtype).t()
+        elif t is None:
+            w = by_key[widths[key]]
+            params[key] = torch.zeros(w.shape[0], device=w.device)
+        else:
+            params[key] = t
+    return params
+
+
 def check_no_grad(name: str, y: torch.Tensor, params: Dict[str, torch.Tensor]) -> None:
-    """The block kernels have no backward yet: refuse to sit in a graph."""
+    """A wrapper without a backward refuses to sit in a graph."""
     if torch.is_grad_enabled() and (
         y.requires_grad or any(p.requires_grad for p in params.values())
     ):
         raise RuntimeError(
-            f"{name}: the CUDA kernel is forward-only; call it under torch.no_grad()"
+            f"{name}: this kernel has no backward; call it under torch.no_grad()"
         )
 
 
@@ -172,25 +222,12 @@ def bind(library: str, entry: str):
     return fn, plan
 
 
-def launch(
-    entry,
-    mode: int,
-    y: torch.Tensor,
-    token_keep: torch.Tensor,
-    params: Dict[str, torch.Tensor],
-    num_heads: int,
-    dim_head: int,
-    norm_eps: float,
-    out: torch.Tensor,
-    h1: Optional[torch.Tensor] = None,
-    ids: Optional[torch.Tensor] = None,
-    n_win: Optional[torch.Tensor] = None,
-    what: str = "window block kernel",
-) -> None:
-    """Check the operands and launch one block kernel (``entry`` is the pair
-    from ``bind``) on the current stream. ``out`` may be ``y`` itself only
-    in the looped mode. Raises on anything the kernel does not take."""
-    fn, plan = entry
+def operands(y: torch.Tensor, token_keep: torch.Tensor, params: Dict[str, torch.Tensor],
+             num_heads: int, dim_head: int, what: str):
+    """Check what every block kernel takes and return ``(keep, ops, inner,
+    flags)``: the contiguous keep mask, the weight operands by key (matrices
+    as contiguous ``(out, in)`` tensors, vectors fp32), the MLP's inner width
+    and the (y is bf16, weights are bf16) flags. Raises on anything else."""
     M, hw, C = y.shape
     if y.device.type != "cuda":
         raise ValueError(f"{what}: needs CUDA tensors, got {y.device}")
@@ -221,13 +258,38 @@ def launch(
         if key in MATRICES:
             if t.dtype != wdt:
                 raise ValueError(f"{what}: {key} is {t.dtype}, wqkv is {wdt}")
-            ops[key] = t.t().contiguous()  # no copy for kernel_params' views
+            ops[key] = t.detach().t().contiguous()  # no copy for kernel_params' views
         else:
             ops[key] = t.detach().to(torch.float32).contiguous()
+    flags = (int(y.dtype == torch.bfloat16), int(wdt == torch.bfloat16))
+    return keep, ops, inner, flags
+
+
+def launch(
+    entry,
+    mode: int,
+    y: torch.Tensor,
+    token_keep: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    num_heads: int,
+    dim_head: int,
+    norm_eps: float,
+    out: torch.Tensor,
+    h1: Optional[torch.Tensor] = None,
+    ids: Optional[torch.Tensor] = None,
+    n_win: Optional[torch.Tensor] = None,
+    what: str = "window block kernel",
+) -> None:
+    """Check the operands and launch one block kernel (``entry`` is the pair
+    from ``bind``) on the current stream. ``out`` may be ``y`` itself only
+    in the looped mode. Raises on anything the kernel does not take."""
+    fn, plan = entry
+    M, hw, C = y.shape
+    keep, ops, inner, flags = operands(y, token_keep, params, num_heads, dim_head, what)
+    wdt = params["wqkv"].dtype
     tensors = [y, out] + list(ops.values()) + ([h1] if h1 is not None else [])
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: operands must be 16-byte aligned")
-    flags = (int(y.dtype == torch.bfloat16), int(wdt == torch.bfloat16))
     n_scratch = plan(mode, M, hw, C, inner, dim_head, *flags)
     if n_scratch < 0:
         raise ValueError(

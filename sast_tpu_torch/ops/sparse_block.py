@@ -11,7 +11,11 @@ on the H100 and how a window is laid out on chip.
 
 - ``sparse_window_block``: one thread block per work-list slot; with
   ``save_h1`` it also returns the fp32 post-attention residual h1, the one
-  tensor a backward over the same work list needs.
+  tensor a backward over the same work list needs. Under grad mode it is a
+  ``torch.autograd.Function`` whose backward is ``sparse_window_block_bwd``:
+  the two kernels of ``csrc/sparse_block_bwd.cu`` over the same work list
+  (``_mlp_bwd_kernel`` and ``_attn_bwd_kernel`` of the TPU package), with
+  ``sparse_window_block_bwd_plain`` as their plain version.
 - ``sparse_window_block_looped``: a persistent grid (a few blocks per SM);
   each block walks slots ``blockIdx, += gridDim, ... < n_win`` and copies
   the next window in with ``cp.async`` while it computes this one. The
@@ -22,18 +26,37 @@ on the H100 and how a window is laid out on chip.
 The work list and ``n_win`` stay on the device (the kernels read ``n_win``
 from memory), so neither wrapper synchronises with the host. Each wrapper
 takes its plain version only for a CPU tensor; on a CUDA tensor it launches
-or raises. Forward only: under grad mode with a tensor that requires grad
-the wrappers raise.
+or raises. The looped wrapper is forward only (the TPU package gives it no
+VJP either): under grad mode with a tensor that requires grad it raises.
+
+Arithmetic of the backward. The recomputation rounds exactly as the forward
+routine does. Every product of the backward whose second operand is a weight
+matrix (``g W^T``) takes its first operand rounded to the weights' dtype, as
+the forward products do (bf16 weights: bf16 x bf16 on the tensor cores,
+fp32 sums; fp32 weights: fp32 FMA). The weight-gradient products ``X^T G``
+and the per-head products of the attention backward run in fp32 FMA on the
+values the forward's products saw (``X`` rounded to the weights' dtype, so
+``dW`` is the gradient of the product as it was computed). Accumulators are
+fp32; each parameter gradient is then cast to that parameter's dtype, so
+with bf16 compute the matrix gradients are rounded to bf16 on their way to
+the fp32 master weights, as the TPU package's ``_sparse_block_bwd_impl``
+does. On the card the kernels add their per-window contributions with fp32
+atomics, so the last bits of a parameter gradient vary from run to run.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from sast_tpu_torch import build
 from sast_tpu_torch.ops import block
+from sast_tpu_torch.ops.block import MASK_VALUE, _mm
 
 # Which of the two kernels the model's sparse path calls
 # (``models/sast.py``): the per-slot kernel or the looped one. Set from the
@@ -81,7 +104,6 @@ def _run(wrapper, mode, y, token_keep, win_keep, params, num_heads, dim_head, no
         return sparse_window_block_plain(
             y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1
         )
-    block.check_no_grad(wrapper.__name__, y, params)
     M = y.shape[0]
     if win_keep.shape != (M,) or win_keep.dtype != torch.bool:
         raise ValueError(f"{wrapper.__name__}: win_keep must be (M,) bool")
@@ -106,17 +128,29 @@ def sparse_window_block(
     dim_head: int,
     norm_eps: float = 1e-5,
     save_h1: bool = False,
+    leaves=None,
 ):
     """The masked block on kept windows only, one thread block per slot.
 
     Args:
       y: (M, hw, C) norm1-ed window tokens, fp32 or bf16 (M = B * N).
       token_keep: (M, hw) bool; win_keep: (M,) bool.
-      params: the weight dict of ``ops/block.kernel_params``.
+      params: the weight dict of ``ops/block.kernel_params`` (detached).
+      leaves: the parameters behind ``params`` that take the gradients
+        (``ops/block.kernel_leaves``), or None when only ``y`` does.
 
     Returns (M, hw, C) in ``y``'s dtype, equal to ``y`` outside kept windows
-    and at unkept tokens; with ``save_h1`` also h1 (M, hw, C) fp32.
+    and at unkept tokens; with ``save_h1`` also h1 (M, hw, C) fp32. Under
+    grad mode, with ``y`` or a leaf requiring grad, the result carries the
+    hand-written backward.
     """
+    if block.needs_grad(y, leaves):
+        if save_h1:
+            raise ValueError("sparse_window_block: save_h1 is the backward's own residual; "
+                             "it is not returned under grad mode")
+        leaves = tuple(leaves) if leaves is not None else (None,) * len(block.PARAM_KEYS)
+        return _SparseBlockFn.apply(y, token_keep, win_keep, params, num_heads, dim_head,
+                                    norm_eps, *leaves)
     return _run(sparse_window_block, block.MODE_SPARSE, y, token_keep, win_keep, params,
                 num_heads, dim_head, norm_eps, save_h1)
 
@@ -132,9 +166,320 @@ def sparse_window_block_looped(
 ) -> torch.Tensor:
     """Looped-grid variant of ``sparse_window_block`` (same function). The
     kernel writes in place; ``y`` is cloned first and left as it was."""
+    block.check_no_grad("sparse_window_block_looped", y, params)
     return _run(sparse_window_block_looped, block.MODE_LOOPED, y, token_keep, win_keep, params,
                 num_heads, dim_head, norm_eps, False)
 
 
+# ---------------------------------------------------------------------------
+# Backward over the same work list
+
+
+def _gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the tanh-form GELU."""
+    c = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(c * (x + 0.044715 * x * x * x))
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * x * x)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.to(dtype).to(torch.float32)
+
+
+MLP_KEYS = ("wglu", "bglu", "wout", "bout", "ls2")
+ATTN_KEYS = ("wqkv", "bqkv", "wproj", "bproj", "ls1", "ln2_scale", "ln2_bias")
+_BWD_MLP, _BWD_ATTN = 0, 1
+Work = Tuple[torch.Tensor, torch.Tensor]  # ``ops/block.work_list``: (ids, n_win)
+
+
+def _zeros_like_params(params, keys, device):
+    return {k: torch.zeros(params[k].shape, dtype=torch.float32, device=device) for k in keys}
+
+
+def sparse_block_mlp_bwd_plain(h1, token_keep, work: Work, params, g):
+    """Plain PyTorch version of the MLP backward kernel (any device): its
+    arithmetic step by step on the kept prefix of the work list.
+    Returns ``(gh1, acc)``: the cotangent carried to the attention kernel,
+    ``gh1 + (1 - keep) * g`` in kept windows and ``g`` elsewhere, fp32; and
+    the fp32 gradients of ``MLP_KEYS`` (matrices ``(in, out)``). Reads the
+    number of kept windows on the host to size the prefix."""
+    ids, n_win = work
+    kept = ids[: int(n_win)].long()
+    acc = _zeros_like_params(params, MLP_KEYS, g.device)
+    gh1 = g.to(torch.float32, copy=True)
+    if not kept.numel():
+        return gh1, acc
+    p, wdt = params, params["wglu"].dtype
+    h1 = h1[kept]
+    k = token_keep[kept][..., None]
+    g32 = gh1[kept]
+    g_h2 = torch.where(k, g32, 0.0)
+    u = _mm(h1, p["wglu"]) + p["bglu"].float()
+    inner = u.shape[-1] // 2
+    val, gate = u[..., :inner], u[..., inner:]
+    act = F.gelu(gate, approximate="tanh")
+    m = _rounded(val * act, wdt)
+    mlp = m @ p["wout"].float() + p["bout"].float()
+    acc["ls2"] += (g_h2 * mlp).sum(dim=(0, 1))
+    g_mlp = g_h2 * p["ls2"].float()
+    acc["wout"] += torch.einsum("mri,mrc->ic", m, g_mlp)
+    acc["bout"] += g_mlp.sum(dim=(0, 1))
+    g_m = _mm(g_mlp, p["wout"].t())
+    g_u = torch.cat((g_m * act, _gelu_tanh_grad(gate) * (g_m * val)), dim=-1)
+    acc["wglu"] += torch.einsum("mrc,mrj->cj", _rounded(h1, wdt), g_u)
+    acc["bglu"] += g_u.sum(dim=(0, 1))
+    g_h1 = g_h2 + _mm(g_u, p["wglu"].t())
+    gh1[kept] = g_h1 + torch.where(k, 0.0, g32)
+    return gh1, acc
+
+
+def sparse_block_attn_bwd_plain(y, token_keep, work: Work, params, gh1, num_heads, dim_head,
+                                norm_eps=1e-5):
+    """Plain PyTorch version of the attention backward kernel (any device):
+    its arithmetic step by step on the kept prefix of the work list.
+    Returns ``(dy, acc)``: ``dy`` in ``y``'s dtype (``gh1`` itself outside
+    kept windows) and the fp32 gradients of ``ATTN_KEYS``."""
+    ids, n_win = work
+    kept = ids[: int(n_win)].long()
+    acc = _zeros_like_params(params, ATTN_KEYS, y.device)
+    dy = gh1.clone()
+    if not kept.numel():
+        return dy.to(y.dtype), acc
+    p, wdt = params, params["wqkv"].dtype
+    keep = token_keep[kept]
+    k = keep[..., None]
+    y32 = y[kept].to(torch.float32)
+    M, hw, C = y32.shape
+    gh1_in = gh1[kept]
+    gh1_k = torch.where(k, gh1_in, 0.0)
+    dy_pass = torch.where(k, 0.0, gh1_in)
+
+    # Recompute z, qkv and the attention as the forward routine rounds them.
+    mu = y32.mean(dim=-1, keepdim=True)
+    var = ((y32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + norm_eps)
+    xhat = (y32 - mu) * r
+    ln2s = p["ln2_scale"].float()
+    z = torch.where(k, xhat * ln2s + p["ln2_bias"].float(), y32)
+    z_r = _rounded(z, wdt)
+    qkv = _rounded(z_r @ p["wqkv"].float() + p["bqkv"].float(), wdt)
+    qkv = qkv.reshape(M, hw, 3, num_heads, dim_head)
+    q, kk, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # (M, h, hw, dh)
+    scale = dim_head ** -0.5
+    key_mask = keep[:, None, None, :]
+    logits = torch.where(key_mask, (q @ kk.transpose(-1, -2)) * scale, MASK_VALUE)
+    attn = torch.softmax(logits, dim=-1)
+    attn_r = _rounded(attn, wdt)
+    attn_out = _rounded((attn_r @ v).permute(0, 2, 1, 3).reshape(M, hw, C), wdt)
+    proj = attn_out @ p["wproj"].float() + p["bproj"].float()
+
+    # h1 = z + ls1 * proj
+    acc["ls1"] += (gh1_k * proj).sum(dim=(0, 1))
+    g_proj = gh1_k * p["ls1"].float()
+    acc["wproj"] += torch.einsum("mrc,mrd->cd", attn_out, g_proj)
+    acc["bproj"] += g_proj.sum(dim=(0, 1))
+    g_ao = _rounded(_mm(g_proj, p["wproj"].t()), wdt)
+    g_ao = g_ao.reshape(M, hw, num_heads, dim_head).permute(0, 2, 1, 3)  # (M, h, hw, dh)
+
+    # Attention backward per head.
+    g_attn = g_ao @ v.transpose(-1, -2)
+    s = (g_attn * attn).sum(dim=-1, keepdim=True)
+    g_logits = torch.where(key_mask, attn * (g_attn - s), 0.0)
+    gq = (g_logits @ kk) * scale
+    gk = (g_logits.transpose(-1, -2) @ q) * scale
+    gv = attn_r.transpose(-1, -2) @ g_ao
+    g_qkv = torch.stack((gq, gk, gv), dim=1)  # (M, 3, h, hw, dh)
+    g_qkv = g_qkv.permute(0, 3, 1, 2, 4).reshape(M, hw, 3 * C)
+    acc["wqkv"] += torch.einsum("mrc,mrj->cj", z_r, g_qkv)
+    acc["bqkv"] += g_qkv.sum(dim=(0, 1))
+    g_z = gh1_k + _mm(g_qkv, p["wqkv"].t())
+
+    # z = where(keep, LN2(y), y)
+    g_zln = torch.where(k, g_z, 0.0)
+    g_zid = torch.where(k, 0.0, g_z)
+    acc["ln2_scale"] += (g_zln * xhat).sum(dim=(0, 1))
+    acc["ln2_bias"] += g_zln.sum(dim=(0, 1))
+    g_xhat = g_zln * ln2s
+    mean_g = g_xhat.mean(dim=-1, keepdim=True)
+    mean_gx = (g_xhat * xhat).mean(dim=-1, keepdim=True)
+    g_y_ln = r * (g_xhat - mean_g - xhat * mean_gx)
+    dy[kept] = dy_pass + g_zid + torch.where(k, g_y_ln, 0.0)
+    return dy.to(y.dtype), acc
+
+
+@functools.cache
+def _bwd_entry():
+    lib = build.load("sparse_block_bwd")
+    fn = lib.sast_sparse_block_bwd
+    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    plan = lib.sast_sparse_block_bwd_scratch_bytes
+    plan.argtypes, plan.restype = [ctypes.c_int] * 8, ctypes.c_longlong
+    return fn, plan
+
+
+def _launch_bwd(which, tensors, like, inner, num_heads, dim_head, norm_eps, flags, what):
+    """Launch one backward kernel: ``tensors`` is its pointer table in the
+    order ``csrc/sparse_block_bwd.cu`` documents; ``like`` gives M, hw, C."""
+    M, hw, C = like.shape
+    if any(t.data_ptr() % 16 for t in tensors if t.dtype != torch.int32):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
+    fn, plan = _bwd_entry()
+    n_scratch = plan(which, M, hw, C, inner, dim_head, *flags)
+    if n_scratch < 0:
+        raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} does not "
+                         "fit the card's shared memory")
+    scratch = torch.empty(max(int(n_scratch), 16), dtype=torch.uint8, device=like.device)
+    table = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    stream = torch.cuda.current_stream(like.device).cuda_stream
+    rc = fn(which, table, len(tensors), scratch.data_ptr(), n_scratch, M, hw, C, inner,
+            num_heads, dim_head, float(norm_eps), *flags, stream)
+    build.check(rc, what)
+
+
+def sparse_block_mlp_bwd(h1, token_keep, work: Work, params, g, num_heads, dim_head):
+    """MLP branch of the backward over the work list (kernel
+    ``mlp_bwd_kernel``): same contract as ``sparse_block_mlp_bwd_plain``,
+    which a CPU tensor goes to; on a CUDA tensor the kernel launches or
+    raises. ``g`` is the cotangent of the block's output, in its dtype. The
+    kernel reads each matrix in both layouts: ``(out, in)`` for the
+    recomputation, and an ``(in, out)`` copy made here for ``g W^T``."""
+    if g.device.type == "cpu":
+        return sparse_block_mlp_bwd_plain(h1, token_keep, work, params, g)
+    what = "sparse_block_mlp_bwd"
+    g = g.contiguous()
+    keep, ops, inner, flags = block.operands(g, token_keep, params, num_heads, dim_head, what)
+    if h1.shape != g.shape or h1.dtype != torch.float32 or not h1.is_contiguous():
+        raise ValueError(f"{what}: h1 must be contiguous (M, hw, C) float32")
+    ids, n_win = work
+    acc = _zeros_like_params(params, MLP_KEYS, g.device)
+    gh1 = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    if g.shape[0]:
+        table = [h1, keep, g, ids, n_win, gh1, ops["wglu"], ops["bglu"], ops["wout"],
+                 ops["bout"], ops["ls2"], params["wglu"].contiguous(),
+                 params["wout"].contiguous()] + [acc[k] for k in MLP_KEYS]
+        _launch_bwd(_BWD_MLP, table, g, inner, num_heads, dim_head, 0.0, flags, what)
+        sparse_block_mlp_bwd.launches += 1
+    return gh1, acc
+
+
+def sparse_block_attn_bwd(y, token_keep, work: Work, params, gh1, num_heads, dim_head,
+                          norm_eps=1e-5):
+    """Attention branch of the backward over the work list (kernel
+    ``attn_bwd_kernel``): same contract as ``sparse_block_attn_bwd_plain``,
+    which a CPU tensor goes to; on a CUDA tensor the kernel launches or
+    raises. ``gh1`` is what ``sparse_block_mlp_bwd`` returned."""
+    if y.device.type == "cpu":
+        return sparse_block_attn_bwd_plain(y, token_keep, work, params, gh1, num_heads,
+                                           dim_head, norm_eps)
+    what = "sparse_block_attn_bwd"
+    y = y.contiguous()
+    keep, ops, inner, flags = block.operands(y, token_keep, params, num_heads, dim_head, what)
+    if gh1.shape != y.shape or gh1.dtype != torch.float32 or not gh1.is_contiguous():
+        raise ValueError(f"{what}: gh1 must be contiguous (M, hw, C) float32")
+    ids, n_win = work
+    acc = _zeros_like_params(params, ATTN_KEYS, y.device)
+    dy = torch.empty_like(y)
+    if y.shape[0]:
+        table = [y, keep, gh1, ids, n_win, dy, ops["ln2_scale"], ops["ln2_bias"], ops["wqkv"],
+                 ops["bqkv"], ops["wproj"], ops["bproj"], ops["ls1"],
+                 params["wqkv"].contiguous(), params["wproj"].contiguous()] \
+            + [acc[k] for k in ATTN_KEYS]
+        _launch_bwd(_BWD_ATTN, table, y, inner, num_heads, dim_head, norm_eps, flags, what)
+        sparse_block_attn_bwd.launches += 1
+    return dy, acc
+
+
+def _param_grads(acc, params):
+    """The fp32 accumulators by ``PARAM_KEYS``, each cast to its
+    parameter's dtype."""
+    return {key: acc[key].to(params[key].dtype) for key in block.PARAM_KEYS}
+
+
+def sparse_window_block_bwd_plain(
+    y: torch.Tensor,
+    token_keep: torch.Tensor,
+    win_keep: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    h1: torch.Tensor,
+    g: torch.Tensor,
+    num_heads: int,
+    dim_head: int,
+    norm_eps: float = 1e-5,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain PyTorch version of the whole backward (any device): the two
+    kernels' plain versions one after the other, not ``torch.autograd`` of
+    the forward.
+
+    Args as ``sparse_window_block``; ``h1`` is the forward's saved residual
+    (M, hw, C) fp32 and ``g`` the cotangent of its output.
+
+    Returns ``(dy, dparams)``: ``dy`` in ``y``'s dtype; ``dparams`` by
+    ``PARAM_KEYS`` in ``params``' shapes and dtypes (matrices ``(in, out)``).
+    Slots at or beyond the number of kept windows pass ``g`` through to
+    ``dy``; with no kept window every parameter gradient is exactly zero.
+    """
+    work = block.work_list(win_keep)
+    gh1, acc = sparse_block_mlp_bwd_plain(h1, token_keep, work, params, g)
+    dy, acc_attn = sparse_block_attn_bwd_plain(y, token_keep, work, params, gh1, num_heads,
+                                               dim_head, norm_eps)
+    return dy, _param_grads({**acc, **acc_attn}, params)
+
+
+def sparse_window_block_bwd(
+    y: torch.Tensor,
+    token_keep: torch.Tensor,
+    win_keep: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    h1: torch.Tensor,
+    g: torch.Tensor,
+    num_heads: int,
+    dim_head: int,
+    norm_eps: float = 1e-5,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Backward of ``sparse_window_block`` over the same work list: the MLP
+    kernel (h1, g -> gh1 and the MLP's parameter gradients), then the
+    attention kernel (y, gh1 -> dy and the rest). Same contract as
+    ``sparse_window_block_bwd_plain``; each kernel's wrapper takes its plain
+    version only for a CPU tensor."""
+    if g.shape != y.shape or g.dtype != y.dtype:
+        raise ValueError("sparse_window_block_bwd: g must match y in shape and dtype")
+    work = block.work_list(win_keep)
+    gh1, acc = sparse_block_mlp_bwd(h1, token_keep, work, params, g, num_heads, dim_head)
+    dy, acc_attn = sparse_block_attn_bwd(y, token_keep, work, params, gh1, num_heads, dim_head,
+                                         norm_eps)
+    return dy, _param_grads({**acc, **acc_attn}, params)
+
+
+class _SparseBlockFn(torch.autograd.Function):
+    """``sparse_window_block`` with ``save_h1`` as the forward and
+    ``sparse_window_block_bwd`` as the backward. Differentiable inputs: ``y``
+    and the leaves behind ``params`` (port layout)."""
+
+    @staticmethod
+    def forward(ctx, y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, *leaves):
+        y = y.contiguous()
+        out, h1 = _run(sparse_window_block, block.MODE_SPARSE, y.detach(), token_keep, win_keep,
+                       params, num_heads, dim_head, norm_eps, True)
+        ctx.save_for_backward(y, token_keep, win_keep, h1, *[t for t in leaves if t is not None])
+        ctx.present = [t is not None for t in leaves]
+        ctx.params, ctx.shape = params, (num_heads, dim_head, norm_eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, token_keep, win_keep, h1, *given = ctx.saved_tensors
+        given = iter(given)
+        leaves = [next(given) if here else None for here in ctx.present]
+        dy, dparams = sparse_window_block_bwd(y, token_keep, win_keep, ctx.params, h1,
+                                              g.to(y.dtype), *ctx.shape)
+        return (dy if ctx.needs_input_grad[0] else None, None, None, None, None, None, None,
+                *block.leaf_grads(dparams, leaves))
+
+
 sparse_window_block.launches = 0  # kernel launches, read by chip_smoke.py
 sparse_window_block_looped.launches = 0
+sparse_block_mlp_bwd.launches = 0
+sparse_block_attn_bwd.launches = 0

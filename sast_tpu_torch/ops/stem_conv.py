@@ -10,9 +10,11 @@ replicate pad by clamping coordinates, so no padded or widened copy of the
 input is ever written.
 
 ``stem_conv7x4`` dispatches on the tensor's device: a CPU tensor goes to
-``stem_conv7x4_plain``, a CUDA tensor launches the kernel or raises.
-Inference only: no gradient flows through the kernel (training is not part
-of the port yet).
+``stem_conv7x4_plain``, a CUDA tensor launches the kernel or raises. Under
+grad mode with a weight that requires grad it is a ``torch.autograd.Function``
+whose backward is the TPU package's ``_bwd``: for the uint8 input only the
+weight gradient, by torch's own convolution ops on the replicate-padded
+input (outside any kernel, as there); the density ratio has no gradient.
 """
 
 from __future__ import annotations
@@ -62,7 +64,36 @@ def _kernel():
     return fn
 
 
+class _StemFn(torch.autograd.Function):
+    """Kernel forward; backward: the weight gradient of the plain conv."""
+
+    @staticmethod
+    def forward(ctx, x, w, with_density):
+        out = _forward(x, w.detach(), with_density)
+        ctx.save_for_backward(x)
+        ctx.w_shape = w.shape
+        if with_density:
+            ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, g, *_g_ratio):
+        (x,) = ctx.saved_tensors
+        xp = F.pad(x.to(g.dtype).permute(0, 3, 1, 2), (PAD, PAD, PAD, PAD), mode="replicate")
+        gw = torch.nn.grad.conv2d_weight(xp, ctx.w_shape, g.permute(0, 3, 1, 2), stride=STRIDE)
+        return None, gw, None
+
+
 def stem_conv7x4(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
+    """7x7/stride-4 replicate-padded conv of a uint8 NHWC input; see
+    ``_forward`` for the arguments. Under grad mode with ``w`` requiring grad
+    the result carries the weight gradient."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _StemFn.apply(x, w, with_density)
+    return _forward(x, w, with_density)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
     """7x7/stride-4 replicate-padded conv of a uint8 NHWC input.
 
     Args:

@@ -1,4 +1,4 @@
-"""Load the JAX package's variables into the port.
+"""The JAX package's variables into the port, and back.
 
 ``load_jax_variables(model, variables)`` takes the ``{"params",
 "batch_stats"}`` tree of a ``sast_tpu`` ``YoloXDetector`` as nested dicts of
@@ -14,11 +14,17 @@ is the port's ``backbone.stage0.downsample.Conv_0.kernel`` and
 
 Every JAX leaf is consumed exactly once and every port parameter and
 buffer is set exactly once; anything left over on either side raises.
+
+``to_jax_variables(model)`` is the inverse: the port's parameters and
+buffers (or, with ``grads=True``, the parameters' ``.grad``) as a
+flax-shaped tree of numpy arrays in flax layout, so that gradients, updated
+parameters, EMA copies and ``batch_stats`` compare leaf by leaf with the JAX
+package's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -81,3 +87,50 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             f"JAX leaves not consumed {['/'.join(k) for k in jax_leaves]}"
         )
     return model
+
+
+def _to_flax(module: nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
+    if isinstance(module, Conv) and leaf == "kernel":
+        return value.transpose(2, 3, 1, 0)
+    if (isinstance(module, Dense) and leaf == "kernel") or (
+        isinstance(module, PositiveDense) and leaf == "weight"
+    ):
+        return value.T
+    return value
+
+
+def _insert(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+@torch.no_grad()
+def to_jax_variables(model: nn.Module, grads: bool = False,
+                     tensors: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, dict]:
+    """``model``'s state as the flax variables tree ``load_jax_variables``
+    reads: ``{"params": ..., "batch_stats": ...}`` of fp32 numpy arrays in
+    flax layout (copies: a later in-place update of the model does not
+    reach them).
+
+    With ``grads`` the tree holds each parameter's ``.grad`` (zeros where it
+    is None) and no ``batch_stats``. With ``tensors`` (parameter name ->
+    tensor, e.g. an EMA copy) it holds those in place of the parameters.
+    """
+    modules = dict(model.named_modules())
+    out: Dict[str, dict] = {"params": {}}
+    for name, p in model.named_parameters():
+        value = p
+        if tensors is not None:
+            value = tensors[name]
+        elif grads:
+            value = p.grad if p.grad is not None else torch.zeros_like(p)
+        owner, _, leaf = name.rpartition(".")
+        arr = value.detach().to(torch.float32).cpu().numpy()
+        _insert(out["params"], name.split("."), np.array(_to_flax(modules[owner], leaf, arr)))
+    if not grads and tensors is None:
+        out["batch_stats"] = {}
+        for name, b in model.named_buffers():
+            _insert(out["batch_stats"], name.split("."),
+                    np.array(b.detach().to(torch.float32).cpu().numpy()))
+    return out

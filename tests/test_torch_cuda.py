@@ -161,10 +161,89 @@ def test_block_kernels_match_plain(dev, kernel, shape, ydt, wdt):
         assert torch.equal(h1[~win], y[~win].float())
 
 
+def _bwd_tol(ref, wdt):
+    """fp32: as the forward (other summation order, atomics in any order).
+    bf16 weights: the products g W^T round their first operand to bf16, and
+    a sum that differs in its last fp32 bits flips such a rounding, so four
+    bf16 ulps at max|ref| (the matrix gradients are themselves rounded to
+    bf16 at the end)."""
+    scale = ref.float().abs().max().item()
+    if wdt == torch.float32:
+        return 2e-4, 2e-5 * scale
+    return 0.0, 2 ** -6 * scale
+
+
+@pytest.mark.parametrize("ydt,wdt", BLOCK_DTYPES, ids=["f32", "bf16", "f32-bf16w"])
+@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bwd_kernels_match_plain(dev, shape, ydt, wdt):
+    """Kernels G and H (``sparse_window_block_bwd``) against the plain
+    backward: dy and the 12 parameter gradients; skipped windows' dy is the
+    cotangent itself."""
+    M, hw, C, dh = shape
+    y, tok, win, params = _block_case(M, hw, C, dh, ydt, wdt, 0.5, 0, dev)
+    heads = C // dh
+    g = torch.from_numpy(np.random.RandomState(5).randn(M, hw, C).astype(np.float32)).to(dev, ydt)
+    _, h1 = sparse_block.sparse_window_block(y, tok, win, params, heads, dh, save_h1=True)
+    n = (sparse_block.sparse_block_mlp_bwd.launches, sparse_block.sparse_block_attn_bwd.launches)
+    dy, dp = sparse_block.sparse_window_block_bwd(y, tok, win, params, h1, g, heads, dh)
+    torch.cuda.synchronize()
+    assert (sparse_block.sparse_block_mlp_bwd.launches,
+            sparse_block.sparse_block_attn_bwd.launches) == (n[0] + 1, n[1] + 1)
+    dy_ref, dp_ref = sparse_block.sparse_window_block_bwd_plain(
+        y, tok, win, params, h1, g, heads, dh)
+    rtol, atol = _bwd_tol(dy_ref, wdt)
+    torch.testing.assert_close(dy.float(), dy_ref.float(), rtol=rtol, atol=atol)
+    assert torch.equal(dy[~win], g[~win])
+    for key in block.PARAM_KEYS:
+        assert dp[key].dtype == params[key].dtype and dp[key].shape == params[key].shape
+        rtol, atol = _bwd_tol(dp_ref[key], wdt)
+        torch.testing.assert_close(dp[key].float(), dp_ref[key].float(), rtol=rtol, atol=atol,
+                                   msg=lambda m, key=key: f"{key}: {m}")
+
+
+def test_bwd_kernels_no_window_kept(dev):
+    """With no kept window dy is the cotangent and every parameter gradient
+    is exactly zero."""
+    y, tok, win, params = _block_case(4, 60, 64, 32, torch.float32, torch.float32, 0.5, 2, dev)
+    tok, win = torch.zeros_like(tok), torch.zeros_like(win)
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(0)).to(dev)
+    _, h1 = sparse_block.sparse_window_block(y, tok, win, params, 2, 32, save_h1=True)
+    dy, dp = sparse_block.sparse_window_block_bwd(y, tok, win, params, h1, g, 2, 32)
+    assert torch.equal(dy, g)
+    assert all(not dp[key].any() for key in block.PARAM_KEYS)
+
+
+@pytest.mark.parametrize("shape", [(6, 60, 64, 32), (3, 60, 256, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sparse_block_function_matches_autograd_of_plain(dev, shape):
+    """The ``autograd.Function`` (kernel E forward, kernels G and H backward)
+    against ``torch.autograd`` of the plain block, fp32: gradients of y and of
+    every leaf in the port's ``(out, in)`` layout."""
+    M, hw, C, dh = shape
+    y, tok, win, params = _block_case(M, hw, C, dh, torch.float32, torch.float32, 0.5, 3, dev)
+    heads = C // dh
+    leaves = [params[k].t().contiguous() if k in block.MATRICES else params[k].clone()
+              for k in block.PARAM_KEYS]
+    for t in leaves:
+        t.requires_grad_()
+    y.requires_grad_()
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    detached = block.params_from_leaves([t.detach() for t in leaves], torch.float32)
+    out = sparse_block.sparse_window_block(y, tok, win, detached, heads, dh, leaves=leaves)
+    got = torch.autograd.grad((out * w).sum(), [y] + leaves)
+    ref_out = sparse_block.sparse_window_block_plain(
+        y, tok, win, block.params_from_leaves(leaves, torch.float32), heads, dh)
+    ref = torch.autograd.grad((ref_out * w).sum(), [y] + leaves)
+    for name, a, b in zip(["y"] + list(block.PARAM_KEYS), got, ref):
+        rtol, atol = _bwd_tol(b, torch.float32)
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
 def test_block_kernels_refuse_grad_and_bad_shapes(dev):
     y, tok, win, params = _block_case(2, 12, 32, 16, torch.float32, torch.float32, 1.0, 1, dev)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        sparse_block.sparse_window_block(y.requires_grad_(), tok, win, params, 2, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sparse_block.sparse_window_block_looped(y.requires_grad_(), tok, win, params, 2, 16)
     with torch.no_grad():
         with pytest.raises(ValueError, match="multiples of 16"):
             bad = dict(params, wqkv=params["wqkv"][:24, :72])
