@@ -4,13 +4,16 @@
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
 CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
 
-1. Print the card's name and power limit; build the eight kernels (six
+1. Print the card's name and power limit; build the eight kernels (seven
    libraries) from ``sast_tpu_torch/csrc`` (one nvcc per source, all started
-   together).
+   together), and log the registers and spills of kernels A and H.
 2. Hold each kernel against its plain PyTorch version on the card, TF32
    off, at the gen4-base b4 serving shapes, and time kernel, plain version,
    bound and library call; the stem kernel also at the training step's 12
-   lanes and the NMS kernel at the 36 frames of its ``eval_step``. The three block kernels (fused, sparse, looped)
+   lanes and the NMS kernel at the 36 frames of its ``eval_step``. Kernel A
+   (redesigned: an implicit GEMM on the tensor cores) is timed against
+   ``F.conv2d`` in turns (library, kernel, kernel, library) and its share of
+   the bound is logged. The three block kernels (fused, sparse, looped)
    run at the four stage shapes, in bf16 and fp32, at window densities 0.1,
    0.4 and 1.0, beside the masked torch-op path and the gather path.
 3. Drive the port's main path: ``StreamingDetector`` at gen4-base width
@@ -26,7 +29,9 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    Then, at the four stage shapes of the gen4-base B = 12 training step,
    bf16 and fp32, window densities 0.1, 0.4, 1.0 and no kept window: the
    sparse forward kernel (output and saved h1) and the two backward kernels
-   (MLP branch, attention branch) against their plain versions, and the
+   (MLP branch G; attention branch H, redesigned as tensor-core launches
+   without float atomics and checked to give the same bits twice) against
+   their plain versions, and the
    whole ``autograd.Function`` against ``torch.autograd`` of the plain
    block; time per layer beside autograd through the masked torch-op block.
 4. Hold the whole path on the card (kernels, fp32, TF32 off) on the masked,
@@ -44,7 +49,9 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    first step again under remat ``none`` and ``dots``; ``infer_step``
    against ``eval_step``.
 
-Prints the kernel table as one JSON line, then the nvidia-smi line, then
+Prints the kernel table as one JSON line (the rows of kernels redesigned
+since their first port carry ``redesigned``, the change that did it; the
+first versions' times are in PERF.md), then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Longer output (build
 logs, profiler table, all measurements) goes to ``chiprun_out/``.
 Exits non-zero, printing no result, without a card or outside a checkout.
@@ -55,6 +62,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -81,9 +89,25 @@ BLOCK_DENSITIES = (0.1, 0.4, 1.0)
 BLOCK_TABLE_DENSITY = 0.4  # the density whose times go into the kernels line
 LAYER_SCALE = 0.05  # LayerScale of the CPU-parity model
 EVENTS_PER_FRAME = 200_000  # StreamingDetector's default budget
+# Kernels redesigned since their first port, with the change that did it.
+REDESIGNED = {"stem_conv7x4": "PR 4", "sparse_block_attn_bwd": "PR 4"}
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+def ptxas_lines(logs, names=("stem_conv", "attn_bwd")):
+    """Registers and spills of each kernel the nvcc logs of ``names`` list
+    (``-Xptxas=-v``), one line per instantiation."""
+    out = []
+    pat = re.compile(r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads\nptxas info\s+: Used (\d+) registers", re.S)
+    for name in names:
+        for fn, stores, loads, regs in pat.findall(logs.get(name, "")):
+            short = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?_cu_\w{8}", "", fn)
+            out.append(f"{name}: {short}: {regs} registers, spill stores {stores} B, "
+                       f"loads {loads} B")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -219,29 +243,51 @@ def phase_kernels(torch, np):
         log(f"kernel stem_conv7x4 {dt} density=True at {TRAIN_KERNEL_SHAPE}: max_abs_err "
             f"{err:.3e} (max|y| {scale:.3f}, tol {tol:.3e}); density ratio exact")
         results[f"stem_err_{dt}_train"] = err
-    ms_b12 = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x12, w32.to(torch.bfloat16), True))
-    del x12
+    w12 = w32.to(torch.bfloat16)
+    ms_b12 = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x12, w12, True), ahead=True)
+    ms_b12_call = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x12, w12, True))
+    xp12 = F.pad(x12.to(torch.bfloat16).permute(0, 3, 1, 2), (3, 3, 3, 3), mode="replicate")
+    lib_b12 = cuda_ms(torch, lambda: F.conv2d(xp12, w12, stride=4), ahead=True)
+    del x12, xp12
     x = xs[0]
     wb = w32.to(torch.bfloat16)
-    ms = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x, wb, True))
-    plain = cuda_ms(torch, lambda: stem_conv.stem_conv7x4_plain(x, wb, True), iters=5)
-    ms_nd = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x, wb, False))
-    ms_fp32 = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x, w32, True))
+    # Kernel A against cuDNN's bf16 convolution of the pre-padded input, in
+    # turns in one process (library, kernel, kernel, library), card time
+    # alone (launches queued ahead): the counts' zeroing, the weight
+    # arrangement, the kernel and the ratio's division are all in the
+    # kernel's time. Then both per eager call (the host's pace included).
     xp = F.pad(x.to(torch.bfloat16).permute(0, 3, 1, 2), (3, 3, 3, 3), mode="replicate")
-    lib = cuda_ms(torch, lambda: F.conv2d(xp, wb, stride=4))
+    kernel_call = lambda: stem_conv.stem_conv7x4(x, wb, True)
+    library_call = lambda: F.conv2d(xp, wb, stride=4)
+    turns = [cuda_ms(torch, fn, ahead=True)
+             for fn in (library_call, kernel_call, kernel_call, library_call)]
+    lib, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    ms_call = cuda_ms(torch, kernel_call)
+    lib_call = cuda_ms(torch, library_call)
+    plain = cuda_ms(torch, lambda: stem_conv.stem_conv7x4_plain(x, wb, True), iters=5)
+    ms_nd = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x, wb, False), ahead=True)
+    ms_fp32 = cuda_ms(torch, lambda: stem_conv.stem_conv7x4(x, w32, True), ahead=True)
     y_bytes = B * (H // 4) * (W // 4) * 64
     a_bytes = x.numel() + wb.numel() * 2 + y_bytes * 2 + B * 4 * C * 4
     a_flops = 2.0 * y_bytes * 7 * 7 * C
     a_bound, a_by = bound_ms(a_bytes, a_flops, "bf16")
     err_a = max(v for k, v in results.items() if k.startswith("stem_err_torch.bfloat16"))
-    log(f"kernel stem_conv7x4 bf16+density {ms:.4f} ms, no density {ms_nd:.4f} ms, "
-        f"fp32+density {ms_fp32:.4f} ms, plain {plain:.4f} ms, F.conv2d {lib:.4f} ms, "
-        f"bound {a_bound:.4f} ms ({a_by}: {a_bytes / 1e6:.1f} MB, {a_flops / 1e9:.2f} GFLOP); "
-        f"at the B = 12 training shape {ms_b12:.4f} ms")
+    log(f"kernel stem_conv7x4 bf16+density {ms:.4f} ms (turns: F.conv2d {turns[0]:.4f}, kernel "
+        f"{turns[1]:.4f}, kernel {turns[2]:.4f}, F.conv2d {turns[3]:.4f}; {lib / ms:.2f}x "
+        f"F.conv2d's time; per eager call {ms_call:.4f} ms, F.conv2d {lib_call:.4f} ms), "
+        f"no density {ms_nd:.4f} ms, "
+        f"fp32+density {ms_fp32:.4f} ms, plain {plain:.4f} ms, bound {a_bound:.4f} ms ({a_by}: "
+        f"{a_bytes / 1e6:.1f} MB, {a_flops / 1e9:.2f} GFLOP), share of the bound "
+        f"{a_bound / ms:.3f}; at the B = 12 training shape {ms_b12:.4f} ms ({ms_b12_call:.4f} "
+        f"ms per eager call), F.conv2d {lib_b12:.4f} ms")
     stem = dict(name="stem_conv7x4", route="cuda", source="sast_tpu_torch/csrc/stem_conv.cu",
                 replaces="sast_tpu/ops/pallas/stem_conv.py:604", launches=None,
                 max_abs_err=err_a, ms=ms, plain_ms=plain, bound_ms=a_bound, bound_by=a_by,
-                library_ms=lib, ms_no_density=ms_nd, ms_fp32=ms_fp32, ms_b12=ms_b12)
+                library_ms=lib, ms_no_density=ms_nd, ms_fp32=ms_fp32, ms_b12=ms_b12,
+                call_ms_b12=ms_b12_call,
+                library_ms_b12=lib_b12, call_ms=ms_call, bound_share=a_bound / ms,
+                library_call_ms=lib_call, turns_ms=turns,
+                redesigned=REDESIGNED["stem_conv7x4"])
 
     # Kernel B.
     for i, xi in enumerate(xs):
@@ -504,6 +550,9 @@ def phase_bwd_kernels(torch, np):
     the kept windows, per stage shape of the B = 12 training step, dtype and
     window density; then their times beside autograd through the masked
     torch-op block."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from sast_tpu_torch.ops import block, sparse_block
 
     names = ("sparse_block_mlp_bwd", "sparse_block_attn_bwd")
@@ -511,6 +560,7 @@ def phase_bwd_kernels(torch, np):
     worst_rel = dict.fromkeys(names, 0.0)  # largest error over max|ref| of its tensor
     worst_fn = {"bf16": 0.0, "fp32": 0.0}
     worst_fwd = {"bf16": 0.0, "fp32": 0.0}  # the forward kernel at these shapes
+    deterministic = {"bf16": 0, "fp32": 0}  # cases where H gave the same bits twice
     problems = []  # every violation of the phase, reported together
     totals = {n: dict(ms=0.0, plain=0.0, bound=0.0, by={}) for n in names}
     totals["function"] = dict(fwd_bwd=0.0, bwd=0.0, masked_fwd_bwd=0.0, masked_bwd=0.0)
@@ -537,6 +587,8 @@ def phase_bwd_kernels(torch, np):
                     gh1_ref, acc_g_ref = sparse_block.sparse_block_mlp_bwd_plain(
                         h1, tok, work, params, g)
                     dy, acc_h = sparse_block.sparse_block_attn_bwd(
+                        y, tok, work, params, gh1_ref, heads, dh)
+                    dy2, acc_h2 = sparse_block.sparse_block_attn_bwd(
                         y, tok, work, params, gh1_ref, heads, dh)
                     dy_ref, acc_h_ref = sparse_block.sparse_block_attn_bwd_plain(
                         y, tok, work, params, gh1_ref, heads, dh)
@@ -580,6 +632,12 @@ def phase_bwd_kernels(torch, np):
                         problems.append(f"{name} {where} {what}: max err {err} at max|ref| {scale}")
                     worst[name] = max(worst[name], err)
                     worst_rel[name] = max(worst_rel[name], err / max(scale, 1e-30))
+                # Kernel H adds no float atomics: a second launch on the same
+                # inputs gives the same bits.
+                if torch.equal(dy, dy2) and all(torch.equal(acc_h[k], acc_h2[k]) for k in acc_h):
+                    deterministic[kind] += 1
+                else:
+                    problems.append(f"sparse_block_attn_bwd {where}: two launches differ")
                 if not torch.equal(gh1[~win], g[~win].float()) \
                         or not torch.equal(dy[~win], gh1_ref[~win].to(dtype)):
                     problems.append(f"backward kernels {where}: skipped windows do not pass g on")
@@ -656,6 +714,20 @@ def phase_bwd_kernels(torch, np):
                     f"{t['fn_bwd']:.4f}, fwd+bwd {t['fn_fwd_bwd']:.4f}; masked autograd bwd "
                     f"{t['masked_bwd']:.4f}, fwd+bwd {t['masked_fwd_bwd']:.4f}")
                 if kind == "bf16" and density == BLOCK_TABLE_DENSITY:
+                    # Kernel H is ten launches: where its time goes, per launch.
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(3):
+                            calls["attn"]()
+                        torch.cuda.synchronize()
+                    per = {}
+                    for e in prof.key_averages():
+                        if e.device_type == DeviceType.CUDA and re.search(r"\bab::", e.key):
+                            short = re.search(r"(\w+_kernel(?:<[^>]*>)?)", e.key).group(1)
+                            per[short] = per.get(short, 0.0) + (
+                                getattr(e, "self_device_time_total", 0)
+                                or getattr(e, "self_cuda_time_total", 0)) / 3
+                    log(f"bwd {where}: kernel H per call, us by launch: "
+                        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1])))
                     for name, key, b, by in (("sparse_block_mlp_bwd", "mlp", bg, bg_by),
                                              ("sparse_block_attn_bwd", "attn", bh, bh_by)):
                         tot = totals[name]
@@ -668,11 +740,12 @@ def phase_bwd_kernels(torch, np):
                     f["fwd_bwd"] += t["fn_fwd_bwd"]
                     f["masked_bwd"] += t["masked_bwd"]
                     f["masked_fwd_bwd"] += t["masked_fwd_bwd"]
-                del out, out_m, ref_out, got, ref
+                del out, out_m, ref_out, got, ref, dy2, acc_h2
     (OUT_DIR / "bwd_kernels.json").write_text(json.dumps(table, indent=1))
     log(f"backward kernels: worst error over max|ref| of its tensor: {worst_rel}; Function "
         f"against autograd of the plain block: {worst_fn}; the forward kernel (out, h1) "
-        f"against its plain version at these shapes: {worst_fwd}")
+        f"against its plain version at these shapes: {worst_fwd}; kernel H bit-equal over two "
+        f"launches in {deterministic} cases")
     if problems:
         fail("backward-kernel phase:\n  " + "\n  ".join(problems))
     replaces = dict(sparse_block_mlp_bwd="sast_tpu/ops/pallas/sparse_block.py:572",
@@ -689,14 +762,17 @@ def phase_bwd_kernels(torch, np):
             f"{BLOCK_TABLE_DENSITY}: {tot['ms']:.4f} ms on the card, plain {tot['plain']:.4f} ms, "
             f"bound {tot['bound']:.5f} ms; worst absolute error {worst[name]:.3e}, "
             f"{worst_rel[name]:.3e} of max|ref|")
-        out.append(dict(name=name, route="cuda", source="sast_tpu_torch/csrc/sparse_block_bwd.cu",
+        source = ("sast_tpu_torch/csrc/attn_bwd.cu" if name == "sparse_block_attn_bwd"
+                  else "sast_tpu_torch/csrc/sparse_block_bwd.cu")
+        out.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces[name], launches=None, max_abs_err=worst[name],
                         ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
                         bound_by=max(tot["by"], key=tot["by"].get), library_ms=None,
                         rel_err=worst_rel[name], forward_rel_err=worst_fwd,
                         masked_autograd_bwd_ms=f["masked_bwd"],
                         function_bwd_ms=f["bwd"], function_fwd_bwd_ms=f["fwd_bwd"],
-                        masked_autograd_fwd_bwd_ms=f["masked_fwd_bwd"]))
+                        masked_autograd_fwd_bwd_ms=f["masked_fwd_bwd"],
+                        **({"redesigned": REDESIGNED[name]} if name in REDESIGNED else {})))
     return out
 
 
@@ -1077,10 +1153,15 @@ def phase_training(torch, np, card):
                       or getattr(e, "self_cuda_time_total", 0) for e in rows_k)
         if busy_us <= 0:
             fail(f"training {name}: the profiler saw no kernel time on the card")
-        ours = {e.key[:60]: (getattr(e, "self_device_time_total", 0)
-                             or getattr(e, "self_cuda_time_total", 0)) / 1e3
-                for e in rows_k if "window_block_kernel" in e.key or "_bwd_kernel" in e.key
-                or "stem" in e.key}
+        ours = {}
+        for e in rows_k:
+            # Kernel H's launches (namespace ab) are summed under one name.
+            key = ("attn_bwd (H, all launches)" if re.search(r"\bab::", e.key)
+                   else e.key[:60])
+            if key.startswith("attn_bwd") or "window_block_kernel" in key \
+                    or "_bwd_kernel" in key or "stem" in key:
+                ours[key] = ours.get(key, 0.0) + (getattr(e, "self_device_time_total", 0)
+                                                  or getattr(e, "self_cuda_time_total", 0)) / 1e3
         if name == "sparse":
             table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
             (OUT_DIR / "training_profile.txt").write_text(table)
@@ -1431,10 +1512,14 @@ def main() -> None:
 
     t0 = time.perf_counter()
     logs = build.build()
+    ptxas = ptxas_lines(logs)
     (OUT_DIR / "build_log.txt").write_text(
-        "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+        "== registers and spills of kernels A and H\n" + "\n".join(ptxas) + "\n"
+        + "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc log in chiprun_out/build_log.txt)")
+    for line in ptxas:
+        log("  ptxas " + line)
 
     t0 = time.perf_counter()
     kernels = phase_kernels(torch, np) + phase_block_kernels(torch, np)
@@ -1482,7 +1567,9 @@ def main() -> None:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    extra = ("redesigned",)  # kernels redesigned since their first port
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
+                                  for kern in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

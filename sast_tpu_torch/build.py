@@ -41,6 +41,7 @@ KERNELS: Dict[str, tuple] = {
     "fused_block": (),
     "sparse_block": (),
     "sparse_block_bwd": (),
+    "attn_bwd": (),
 }
 
 

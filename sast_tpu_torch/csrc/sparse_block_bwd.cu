@@ -1,62 +1,49 @@
-// Backward of the sparse window block over the kept-first work list, for
-// sm_90a: the MLP-branch kernel and the attention-branch kernel.
+// Backward of the sparse window block's MLP branch over the kept-first work
+// list, for sm_90a.
 //
-// Replaces the TPU kernels _mlp_bwd_kernel and _attn_bwd_kernel behind
-// _sparse_block_bwd_impl (sast_tpu/ops/pallas/sparse_block.py). The block
-// splits at h1 = z + ls1 * proj:
+// Replaces the TPU kernel _mlp_bwd_kernel behind _sparse_block_bwd_impl
+// (sast_tpu/ops/pallas/sparse_block.py). The block splits at
+// h1 = z + ls1 * proj:
 //   MLP kernel (needs h1, g): recompute u = h1 Wglu + b, m = val * gelu(gate),
 //     mlp = m Wout + b; dls2, dWout, dbout, dWglu, dbglu; writes
-//     gh1 + (1 - keep) * g, the cotangent the attention kernel goes on from.
-//   attention kernel (needs y, gh1): recompute LN2, the per-head softmax,
-//     attn_out and proj; dls1, dWproj, dbproj; softmax backward head by head;
-//     dWqkv, dbqkv; LN2 backward (dscale, dbias); writes dy.
-// Slots at or beyond n_win pass the cotangent through (g -> gh1 -> dy).
-// ops/sparse_block.py states the arithmetic (what is rounded where);
-// sparse_window_block_bwd_plain there is the plain version of both kernels.
+//     gh1 + (1 - keep) * g, the cotangent the attention branch goes on from.
+// The attention branch is attn_bwd.cu. Slots at or beyond n_win pass the
+// cotangent through (g -> gh1). ops/sparse_block.py states the arithmetic
+// (what is rounded where); sparse_block_mlp_bwd_plain there is the plain
+// version.
 //
-// What differs from the TPU kernels. There the grid is sequential and the
+// What differs from the TPU kernel. There the grid is sequential and the
 // weight gradients accumulate in constant-index fp32 VMEM blocks. Here blocks
 // run in no order, so every window's contribution X^T G is added to fp32
 // accumulators in device memory with atomicAdd (red.global.add.f32); the
 // wrapper zeroes them. The sum's order, and so the last bits of a parameter
 // gradient, vary from run to run; with no kept window nothing is added and
-// every parameter gradient is exactly zero. Column sums (biases, LayerScale,
-// LayerNorm) are reduced in shared memory first, one atomic per column and
-// window.
+// every parameter gradient is exactly zero. Column sums (biases, LayerScale)
+// are reduced in shared memory first, one atomic per column and window.
 //
-// What bounds them on an H100: operations, like the forward (the backward is
+// What bounds it on an H100: operations, like the forward (the backward is
 // the forward's recomputation plus about twice its products, on the same
 // hw x C tokens). The design is the forward's: one thread block of 8 warps
 // owns one window; a persistent grid of at most 4 blocks per SM walks the
-// slots, which bounds the scratch. The forward's recomputation is the
-// forward's own code (load_window, ln2_rows, head_probs, block_gemm of
-// window_block.cuh). The products g W^T run through block_gemm against an
-// (in, out)-contiguous copy of each matrix; the products that contract over
-// the window's rows (X^T G, and dS^T q, dS k, P^T g_ao of the softmax
-// backward) run through tn_product in fp32 FMA, a 4 x 4 register tile per
-// thread. The attention matrices are recomputed head by head in the backward
-// loop rather than kept for all heads. Buffers are placed by plan_bwd(): in
-// shared memory in a fixed order while they fit, else in a per-block scratch
-// in device memory (L2) that the wrapper allocates; at C = 512 most of the
-// window-wide buffers (g_qkv is 60 x 1536 fp32, [val|gate] 60 x 2688 fp32)
-// live there.
+// slots, which bounds the scratch. The products g W^T run through block_gemm
+// of window_block.cuh against an (in, out)-contiguous copy of each matrix;
+// the products that contract over the window's rows (X^T G) run through
+// tn_product in fp32 FMA, a 4 x 4 register tile per thread. Buffers are
+// placed by plan_bwd(): in shared memory in a fixed order while they fit,
+// else in a per-block scratch in device memory (L2) that the wrapper
+// allocates; at C = 512 [val|gate] (60 x 2688 fp32) lives there.
 
 #include "window_block.cuh"
 
 namespace wb {
 namespace {
 
-enum Which { MLP_BWD = 0, ATTN_BWD = 1 };
 constexpr int NBUF = 16;
 constexpr int GRID_BLOCKS_PER_SM = 4;
 
 // Buffers of the MLP kernel, in placement order.
 enum { G_KEEP = 0, G_COL, G_H1, G_GM, G_M, G_U, G_COUNT };
-// Buffers of the attention kernel, in placement order; the first H_MANDATORY
-// must be in shared memory.
-enum { H_KEEP = 0, H_STATS, H_COL, H_Q, H_K, H_VH, H_VT, H_P, H_DP, H_DST,
-       H_Z, H_GH, H_ATTN, H_GAO, H_GQKV, H_COUNT };
-constexpr int G_MANDATORY = 2, H_MANDATORY = 10;
+constexpr int G_MANDATORY = 2;
 
 // smem[i] is the byte offset of buffer i in dynamic shared memory, or -1 when
 // it lives at scr[i] in the block's scratch.
@@ -69,49 +56,32 @@ struct BwdPlan {
 
 struct BwdArgs {
   Args f;            // window geometry, work list, weights as (out, in) rows
-  const void* g;     // MLP kernel: cotangent of the block's output, in y's type
-  const float* h1;   // MLP kernel: the forward's saved residual
-  float* gh1;        // gh1 + (1 - keep) * g: written by MLP, read by attention
-  void* dy;          // attention kernel: output, in y's type
-  const void *wqkv_io, *wproj_io, *wglu_io, *wout_io;  // (in, out) rows
-  // fp32 accumulators, matrices as (in, out). MLP: dwglu, dbglu, dwout,
-  // dbout, dls2. Attention: dwqkv, dbqkv, dwproj, dbproj, dls1, ds2, db2.
-  float* acc[7];
+  const void* g;     // cotangent of the block's output, in y's type
+  const float* h1;   // the forward's saved residual
+  float* gh1;        // gh1 + (1 - keep) * g
+  const void *wglu_io, *wout_io;  // (in, out) rows
+  // fp32 accumulators, matrices as (in, out): dwglu, dbglu, dwout, dbout, dls2.
+  float* acc[5];
   BwdPlan P;
 };
 
-inline bool plan_bwd(int which, int hw, int C, int I, int dh, int wbytes, BwdPlan* P) {
+inline bool plan_bwd(int hw, int C, int I, int wbytes, BwdPlan* P) {
   const long long R = hw <= 64 ? 64 : 80;
   long long sizes[NBUF] = {0};
-  int count, mandatory;
   const long long rc32 = R * (C + PAD) * 4;
-  if (which == MLP_BWD) {
-    sizes[G_KEEP] = R;
-    sizes[G_COL] = C * 4;
-    sizes[G_H1] = rc32;
-    sizes[G_GM] = rc32;
-    sizes[G_M] = R * (I + PAD) * wbytes;
-    sizes[G_U] = R * (2 * I + PAD) * 4;
-    count = G_COUNT; mandatory = G_MANDATORY;
-  } else {
-    sizes[H_KEEP] = R;
-    sizes[H_STATS] = 2 * R * 4;
-    sizes[H_COL] = 3 * C * 4;
-    sizes[H_Q] = sizes[H_K] = sizes[H_VH] = R * (dh + PAD) * wbytes;
-    sizes[H_VT] = dh * (R + PAD) * wbytes;
-    sizes[H_P] = sizes[H_DP] = sizes[H_DST] = R * (R + PAD) * 4;
-    sizes[H_Z] = sizes[H_GH] = rc32;
-    sizes[H_ATTN] = sizes[H_GAO] = R * (C + PAD) * wbytes;
-    sizes[H_GQKV] = R * (3 * C + PAD) * 4;
-    count = H_COUNT; mandatory = H_MANDATORY;
-  }
+  sizes[G_KEEP] = R;
+  sizes[G_COL] = C * 4;
+  sizes[G_H1] = rc32;
+  sizes[G_GM] = rc32;
+  sizes[G_M] = R * (I + PAD) * wbytes;
+  sizes[G_U] = R * (2 * I + PAD) * 4;
   long long off = 0, s = 0;
   for (int i = 0; i < NBUF; ++i) { P->smem[i] = -1; P->scr[i] = 0; }
-  for (int i = 0; i < count; ++i) {
+  for (int i = 0; i < G_COUNT; ++i) {
     const long long b = align128(sizes[i]);
     if (off + b <= SMEM_LIMIT) {
       P->smem[i] = (int)off; off += b;
-    } else if (i < mandatory) {
+    } else if (i < G_MANDATORY) {
       return false;
     } else {
       P->scr[i] = s; s += b;
@@ -298,194 +268,6 @@ __global__ void __launch_bounds__(THREADS) mlp_bwd_kernel(const BwdArgs b) {
 }
 
 // ---------------------------------------------------------------------------
-// Attention branch of one kept window. Ends with a barrier.
-template <typename YT, typename WT, int MT>
-__device__ void attn_bwd_window(const BwdArgs& b, int wid, unsigned char* smem,
-                                unsigned char* scratch) {
-  constexpr int R = MT * 16;
-  const Args& a = b.f;
-  const int hw = a.hw, C = a.C, dh = a.dh;
-  const int ldc = C + PAD, ldq = dh + PAD, ldv = R + PAD, ldp = R + PAD, lda = C + PAD,
-            ldg = 3 * C + PAD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* skeep = buffer<unsigned char>(b.P, H_KEEP, smem, scratch);
-  float* stats = buffer<float>(b.P, H_STATS, smem, scratch);
-  float* col = buffer<float>(b.P, H_COL, smem, scratch);
-  WT* qh = buffer<WT>(b.P, H_Q, smem, scratch);
-  WT* kh = buffer<WT>(b.P, H_K, smem, scratch);
-  WT* vh = buffer<WT>(b.P, H_VH, smem, scratch);
-  WT* vt = buffer<WT>(b.P, H_VT, smem, scratch);
-  float* P = buffer<float>(b.P, H_P, smem, scratch);
-  float* dP = buffer<float>(b.P, H_DP, smem, scratch);
-  float* dST = buffer<float>(b.P, H_DST, smem, scratch);
-  float* zf = buffer<float>(b.P, H_Z, smem, scratch);
-  float* gh = buffer<float>(b.P, H_GH, smem, scratch);
-  WT* attn = buffer<WT>(b.P, H_ATTN, smem, scratch);
-  WT* gao = buffer<WT>(b.P, H_GAO, smem, scratch);
-  float* gqkv = buffer<float>(b.P, H_GQKV, smem, scratch);
-  const WT* wproj = static_cast<const WT*>(a.wproj);
-  const WT* wproj_io = static_cast<const WT*>(b.wproj_io);
-  const WT* wqkv_io = static_cast<const WT*>(b.wqkv_io);
-  const YT* y = static_cast<const YT*>(a.y);
-  YT* dy = static_cast<YT*>(b.dy);
-  float *dwqkv = b.acc[0], *dbqkv = b.acc[1], *dwproj = b.acc[2], *dbproj = b.acc[3],
-        *dls1 = b.acc[4], *ds2 = b.acc[5], *db2 = b.acc[6];
-  const size_t base = (size_t)wid * hw * C;
-  const unsigned char* gkeep = a.keep + (size_t)wid * hw;
-
-  // y -> zf; gh1 = keep ? gh1_in : 0 -> gh; rows from hw to R are zero.
-  load_window<YT, MT>(a, wid, y + base, zf, skeep);
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int idx = threadIdx.x * 4; idx < R * C; idx += THREADS * 4) {
-    const int r = idx / C, c = idx - r * C;
-    *reinterpret_cast<float4*>(gh + r * ldc + c) =
-        r < hw && gkeep[r] ? load_y4(b.gh1 + base + idx) : zero4;
-  }
-  for (int c = threadIdx.x; c < 3 * C; c += THREADS) col[c] = 0.f;
-  __syncthreads();
-  ln2_rows<MT>(a, zf, skeep, stats);
-  __syncthreads();
-
-  // Recompute attn_out, head by head, as the forward does.
-  for (int h = 0; h < a.heads; ++h) {
-    head_probs<WT, MT>(a, h, zf, skeep, qh, kh, vt, static_cast<WT*>(nullptr), P);
-    block_gemm<MT, 1, 1, WT>(
-        P, ldp, [&](int, int n) { return vt + n * ldv; }, dh, R,
-        [&](int m, int n, const float (&v)[1]) { attn[m * lda + h * dh + n] = from_f<WT>(v[0]); });
-    __syncthreads();
-  }
-
-  // proj = attn_out Wproj + b, used only for dls1 = sum_rows gh1 * proj.
-  block_gemm<MT, 2, 1, WT>(
-      attn, lda, [&](int, int n) { return wproj + (size_t)n * C; }, C, C,
-      [&](int m, int n, const float (&v)[1]) {
-        if (m >= hw) return;
-        const float gv = gh[m * ldc + n];
-        if (gv != 0.f) atomicAdd(col + n, gv * (v[0] + a.bproj[n]));
-      });
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += THREADS) atomicAdd(dls1 + c, col[c]);
-  // g_proj = gh1 * ls1, in place.
-  for (int idx = threadIdx.x; idx < hw * C; idx += THREADS) {
-    const int r = idx / C, c = idx - r * C;
-    gh[r * ldc + c] *= a.ls1[c];
-  }
-  __syncthreads();
-  colsum_add(gh, ldc, hw, C, dbproj);
-  tn_product<false, WT>(attn, lda, gh, ldc, hw, C, C, [&](int k, int n, float v) {
-    atomicAdd(dwproj + (size_t)k * C + n, v);
-  });
-  // g_ao = g_proj Wproj^T, kept in WT like attn_out.
-  block_gemm<MT, 2, 1, WT>(
-      gh, ldc, [&](int, int n) { return wproj_io + (size_t)n * C; }, C, C,
-      [&](int m, int n, const float (&v)[1]) { gao[m * lda + n] = from_f<WT>(v[0]); });
-  __syncthreads();
-
-  // Softmax backward per head: q, k, v and P are recomputed.
-  for (int h = 0; h < a.heads; ++h) {
-    head_probs<WT, MT>(a, h, zf, skeep, qh, kh, vt, vh, P);
-    // dP = g_ao_h v^T
-    block_gemm<MT, 1, 1, WT>(
-        gao + h * dh, lda, [&](int, int n) { return vh + n * ldq; }, R, dh,
-        [&](int m, int n, const float (&v)[1]) { dP[m * ldp + n] = v[0]; });
-    __syncthreads();
-    // dS = P * (dP - sum_k dP * P) at kept keys, 0 elsewhere; dP becomes dS,
-    // and dST its transpose. Rows and columns from hw to R are zero.
-    for (int r = warp; r < R; r += WARPS) {
-      float* dr = dP + r * ldp;
-      const float* pr = P + r * ldp;
-      float s = 0.f;
-      if (r < hw) {
-        for (int n = lane; n < hw; n += 32) s += dr[n] * pr[n];
-        s = warp_sum(s);
-      }
-      for (int n = lane; n < R; n += 32) {
-        const float ds = (r < hw && n < hw && skeep[n]) ? pr[n] * (dr[n] - s) : 0.f;
-        dr[n] = ds;
-        dST[n * ldp + r] = ds;
-      }
-    }
-    __syncthreads();
-    // gq = scale * dS k, gk = scale * dS^T q, gv = P^T g_ao_h.
-    tn_product<false, WT>(dST, ldp, kh, ldq, hw, R, dh, [&](int q, int d, float v) {
-      gqkv[q * ldg + h * dh + d] = v * a.scale;
-    });
-    tn_product<false, WT>(dP, ldp, qh, ldq, hw, R, dh, [&](int k, int d, float v) {
-      gqkv[k * ldg + C + h * dh + d] = v * a.scale;
-    });
-    tn_product<true, WT>(P, ldp, gao + h * dh, lda, hw, R, dh, [&](int k, int d, float v) {
-      gqkv[k * ldg + 2 * C + h * dh + d] = v;
-    });
-    __syncthreads();
-  }
-
-  colsum_add(gqkv, ldg, hw, 3 * C, dbqkv);
-  tn_product<true, WT>(zf, ldc, gqkv, ldg, hw, C, 3 * C, [&](int k, int n, float v) {
-    atomicAdd(dwqkv + (size_t)k * 3 * C + n, v);
-  });
-  // g_z = gh1 + g_qkv Wqkv^T -> gh (g_proj is dead).
-  block_gemm<MT, 2, 1, WT>(
-      gqkv, ldg, [&](int, int n) { return wqkv_io + (size_t)n * 3 * C; }, C, 3 * C,
-      [&](int m, int n, const float (&v)[1]) {
-        if (m >= hw) return;
-        gh[m * ldc + n] = v[0] + (skeep[m] ? b.gh1[base + (size_t)m * C + n] : 0.f);
-      });
-  __syncthreads();
-
-  // z = where(keep, LN2(y), y): LayerNorm backward on kept rows; an unkept
-  // row adds its pass-through cotangent to g_z.
-  for (int r = warp; r < hw; r += WARPS) {
-    const float* gz = gh + r * ldc;
-    const size_t o = base + (size_t)r * C;
-    if (!skeep[r]) {
-      for (int c = lane; c < C; c += 32) dy[o + c] = from_f<YT>(b.gh1[o + c] + gz[c]);
-      continue;
-    }
-    const float mu = stats[r], rstd = stats[R + r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float xh = (to_f<YT>(y[o + c]) - mu) * rstd;
-      const float gx = gz[c] * a.ln2s[c];
-      s1 += gx;
-      s2 += gx * xh;
-      atomicAdd(col + C + c, gz[c] * xh);
-      atomicAdd(col + 2 * C + c, gz[c]);
-    }
-    const float mean_g = warp_sum(s1) / (float)C, mean_gx = warp_sum(s2) / (float)C;
-    for (int c = lane; c < C; c += 32) {
-      const float xh = (to_f<YT>(y[o + c]) - mu) * rstd;
-      const float gx = gz[c] * a.ln2s[c];
-      dy[o + c] = from_f<YT>(rstd * (gx - mean_g - xh * mean_gx));
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    atomicAdd(ds2 + c, col[C + c]);
-    atomicAdd(db2 + c, col[2 * C + c]);
-  }
-  __syncthreads();
-}
-
-template <typename YT, typename WT, int MT>
-__global__ void __launch_bounds__(THREADS) attn_bwd_kernel(const BwdArgs b) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Args& a = b.f;
-  unsigned char* scratch = a.scratch + (size_t)blockIdx.x * b.P.scratch_per_block;
-  const size_t wsize = (size_t)a.hw * a.C;
-  YT* dy = static_cast<YT*>(b.dy);
-  const int n_win = *a.n_win;
-  for (int slot = blockIdx.x; slot < a.M; slot += gridDim.x) {
-    const int wid = a.ids[slot];
-    if (slot >= n_win) {
-      for (size_t i = threadIdx.x; i < wsize; i += THREADS)
-        dy[wid * wsize + i] = from_f<YT>(b.gh1[wid * wsize + i]);
-      continue;
-    }
-    attn_bwd_window<YT, WT, MT>(b, wid, smem, scratch);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Host side.
 
 // Blocks of one launch: a persistent grid of at most GRID_BLOCKS_PER_SM per SM.
@@ -504,33 +286,22 @@ inline int bwd_grid(int M, int* grid) {
 }
 
 struct BwdLaunchFn {
-  const BwdArgs& b; int which; long long scratch_bytes; cudaStream_t stream;
+  const BwdArgs& b; long long scratch_bytes; cudaStream_t stream;
   template <typename YT, typename WT, int MT> int operator()() const {
     int grid = 0;
     int rc = bwd_grid(b.f.M, &grid);
     if (rc != 0) return rc;
     if (scratch_bytes < (long long)grid * b.P.scratch_per_block) return (int)cudaErrorInvalidValue;
     // The attribute is set once per kernel instantiation of this library.
-    static bool ready[2] = {false, false};
-    if (which == MLP_BWD) {
-      auto kernel = mlp_bwd_kernel<YT, WT, MT>;
-      if (!ready[0]) {
-        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)SMEM_LIMIT);
-        if (e != cudaSuccess) return (int)e;
-        ready[0] = true;
-      }
-      kernel<<<grid, THREADS, b.P.total, stream>>>(b);
-    } else {
-      auto kernel = attn_bwd_kernel<YT, WT, MT>;
-      if (!ready[1]) {
-        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)SMEM_LIMIT);
-        if (e != cudaSuccess) return (int)e;
-        ready[1] = true;
-      }
-      kernel<<<grid, THREADS, b.P.total, stream>>>(b);
+    static bool ready = false;
+    auto kernel = mlp_bwd_kernel<YT, WT, MT>;
+    if (!ready) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)SMEM_LIMIT);
+      if (e != cudaSuccess) return (int)e;
+      ready = true;
     }
+    kernel<<<grid, THREADS, b.P.total, stream>>>(b);
     return (int)cudaGetLastError();
   }
 };
@@ -538,27 +309,21 @@ struct BwdLaunchFn {
 }  // namespace
 }  // namespace wb
 
-// Pointer tables, in this order.
-// which 0 (MLP kernel): h1, keep, g, ids, n_win, gh1, wglu, bglu, wout, bout,
-//   ls2, wglu_io, wout_io, dwglu, dbglu, dwout, dbout, dls2                (18)
-// which 1 (attention kernel): y, keep, gh1, ids, n_win, dy, ln2_scale,
-//   ln2_bias, wqkv, bqkv, wproj, bproj, ls1, wqkv_io, wproj_io, dwqkv, dbqkv,
-//   dwproj, dbproj, dls1, dln2_scale, dln2_bias                            (22)
+// Pointer table, in this order: h1, keep, g, ids, n_win, gh1, wglu, bglu,
+// wout, bout, ls2, wglu_io, wout_io, dwglu, dbglu, dwout, dbout, dls2 (18).
 // Matrices w* are (out, in) rows, w*_io (in, out) rows, both in the weights'
 // type; vectors and accumulators fp32; accumulators (in, out), zeroed by the
 // caller.
-extern "C" int sast_sparse_block_bwd(int which, const void* const* p, int np, void* scratch,
+extern "C" int sast_sparse_block_bwd(const void* const* p, int np, void* scratch,
                                      long long nscratch, int M, int hw, int C, int I, int heads,
-                                     int dh, float eps, int y_bf16, int w_bf16, void* stream) {
+                                     int dh, int y_bf16, int w_bf16, void* stream) {
   using namespace wb;
-  if (which != MLP_BWD && which != ATTN_BWD) return (int)cudaErrorInvalidValue;
-  if (np != (which == MLP_BWD ? 18 : 22)) return (int)cudaErrorInvalidValue;
+  if (np != 18) return (int)cudaErrorInvalidValue;
   if (hw > 80 || C % 16 || dh % 16 || I % 16 || heads * dh != C || M <= 0)
     return (int)cudaErrorInvalidValue;
   BwdArgs b{};
   Args& a = b.f;
   a.M = M; a.hw = hw; a.C = C; a.I = I; a.heads = heads; a.dh = dh; a.mode = SPARSE;
-  a.eps = eps;
   a.scale = (float)(1.0 / sqrt((double)dh));
   a.scratch = static_cast<unsigned char*>(scratch);
   a.keep = static_cast<const unsigned char*>(p[1]);
@@ -566,31 +331,20 @@ extern "C" int sast_sparse_block_bwd(int which, const void* const* p, int np, vo
   a.n_win = static_cast<const int*>(p[4]);
   auto f32 = [&](int i) { return static_cast<const float*>(p[i]); };
   auto out32 = [&](int i) { return static_cast<float*>(const_cast<void*>(p[i])); };
-  if (which == MLP_BWD) {
-    b.h1 = f32(0); b.g = p[2]; b.gh1 = out32(5);
-    a.wglu = p[6]; a.bglu = f32(7); a.wout = p[8]; a.bout = f32(9); a.ls2 = f32(10);
-    b.wglu_io = p[11]; b.wout_io = p[12];
-    for (int i = 0; i < 5; ++i) b.acc[i] = out32(13 + i);
-  } else {
-    a.y = p[0]; b.gh1 = out32(2); b.dy = const_cast<void*>(p[5]);
-    a.ln2s = f32(6); a.ln2b = f32(7); a.wqkv = p[8]; a.bqkv = f32(9);
-    a.wproj = p[10]; a.bproj = f32(11); a.ls1 = f32(12);
-    b.wqkv_io = p[13]; b.wproj_io = p[14];
-    for (int i = 0; i < 7; ++i) b.acc[i] = out32(15 + i);
-  }
-  if (!plan_bwd(which, hw, C, I, dh, w_bf16 ? 2 : 4, &b.P)) return (int)cudaErrorInvalidValue;
-  return dispatch(hw, y_bf16, w_bf16,
-                  BwdLaunchFn{b, which, nscratch, static_cast<cudaStream_t>(stream)});
+  b.h1 = f32(0); b.g = p[2]; b.gh1 = out32(5);
+  a.wglu = p[6]; a.bglu = f32(7); a.wout = p[8]; a.bout = f32(9); a.ls2 = f32(10);
+  b.wglu_io = p[11]; b.wout_io = p[12];
+  for (int i = 0; i < 5; ++i) b.acc[i] = out32(13 + i);
+  if (!plan_bwd(hw, C, I, w_bf16 ? 2 : 4, &b.P)) return (int)cudaErrorInvalidValue;
+  return dispatch(hw, y_bf16, w_bf16, BwdLaunchFn{b, nscratch, static_cast<cudaStream_t>(stream)});
 }
 
 // Bytes of scratch one launch needs; -1 if the window does not fit shared
 // memory, -2 on a CUDA error.
-extern "C" long long sast_sparse_block_bwd_scratch_bytes(int which, int M, int hw, int C, int I,
-                                                         int dh, int y_bf16, int w_bf16) {
+extern "C" long long sast_sparse_block_bwd_scratch_bytes(int M, int hw, int C, int I, int w_bf16) {
   using namespace wb;
-  (void)y_bf16;
   BwdPlan P;
-  if (hw > 80 || !plan_bwd(which, hw, C, I, dh, w_bf16 ? 2 : 4, &P)) return -1;
+  if (hw > 80 || !plan_bwd(hw, C, I, w_bf16 ? 2 : 4, &P)) return -1;
   int grid = 0;
   if (bwd_grid(M, &grid) != 0) return -2;
   return (long long)grid * P.scratch_per_block;

@@ -49,12 +49,9 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "common.cuh"
 
 // Everything is internal to the translation unit that includes this file:
 // two libraries are built from it and loaded into one process, and the
@@ -63,10 +60,11 @@
 namespace wb {
 namespace {
 
+using namespace sast;
+
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 16;
-constexpr float MASK_VALUE = -1e4f;
 constexpr long long SMEM_LIMIT = 227 * 1024;
 constexpr int MAX_BLOCKS_PER_SM = 4;  // looped grid: at most this many per SM
 
@@ -128,41 +126,6 @@ inline bool plan(int mode, int hw, int C, int I, int dh, int ybytes, int wbytes,
   L->m_scratch = s; if (L->m < 0) s += m_b;
   L->scratch_per_block = s;
   return true;
-}
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Four consecutive k of one operand row as two packed bf16 pairs.
-__device__ __forceinline__ void load_k4(const __nv_bfloat16* p, uint32_t& lo, uint32_t& hi) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  lo = v.x; hi = v.y;
-}
-__device__ __forceinline__ void load_k4(const float* p, uint32_t& lo, uint32_t& hi) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  lo = pack_bf16(v.x, v.y); hi = pack_bf16(v.z, v.w);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // out(m, n)[b] = sum_k A[m][k] * brow(b, n)[k] for m < 16 MT, n < N, on the
@@ -280,17 +243,6 @@ __device__ __forceinline__ void block_gemm(const AT* A, int lda, BRow brow, int 
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
   return 0.5f * x * (1.f + tanhf(inner));
@@ -324,40 +276,31 @@ __device__ void load_window(const Args& a, int wid, const YT* src, float* zf,
     skeep[r] = r < a.hw ? a.keep[(size_t)wid * a.hw + r] : 0;
 }
 
-// LN2 in place on the kept rows of zf, two-pass variance over the C
-// channels. With `stats`, row r's mean goes to stats[r] and its reciprocal
-// standard deviation to stats[R + r] (the backward's LayerNorm needs them).
-// No barrier inside.
+// LN2 in place on the kept rows of zf (common.cuh row_stats). No barrier
+// inside.
 template <int MT>
-__device__ __forceinline__ void ln2_rows(const Args& a, float* zf, const unsigned char* skeep, float* stats) {
-  constexpr int R = MT * 16;
+__device__ __forceinline__ void ln2_rows(const Args& a, float* zf, const unsigned char* skeep) {
   const int C = a.C, ldz = C + PAD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < a.hw; r += WARPS) {
     if (!skeep[r]) continue;
     float* zr = zf + r * ldz;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += zr[c];
-    const float mu = warp_sum(s) / (float)C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) { const float d = zr[c] - mu; v += d * d; }
-    const float rstd = rsqrtf(warp_sum(v) / (float)C + a.eps);
-    for (int c = lane; c < C; c += 32) zr[c] = (zr[c] - mu) * rstd * a.ln2s[c] + a.ln2b[c];
-    if (stats != nullptr && lane == 0) { stats[r] = mu; stats[R + r] = rstd; }
+    float mu, rstd;
+    row_stats([&](int c) { return zr[c]; }, C, a.eps, mu, rstd);
+    for (int c = lane; c < C; c += 32) zr[c] = layer_norm(zr[c], mu, rstd, a.ln2s[c], a.ln2b[c]);
   }
 }
 
 // Head h of the window in zf: q, k (R x dh) and v transposed (dh x R) in WT,
-// and the softmax P (R x R fp32; rows below hw, pad keys 0). With `vh`, v is
-// also kept as R x dh rows (the backward multiplies by v^T). Ends with a
+// and the softmax P (R x R fp32; rows below hw, pad keys 0). Ends with a
 // barrier.
 template <typename WT, int MT>
 __device__ __forceinline__ void head_probs(const Args& a, int h, const float* zf, const unsigned char* skeep,
-                           WT* qh, WT* kh, WT* vt, WT* vh, float* P) {
+                           WT* qh, WT* kh, WT* vt, float* P) {
   constexpr int R = MT * 16;
   const int hw = a.hw, C = a.C, dh = a.dh;
   const int ldz = C + PAD, ldq = dh + PAD, ldv = R + PAD, ldp = R + PAD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const WT* wqkv = static_cast<const WT*>(a.wqkv);
   // q, k, v of this head: columns [sec * C + h * dh, + dh) of z Wqkv.
   block_gemm<MT, 1, 1, WT>(
@@ -372,30 +315,18 @@ __device__ __forceinline__ void head_probs(const Args& a, int h, const float* zf
         const WT w = from_f<WT>(v[0] + a.bqkv[sec * C + h * dh + d]);
         if (sec == 0) qh[m * ldq + d] = w;
         else if (sec == 1) kh[m * ldq + d] = w;
-        else {
-          vt[d * ldv + m] = w;
-          if (vh != nullptr) vh[m * ldq + d] = w;
-        }
+        else vt[d * ldv + m] = w;
       });
   __syncthreads();
   // logits = q k^T * scale; masked keys get exactly MASK_VALUE.
   block_gemm<MT, 1, 1, WT>(
       qh, ldq, [&](int, int n) { return kh + n * ldq; }, R, dh,
       [&](int m, int n, const float (&v)[1]) {
-        P[m * ldp + n] = skeep[n] ? v[0] * a.scale : MASK_VALUE;
+        P[m * ldp + n] = masked_logit(skeep[n], v[0], a.scale);
       });
   __syncthreads();
   // Softmax over the hw real keys; the pad keys get weight 0.
-  for (int r = warp; r < hw; r += WARPS) {
-    float* pr = P + r * ldp;
-    float mx = -INFINITY;
-    for (int n = lane; n < hw; n += 32) mx = fmaxf(mx, pr[n]);
-    mx = warp_max(mx);
-    float s = 0.f;
-    for (int n = lane; n < hw; n += 32) { const float e = expf(pr[n] - mx); pr[n] = e; s += e; }
-    s = warp_sum(s);
-    for (int n = lane; n < R; n += 32) pr[n] = n < hw ? pr[n] / s : 0.f;
-  }
+  for (int r = warp; r < hw; r += WARPS) softmax_row(P + r * ldp, hw, R);
   __syncthreads();
 }
 
@@ -421,11 +352,11 @@ __device__ void compute_window(const Args& a, int wid, unsigned char* smem, unsi
   const size_t base = (size_t)wid * hw * C;
 
   __syncthreads();
-  ln2_rows<MT>(a, zf, skeep, nullptr);
+  ln2_rows<MT>(a, zf, skeep);
   __syncthreads();
 
   for (int h = 0; h < a.heads; ++h) {
-    head_probs<WT, MT>(a, h, zf, skeep, qh, kh, vt, static_cast<WT*>(nullptr), P);
+    head_probs<WT, MT>(a, h, zf, skeep, qh, kh, vt, P);
     block_gemm<MT, 1, 1, WT>(
         P, ldp, [&](int, int n) { return vt + n * ldv; }, dh, R,
         [&](int m, int n, const float (&v)[1]) { attn[m * lda + h * dh + n] = from_f<WT>(v[0]); });
@@ -460,12 +391,6 @@ __device__ void compute_window(const Args& a, int wid, unsigned char* smem, unsi
         else if (!alias) out[o] = yin[o];
       });
   __syncthreads();
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src));
 }
 
 template <typename YT, typename WT, int MT>
@@ -505,14 +430,14 @@ __global__ void __launch_bounds__(THREADS) window_block_kernel(const Args a) {
       const char* src = reinterpret_cast<const char*>(y + wid * wsize);
       for (int off = threadIdx.x * 16; off < wbytes; off += THREADS * 16)
         cp_async16(reinterpret_cast<char*>(land) + off, src + off);
-      asm volatile("cp.async.commit_group;\n" ::);
+      cp_async_commit();
     };
     int slot = blockIdx.x;
     if (pf && slot < n) prefetch(a.ids[slot]);
     for (; slot < n; slot += gridDim.x) {
       const int wid = a.ids[slot];
       if (pf) {
-        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        cp_async_wait<0>();
         __syncthreads();
       }
       load_window<YT, MT>(a, wid, pf ? land : y + wid * wsize,

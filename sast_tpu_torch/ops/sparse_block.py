@@ -13,8 +13,9 @@ on the H100 and how a window is laid out on chip.
   ``save_h1`` it also returns the fp32 post-attention residual h1, the one
   tensor a backward over the same work list needs. Under grad mode it is a
   ``torch.autograd.Function`` whose backward is ``sparse_window_block_bwd``:
-  the two kernels of ``csrc/sparse_block_bwd.cu`` over the same work list
-  (``_mlp_bwd_kernel`` and ``_attn_bwd_kernel`` of the TPU package), with
+  over the same work list, the MLP-branch kernel of ``csrc/sparse_block_bwd.cu``
+  (``_mlp_bwd_kernel`` of the TPU package) and the attention-branch launches
+  of ``csrc/attn_bwd.cu`` (``_attn_bwd_kernel``), with
   ``sparse_window_block_bwd_plain`` as their plain version.
 - ``sparse_window_block_looped``: a persistent grid (a few blocks per SM);
   each block walks slots ``blockIdx, += gridDim, ... < n_win`` and copies
@@ -34,14 +35,17 @@ routine does. Every product of the backward whose second operand is a weight
 matrix (``g W^T``) takes its first operand rounded to the weights' dtype, as
 the forward products do (bf16 weights: bf16 x bf16 on the tensor cores,
 fp32 sums; fp32 weights: fp32 FMA). The weight-gradient products ``X^T G``
-and the per-head products of the attention backward run in fp32 FMA on the
-values the forward's products saw (``X`` rounded to the weights' dtype, so
-``dW`` is the gradient of the product as it was computed). Accumulators are
-fp32; each parameter gradient is then cast to that parameter's dtype, so
-with bf16 compute the matrix gradients are rounded to bf16 on their way to
-the fp32 master weights, as the TPU package's ``_sparse_block_bwd_impl``
-does. On the card the kernels add their per-window contributions with fp32
-atomics, so the last bits of a parameter gradient vary from run to run.
+and the per-head products of the attention backward take the values the
+forward's products saw (``X`` rounded to the weights' dtype, so ``dW`` is
+the gradient of the product as it was computed) and an fp32 ``G``: the MLP
+kernel in fp32 FMA; the attention kernels, with bf16 weights, on the tensor
+cores with ``G`` split into bf16 ``hi + lo``. Accumulators are fp32; each
+parameter gradient is then cast to that parameter's dtype, so with bf16
+compute the matrix gradients are rounded to bf16 on their way to the fp32
+master weights, as the TPU package's ``_sparse_block_bwd_impl`` does. On the
+card the MLP kernel adds its per-window contributions with fp32 atomics, so
+the last bits of its parameter gradients vary from run to run; the attention
+kernels reduce fixed-order partials, so ``dy`` and their gradients do not.
 """
 
 from __future__ import annotations
@@ -188,7 +192,6 @@ def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 MLP_KEYS = ("wglu", "bglu", "wout", "bout", "ls2")
 ATTN_KEYS = ("wqkv", "bqkv", "wproj", "bproj", "ls1", "ln2_scale", "ln2_bias")
-_BWD_MLP, _BWD_ATTN = 0, 1
 Work = Tuple[torch.Tensor, torch.Tensor]  # ``ops/block.work_list``: (ids, n_win)
 
 
@@ -308,35 +311,15 @@ def sparse_block_attn_bwd_plain(y, token_keep, work: Work, params, gh1, num_head
 
 
 @functools.cache
-def _bwd_entry():
+def _mlp_entry():
     lib = build.load("sparse_block_bwd")
     fn = lib.sast_sparse_block_bwd
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     plan = lib.sast_sparse_block_bwd_scratch_bytes
-    plan.argtypes, plan.restype = [ctypes.c_int] * 8, ctypes.c_longlong
+    plan.argtypes, plan.restype = [ctypes.c_int] * 5, ctypes.c_longlong
     return fn, plan
-
-
-def _launch_bwd(which, tensors, like, inner, num_heads, dim_head, norm_eps, flags, what):
-    """Launch one backward kernel: ``tensors`` is its pointer table in the
-    order ``csrc/sparse_block_bwd.cu`` documents; ``like`` gives M, hw, C."""
-    M, hw, C = like.shape
-    if any(t.data_ptr() % 16 for t in tensors if t.dtype != torch.int32):
-        raise ValueError(f"{what}: operands must be 16-byte aligned")
-    fn, plan = _bwd_entry()
-    n_scratch = plan(which, M, hw, C, inner, dim_head, *flags)
-    if n_scratch < 0:
-        raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} does not "
-                         "fit the card's shared memory")
-    scratch = torch.empty(max(int(n_scratch), 16), dtype=torch.uint8, device=like.device)
-    table = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    stream = torch.cuda.current_stream(like.device).cuda_stream
-    rc = fn(which, table, len(tensors), scratch.data_ptr(), n_scratch, M, hw, C, inner,
-            num_heads, dim_head, float(norm_eps), *flags, stream)
-    build.check(rc, what)
 
 
 def sparse_block_mlp_bwd(h1, token_keep, work: Work, params, g, num_heads, dim_head):
@@ -353,24 +336,52 @@ def sparse_block_mlp_bwd(h1, token_keep, work: Work, params, g, num_heads, dim_h
     keep, ops, inner, flags = block.operands(g, token_keep, params, num_heads, dim_head, what)
     if h1.shape != g.shape or h1.dtype != torch.float32 or not h1.is_contiguous():
         raise ValueError(f"{what}: h1 must be contiguous (M, hw, C) float32")
-    ids, n_win = work
     acc = _zeros_like_params(params, MLP_KEYS, g.device)
     gh1 = torch.empty(g.shape, dtype=torch.float32, device=g.device)
-    if g.shape[0]:
+    M, hw, C = g.shape
+    if M:
+        ids, n_win = work
         table = [h1, keep, g, ids, n_win, gh1, ops["wglu"], ops["bglu"], ops["wout"],
                  ops["bout"], ops["ls2"], params["wglu"].contiguous(),
                  params["wout"].contiguous()] + [acc[k] for k in MLP_KEYS]
-        _launch_bwd(_BWD_MLP, table, g, inner, num_heads, dim_head, 0.0, flags, what)
+        if any(t.data_ptr() % 16 for t in table if t.dtype != torch.int32):
+            raise ValueError(f"{what}: operands must be 16-byte aligned")
+        fn, plan = _mlp_entry()
+        n_scratch = plan(M, hw, C, inner, flags[1])
+        if n_scratch < 0:
+            raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} does not "
+                             "fit the card's shared memory")
+        scratch = torch.empty(max(int(n_scratch), 16), dtype=torch.uint8, device=g.device)
+        ptrs = (ctypes.c_void_p * len(table))(*[t.data_ptr() for t in table])
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        build.check(fn(ptrs, len(table), scratch.data_ptr(), n_scratch, M, hw, C, inner,
+                       num_heads, dim_head, *flags, stream), what)
         sparse_block_mlp_bwd.launches += 1
     return gh1, acc
 
 
+@functools.cache
+def _attn_entry():
+    lib = build.load("attn_bwd")
+    fn = lib.sast_attn_bwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.sast_attn_bwd_workspace
+    size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    return fn, size
+
+
 def sparse_block_attn_bwd(y, token_keep, work: Work, params, gh1, num_heads, dim_head,
                           norm_eps=1e-5):
-    """Attention branch of the backward over the work list (kernel
-    ``attn_bwd_kernel``): same contract as ``sparse_block_attn_bwd_plain``,
-    which a CPU tensor goes to; on a CUDA tensor the kernel launches or
-    raises. ``gh1`` is what ``sparse_block_mlp_bwd`` returned."""
+    """Attention branch of the backward over the work list (the launches of
+    ``csrc/attn_bwd.cu``, counted as one): same contract as ``sparse_block_attn_bwd_plain``,
+    which a CPU tensor goes to; on a CUDA tensor the kernels launch or
+    raise. ``gh1`` is what ``sparse_block_mlp_bwd`` returned. The kernels
+    keep their intermediates over the kept tokens in one workspace allocated
+    here, and write every gradient whole without atomics, so two calls on the
+    same inputs give the same bits."""
     if y.device.type == "cpu":
         return sparse_block_attn_bwd_plain(y, token_keep, work, params, gh1, num_heads,
                                            dim_head, norm_eps)
@@ -380,15 +391,29 @@ def sparse_block_attn_bwd(y, token_keep, work: Work, params, gh1, num_heads, dim
     if gh1.shape != y.shape or gh1.dtype != torch.float32 or not gh1.is_contiguous():
         raise ValueError(f"{what}: gh1 must be contiguous (M, hw, C) float32")
     ids, n_win = work
-    acc = _zeros_like_params(params, ATTN_KEYS, y.device)
+    M, hw, C = y.shape
     dy = torch.empty_like(y)
-    if y.shape[0]:
-        table = [y, keep, gh1, ids, n_win, dy, ops["ln2_scale"], ops["ln2_bias"], ops["wqkv"],
-                 ops["bqkv"], ops["wproj"], ops["bproj"], ops["ls1"],
-                 params["wqkv"].contiguous(), params["wproj"].contiguous()] \
-            + [acc[k] for k in ATTN_KEYS]
-        _launch_bwd(_BWD_ATTN, table, y, inner, num_heads, dim_head, norm_eps, flags, what)
-        sparse_block_attn_bwd.launches += 1
+    if not M:
+        return dy, _zeros_like_params(params, ATTN_KEYS, y.device)
+    acc = {k: torch.empty(params[k].shape, dtype=torch.float32, device=y.device)
+           for k in ATTN_KEYS}
+    table = [y, keep, gh1, ids, n_win, dy, ops["ln2_scale"], ops["ln2_bias"], ops["wqkv"],
+             ops["bqkv"], ops["wproj"], ops["bproj"], ops["ls1"],
+             params["wqkv"].contiguous(), params["wproj"].contiguous()] \
+        + [acc[k] for k in ATTN_KEYS]
+    if any(t.data_ptr() % 16 for t in table if t.dtype != torch.int32):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
+    fn, size = _attn_entry()
+    n_work = size(M, hw, C, dim_head, flags[1])
+    if n_work < 0:
+        raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} is not "
+                         "built or does not fit the card's shared memory")
+    workspace = torch.empty(int(n_work), dtype=torch.uint8, device=y.device)
+    ptrs = (ctypes.c_void_p * len(table))(*[t.data_ptr() for t in table])
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    build.check(fn(ptrs, len(table), workspace.data_ptr(), n_work, M, hw, C, num_heads,
+                   dim_head, float(norm_eps), *flags, stream), what)
+    sparse_block_attn_bwd.launches += 1
     return dy, acc
 
 

@@ -7,7 +7,11 @@ function, ``stem_conv_density_7x4`` / ``stem_conv_7x4`` (``_stem_fwd_pallas``).
 The kernel is ``csrc/stem_conv.cu``; its note says what bounds it on the H100
 and how it is laid out. It reads the native uint8 NHWC tensor and does the
 replicate pad by clamping coordinates, so no padded or widened copy of the
-input is ever written.
+input is ever written. With bf16 weights it is an implicit GEMM on the
+tensor cores; ``stem_weight_index`` states the layout of its weights, and
+its C entry gathers them into it (a small launch) and zeroes the density
+counts, so that one call here issues no tensor operation but the ratio's
+division; with fp32 weights it runs on the fp32 CUDA cores.
 
 ``stem_conv7x4`` dispatches on the tensor's device: a CPU tensor goes to
 ``stem_conv7x4_plain``, a CUDA tensor launches the kernel or raises. Under
@@ -33,10 +37,10 @@ KSIZE, STRIDE, PAD = 7, 4, 3
 
 def stem_supported(shape, dtype, cout: int) -> bool:
     """Static gate of the kernel: uint8 input (widened in registers), H and W
-    divisible by 32 (one block per 32x32 input tile, which is also one
-    pool-32 density cell), C <= 32 and C % 4 == 0 (4-byte loads), and
-    Cout % 16 == 0 with Cout <= 128 (16 output channels per thread, one
-    kernel row's weights in shared memory)."""
+    divisible by 32 (whole 32x32 pool-32 density cells per tile), C <= 32
+    and C % 4 == 0 (4-byte loads), and Cout % 16 == 0 with Cout <= 128
+    (output channels in slices of 16 to 64; the fp32 kernel's 16 per
+    thread)."""
     if len(shape) != 4 or dtype != torch.uint8:
         return False
     _, H, W, C = shape
@@ -56,12 +60,38 @@ def stem_conv7x4_plain(x: torch.Tensor, w: torch.Tensor, with_density: bool = Fa
     return (y, density_ratio_plain(x)) if with_density else y
 
 
+def stem_weight_index(c: int, cout: int) -> torch.Tensor:
+    """Where each entry of the bf16 kernel's B operand comes from: the flat
+    index into the (Cout, C, 7, 7) weight, or -1 for a zero. K is ordered
+    (kh, kw, c), so that one kernel row's slice of an output pixel's K is
+    7 C contiguous bytes of one input row; each kernel row's 7 C is padded
+    with zeros to S * 16; the operand is stored (7, S, Cout, 16), the 16
+    consecutive K of one output channel together, as the tensor-core
+    fragments read them. Returned flat, int32."""
+    kp = -(-KSIZE * c // 16) * 16
+    flat = torch.arange(cout * c * KSIZE * KSIZE, dtype=torch.int32)
+    m = flat.reshape(cout, c, KSIZE, KSIZE).permute(2, 3, 1, 0).reshape(KSIZE, KSIZE * c, cout)
+    m = F.pad(m, (0, 0, 0, kp - KSIZE * c), value=-1)
+    return m.reshape(KSIZE, kp // 16, 16, cout).permute(0, 1, 3, 2).reshape(-1).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _weight_index(c: int, cout: int, device) -> torch.Tensor:
+    """``stem_weight_index`` on the card, kept per shape and device."""
+    return stem_weight_index(c, cout).to(device)
+
+
 @functools.cache
-def _kernel():
-    fn = build.load("stem_conv").sast_stem_conv7x4
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _kernels():
+    lib = build.load("stem_conv")
+    fp32, mma, work = (lib.sast_stem_conv7x4, lib.sast_stem_conv7x4_mma,
+                       lib.sast_stem_conv7x4_mma_workspace)
+    for fn, n_ptr in ((fp32, 4), (mma, 6)):
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    work.argtypes = [ctypes.c_int] * 2
+    work.restype = ctypes.c_longlong
+    return fp32, mma, work
 
 
 class _StemFn(torch.autograd.Function):
@@ -120,28 +150,25 @@ def _forward(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
     if not x.is_contiguous() or x.data_ptr() % 4:
         raise ValueError("stem kernel needs a contiguous, 4-byte aligned input")
     B, H, W, C = x.shape
-    # (kh, kw, cin, cout) fp32 holding the compute-dtype values.
-    wk = w.float().permute(2, 3, 1, 0).contiguous()
+    fp32, mma, work = _kernels()
     y = torch.empty((B, H // 4, W // 4, cout), dtype=w.dtype, device=x.device)
-    counts = (
-        torch.zeros((B, 4, C), dtype=torch.int32, device=x.device)
-        if with_density
-        else None
-    )
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(
-        _kernel()(
-            x.data_ptr(), wk.data_ptr(), y.data_ptr(),
-            counts.data_ptr() if with_density else None,
-            B, H, W, C, cout, int(w.dtype == torch.bfloat16), stream,
-        ),
-        "stem kernel",
-    )
+    # Zeroed by the C entry.
+    counts = torch.empty((B, 4, C), dtype=torch.int32, device=x.device) if with_density else None
+    args = (y.data_ptr(), counts.data_ptr() if with_density else None, B, H, W, C, cout,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if w.dtype == torch.bfloat16:
+        w = w.contiguous()
+        idx = _weight_index(C, cout, x.device)
+        wt = torch.empty(work(C, cout), dtype=torch.bfloat16, device=x.device)
+        rc = mma(x.data_ptr(), w.data_ptr(), idx.data_ptr(), wt.data_ptr(), *args)
+    else:
+        wk = w.permute(2, 3, 1, 0).contiguous()  # (kh, kw, cin, cout)
+        rc = fp32(x.data_ptr(), wk.data_ptr(), *args)
+    build.check(rc, "stem kernel")
     stem_conv7x4.launches += 1
     if not with_density:
         return y
-    ratio = counts.to(torch.float32) / cell_counts(H, W, C, x.device)[None, :, None]
-    return y, ratio
+    return y, counts / cell_counts(H, W, C, x.device)[None, :, None]
 
 
 stem_conv7x4.launches = 0  # kernel launches, read by chip_smoke.py

@@ -34,10 +34,14 @@ def _events(shape, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,cout", [((2, 64, 96, 20), 32), ((1, 32, 64, 8), 128)])
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 64, 96, 20), 32), ((1, 32, 64, 8), 128), ((2, 64, 96, 20), 48), ((2, 64, 96, 20), 96),
+    ((12, 384, 640, 20), 64), ((1, 32, 32, 32), 128)])
 def test_stem_kernel_matches_plain(dev, dtype, shape, cout):
     """fp32: other summation order (1e-5 of max|y|); bf16: both round an
-    fp32 sum to bf16 (two bf16 ulps at max|y|). Density ratio exact."""
+    fp32 sum to bf16 (two bf16 ulps at max|y|). Density ratio exact. The
+    shapes cover a ragged last tile (W 96), Cout in one and two slices, the
+    training step's 12 lanes, and weights streamed per kernel row (C 32)."""
     x = _events(shape, 0).to(dev)
     w = (torch.randn(cout, shape[-1], 7, 7, generator=torch.Generator().manual_seed(0))
          * 0.05).to(dev, dtype)
@@ -199,6 +203,28 @@ def test_bwd_kernels_match_plain(dev, shape, ydt, wdt):
         rtol, atol = _bwd_tol(dp_ref[key], wdt)
         torch.testing.assert_close(dp[key].float(), dp_ref[key].float(), rtol=rtol, atol=atol,
                                    msg=lambda m, key=key: f"{key}: {m}")
+
+
+@pytest.mark.parametrize("ydt,wdt", BLOCK_DTYPES[:2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [BLOCK_SHAPES[0], BLOCK_SHAPES[3], (3072, 60, 64, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("density", [0.5, 1.0])
+def test_attn_bwd_kernel_is_deterministic(dev, density, shape, ydt, wdt):
+    """Kernel H adds no float atomics: two launches on the same inputs give
+    bit-equal dy and gradients, also with every window kept and at the
+    first stage of the B = 12 training step (the most partials per
+    reduction)."""
+    M, hw, C, dh = shape
+    y, tok, win, params = _block_case(M, hw, C, dh, ydt, wdt, density, 4, dev)
+    gh1 = torch.from_numpy(np.random.RandomState(6).randn(M, hw, C).astype(np.float32)).to(dev)
+    work = block.work_list(win)
+    first = sparse_block.sparse_block_attn_bwd(y, tok, work, params, gh1, C // dh, dh)
+    second = sparse_block.sparse_block_attn_bwd(y, tok, work, params, gh1, C // dh, dh)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    for key in sparse_block.ATTN_KEYS:
+        assert torch.equal(first[1][key], second[1][key]), key
+        assert first[1][key].abs().max() > 0, key
 
 
 def test_bwd_kernels_no_window_kept(dev):

@@ -159,6 +159,49 @@ def test_kernel_gates():
     assert not density_supported((4, 384, 640, 20), torch.int8)
 
 
+@pytest.mark.parametrize("cin,cout", [(20, 64), (20, 48), (20, 96), (8, 128), (4, 16), (32, 32)])
+def test_stem_weight_tiles_rebuild_conv(cin, cout):
+    """The bf16 stem kernel's implicit GEMM, written out on the CPU: one A
+    row per output pixel and kernel row is the input bytes from pixel
+    4 ox - 3 on, read 7 C bytes and past them up to the padded depth (the
+    next pixel's channels, as the kernel reads them), times the weight
+    tiles that the kernel's first launch gathers through
+    ``stem_weight_index``. In float64 every product of a uint8 and a bf16
+    value and every partial sum is exact, so it must equal ``F.conv2d`` of
+    the replicate-padded input bit for bit; the padding rows must be zero."""
+    import torch.nn.functional as F
+
+    from sast_tpu_torch.ops.stem_conv import stem_weight_index
+
+    rng = np.random.RandomState(cin + cout)
+    B, H, W = 2, 32, 64
+    x = torch.from_numpy(rng.randint(0, 256, (B, H, W, cin)).astype(np.uint8))
+    w = torch.from_numpy((rng.randn(cout, cin, 7, 7) * 0.05).astype(np.float32))
+    idx = stem_weight_index(cin, cout)
+    S = -(-7 * cin // 16)
+    assert idx.shape == (7 * S * cout * 16,) and idx.dtype == torch.int32
+    # arrange_kernel: wt[e] = w[idx[e]], or zero where idx[e] < 0.
+    wt = torch.where(idx >= 0, w.to(torch.bfloat16).reshape(-1)[idx.clamp(min=0).long()], 0)
+    wt = wt.reshape(7, S, cout, 16)
+    mat = wt.permute(0, 1, 3, 2).reshape(7, S * 16, cout).double()  # [kh][k][n]
+    assert not mat[:, 7 * cin:].any()
+
+    # Replicate pad 3, plus one more column on the right for the overrun.
+    xp = F.pad(x.double().permute(0, 3, 1, 2), (3, 4, 3, 3), mode="replicate")
+    xp = xp.permute(0, 2, 3, 1)  # (B, H + 6, W + 7, C)
+    Ho, Wo = H // 4, W // 4
+    y = torch.zeros(B, Ho, Wo, cout, dtype=torch.float64)
+    for kh in range(7):
+        rows = xp[:, kh:kh + 4 * Ho:4]  # (B, Ho, W + 7, C)
+        a = torch.stack([rows[:, :, 4 * ox:4 * ox + 8].reshape(B, Ho, -1)[..., :S * 16]
+                         for ox in range(Wo)], dim=2)  # (B, Ho, Wo, S * 16)
+        y += a @ mat[kh]
+    wb = w.to(torch.bfloat16).double()
+    ref = F.conv2d(F.pad(x.double().permute(0, 3, 1, 2), (3, 3, 3, 3), mode="replicate"), wb,
+                   stride=4).permute(0, 2, 3, 1)
+    assert torch.equal(y, ref)
+
+
 def _random_events(rng, n, h, w, t0):
     return dict(
         x=rng.randint(0, w, n), y=rng.randint(0, h, n), p=rng.randint(0, 2, n),

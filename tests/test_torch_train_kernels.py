@@ -112,6 +112,46 @@ def test_plain_backward_matches_jax_grad(interpret, case):
 
 
 @pytest.mark.parametrize("case", list(CASES))
+def test_attn_branch_plain_matches_jax_attn_bwd_kernel(monkeypatch, case):
+    """Kernel H's plain version alone against the JAX ``_attn_bwd_kernel``
+    (interpret mode): the same ``gh1`` that the JAX MLP-branch kernel handed
+    it, and its raw fp32 outputs (dy, the two matrix and five vector
+    gradients). rtol 2e-4 / atol 1e-5 as above."""
+    captured = {}
+    orig = pl.pallas_call
+
+    def spy(kernel, **kw):
+        fn = orig(kernel, interpret=True, **kw)
+        name = getattr(kernel, "func", kernel).__name__
+
+        def call(*args):
+            out = fn(*args)
+            captured[name] = ([np.asarray(a) for a in args], [np.asarray(o) for o in out])
+            return out
+        return call
+
+    monkeypatch.setattr(pl, "pallas_call", spy)
+    seed, windows = CASES[case]
+    y, tok, win, w, params = _case(seed, windows)
+    fn = lambda yy, pp: j_sparse.sparse_window_block(
+        yy, jnp.asarray(tok), jnp.asarray(win), pp, num_heads=HEADS, dim_head=DH)
+    _jax_grads(fn, y, tok, win, w, params)
+    args, outs = captured["_attn_bwd_kernel"]
+    gh1 = torch.from_numpy(args[4][..., :C].copy())  # ids, n_win, y, keep, gh1, ...
+    ty, ttok, twin = torch.from_numpy(y), torch.from_numpy(tok), torch.from_numpy(win)
+    dy, acc = sparse_block.sparse_block_attn_bwd_plain(
+        ty, ttok, block.work_list(twin), _torch_params(params), gh1, HEADS, DH)
+    jdy, dwqkv, dbqkv, dwproj, dbproj, dls1, ds2, db2 = outs
+    np.testing.assert_allclose(dy.numpy(), jdy[..., :C], rtol=2e-4, atol=1e-5)
+    want = dict(wqkv=dwqkv[:C], bqkv=dbqkv[0], wproj=dwproj, bproj=dbproj[0], ls1=dls1[0],
+                ln2_scale=ds2[0], ln2_bias=db2[0])
+    assert set(acc) == set(want)
+    for key, ref in want.items():
+        np.testing.assert_allclose(acc[key].numpy(), ref, rtol=2e-4, atol=1e-5, err_msg=key)
+        assert np.abs(ref).max() > 1e-3, key
+
+
+@pytest.mark.parametrize("case", list(CASES))
 def test_sparse_block_function_matches_jax_grad(interpret, case):
     """The ``autograd.Function`` behind ``sparse_window_block`` under grad
     mode: gradients land on the leaves in the port's ``(out, in)`` layout."""
@@ -227,3 +267,4 @@ def test_stem_function_matches_jax_grad(interpret, with_density):
     (g,) = torch.autograd.grad((yt * torch.from_numpy(cot)).sum(), [tw])
     scale = float(np.abs(gw).max())
     np.testing.assert_allclose(g.numpy().transpose(2, 3, 1, 0), gw, rtol=0, atol=5e-4 * scale)
+
