@@ -4,9 +4,9 @@
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
 CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
 
-1. Print the card's name and power limit; build the eight kernels (seven
+1. Print the card's name and power limit; build the eight kernels (eight
    libraries) from ``sast_tpu_torch/csrc`` (one nvcc per source, all started
-   together), and log the registers and spills of kernels A and H.
+   together), and log the registers and spills of kernels A, E, G and H.
 2. Hold each kernel against its plain PyTorch version on the card, TF32
    off, at the gen4-base b4 serving shapes, and time kernel, plain version,
    bound and library call; the stem kernel also at the training step's 12
@@ -15,7 +15,11 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    ``F.conv2d`` in turns (library, kernel, kernel, library) and its share of
    the bound is logged. The three block kernels (fused, sparse, looped)
    run at the four stage shapes, in bf16 and fp32, at window densities 0.1,
-   0.4 and 1.0, beside the masked torch-op path and the gather path.
+   0.4 and 1.0, beside the masked torch-op path and the gather path; the
+   sparse kernel E (redesigned: launches over the kept tokens) is timed in
+   turns with the looped kernel F (the same function on E's first design,
+   one block per window) and the masked torch ops, with its share of the
+   bound and its time per launch.
 3. Drive the port's main path: ``StreamingDetector`` at gen4-base width
    (384x640 model resolution, 20 channels, dims 64/128/256/512, bf16),
    ``num_streams=4``, seeded random weights, 8 frames of seeded synthetic
@@ -29,9 +33,9 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    Then, at the four stage shapes of the gen4-base B = 12 training step,
    bf16 and fp32, window densities 0.1, 0.4, 1.0 and no kept window: the
    sparse forward kernel (output and saved h1) and the two backward kernels
-   (MLP branch G; attention branch H, redesigned as tensor-core launches
-   without float atomics and checked to give the same bits twice) against
-   their plain versions, and the
+   (MLP branch G and attention branch H, both redesigned as tensor-core
+   launches without float atomics and checked to give the same bits twice)
+   against their plain versions, and the
    whole ``autograd.Function`` against ``torch.autograd`` of the plain
    block; time per layer beside autograd through the masked torch-op block.
 4. Hold the whole path on the card (kernels, fp32, TF32 off) on the masked,
@@ -90,13 +94,14 @@ BLOCK_TABLE_DENSITY = 0.4  # the density whose times go into the kernels line
 LAYER_SCALE = 0.05  # LayerScale of the CPU-parity model
 EVENTS_PER_FRAME = 200_000  # StreamingDetector's default budget
 # Kernels redesigned since their first port, with the change that did it.
-REDESIGNED = {"stem_conv7x4": "PR 4", "sparse_block_attn_bwd": "PR 4"}
+REDESIGNED = {"stem_conv7x4": "PR 4", "sparse_block_attn_bwd": "PR 4",
+              "sparse_window_block": "PR 5", "sparse_block_mlp_bwd": "PR 5"}
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
 
-def ptxas_lines(logs, names=("stem_conv", "attn_bwd")):
+def ptxas_lines(logs, names=("stem_conv", "sparse_fwd", "mlp_bwd", "attn_bwd")):
     """Registers and spills of each kernel the nvcc logs of ``names`` list
     (``-Xptxas=-v``), one line per instantiation."""
     out = []
@@ -149,6 +154,26 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3, ahead: bool = False) ->
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_us(torch, fn, namespace: str, calls: int = 3):
+    """Card time per call of each kernel of ``namespace`` (its source's
+    namespace, e.g. ``ab`` for kernel H) that ``fn`` launches, in us, from
+    the profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and re.search(rf"\b{namespace}::", e.key):
+            short = re.search(r"(\w+_kernel(?:<[^>]*>)?)", e.key).group(1)
+            per[short] = per.get(short, 0.0) + (getattr(e, "self_device_time_total", 0)
+                                                or getattr(e, "self_cuda_time_total", 0)) / calls
+    return ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1]))
 
 
 def bound_ms(n_bytes: float, flops: float, kind: str):
@@ -461,9 +486,17 @@ def phase_block_kernels(torch, np):
                     gather=lambda: gather.run_block(y4, tok4, win4),
                 )
                 with torch.no_grad():
-                    # Card time alone (launches queued ahead), then the time
-                    # of the call as the eager caller paces it.
-                    t = {k: cuda_ms(torch, fn, iters=10, ahead=True) for k, fn in calls.items()}
+                    # Card time alone (launches queued ahead): kernel E in
+                    # turns with F (its first design's routine) and the
+                    # masked torch ops, F E masked masked E F; then the time
+                    # of each call as the eager caller paces it.
+                    order = ("sparse_window_block_looped", "sparse_window_block", "masked")
+                    turns = {k: [] for k in order}
+                    for k in order + order[::-1]:
+                        turns[k].append(cuda_ms(torch, calls[k], iters=10, ahead=True))
+                    t = {k: sum(v) / len(v) for k, v in turns.items()}
+                    t.update({k: cuda_ms(torch, calls[k], iters=10, ahead=True)
+                              for k in ("fused_window_block", "gather")})
                     t.update({k + "_call": cuda_ms(torch, fn) for k, fn in calls.items()})
                     t["plain_all"] = cuda_ms(torch, lambda: block.block_window_plain(
                         y, tok, params, heads, dh), iters=5, warmup=1)
@@ -482,8 +515,12 @@ def phase_block_kernels(torch, np):
                         ("looped", "sparse_window_block_looped"), ("masked", "masked"),
                         ("gather", "gather")))
                     + f"; plain {t['plain_all']:.4f}/{t['plain_kept']:.4f}; "
-                    f"bound {b_all:.5f}/{b_kept:.5f} ({by_kept})")
+                    f"bound {b_all:.5f}/{b_kept:.5f} ({by_kept}); E's share of the bound "
+                    f"{b_kept / t['sparse_window_block']:.4f}")
                 if kind == "bf16" and density == BLOCK_TABLE_DENSITY:
+                    with torch.no_grad():
+                        log(f"block {where}: kernel E per call, us by launch: "
+                            + launch_us(torch, calls["sparse_window_block"], "sf"))
                     for name in names:
                         dense = name == "fused_window_block"
                         tot = totals[name]
@@ -498,7 +535,7 @@ def phase_block_kernels(torch, np):
     sources = dict(
         fused_window_block=("sast_tpu_torch/csrc/fused_block.cu",
                             "sast_tpu/ops/pallas/fused_block.py:270"),
-        sparse_window_block=("sast_tpu_torch/csrc/sparse_block.cu",
+        sparse_window_block=("sast_tpu_torch/csrc/sparse_fwd.cu",
                              "sast_tpu/ops/pallas/sparse_block.py:285"),
         sparse_window_block_looped=("sast_tpu_torch/csrc/sparse_block.cu",
                                     "sast_tpu/ops/pallas/sparse_block.py:903"),
@@ -509,12 +546,15 @@ def phase_block_kernels(torch, np):
         log(f"kernel {name}: sum over the 4 stage shapes, bf16, density {BLOCK_TABLE_DENSITY}: "
             f"{tot['ms']:.4f} ms on the card ({tot['call']:.4f} ms per eager call), plain "
             f"{tot['plain']:.4f} ms, masked torch ops "
-            f"{tot['masked']:.4f} ms, bound {tot['bound']:.5f} ms; worst error {worst[name]:.3e}")
+            f"{tot['masked']:.4f} ms, bound {tot['bound']:.5f} ms (share {tot['bound'] / tot['ms']:.4f}); "
+            f"worst error {worst[name]:.3e}")
         out.append(dict(name=name, route="cuda", source=sources[name][0],
                         replaces=sources[name][1], launches=None, max_abs_err=worst[name],
                         ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
                         bound_by=max(tot["by"], key=tot["by"].get), library_ms=None,
-                        call_ms=tot["call"], masked_torch_ops_ms=tot["masked"]))
+                        call_ms=tot["call"], masked_torch_ops_ms=tot["masked"],
+                        bound_share=tot["bound"] / tot["ms"],
+                        **({"redesigned": REDESIGNED[name]} if name in REDESIGNED else {})))
     return out
 
 
@@ -550,9 +590,6 @@ def phase_bwd_kernels(torch, np):
     the kept windows, per stage shape of the B = 12 training step, dtype and
     window density; then their times beside autograd through the masked
     torch-op block."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from sast_tpu_torch.ops import block, sparse_block
 
     names = ("sparse_block_mlp_bwd", "sparse_block_attn_bwd")
@@ -560,9 +597,10 @@ def phase_bwd_kernels(torch, np):
     worst_rel = dict.fromkeys(names, 0.0)  # largest error over max|ref| of its tensor
     worst_fn = {"bf16": 0.0, "fp32": 0.0}
     worst_fwd = {"bf16": 0.0, "fp32": 0.0}  # the forward kernel at these shapes
-    deterministic = {"bf16": 0, "fp32": 0}  # cases where H gave the same bits twice
+    # Cases where each backward kernel gave the same bits twice.
+    deterministic = {n: {"bf16": 0, "fp32": 0} for n in names}
     problems = []  # every violation of the phase, reported together
-    totals = {n: dict(ms=0.0, plain=0.0, bound=0.0, by={}) for n in names}
+    totals = {n: dict(ms=0.0, call=0.0, plain=0.0, bound=0.0, by={}) for n in names}
     totals["function"] = dict(fwd_bwd=0.0, bwd=0.0, masked_fwd_bwd=0.0, masked_bwd=0.0)
     table = []
     for si, (M, C, heads) in enumerate(TRAIN_BLOCK_SHAPES):
@@ -583,6 +621,8 @@ def phase_bwd_kernels(torch, np):
                     fwd_ref, h1_ref = sparse_block.sparse_window_block_plain(
                         y, tok, win, params, heads, dh, save_h1=True)
                     gh1, acc_g = sparse_block.sparse_block_mlp_bwd(
+                        h1, tok, work, params, g, heads, dh)
+                    gh1_2, acc_g2 = sparse_block.sparse_block_mlp_bwd(
                         h1, tok, work, params, g, heads, dh)
                     gh1_ref, acc_g_ref = sparse_block.sparse_block_mlp_bwd_plain(
                         h1, tok, work, params, g)
@@ -632,12 +672,15 @@ def phase_bwd_kernels(torch, np):
                         problems.append(f"{name} {where} {what}: max err {err} at max|ref| {scale}")
                     worst[name] = max(worst[name], err)
                     worst_rel[name] = max(worst_rel[name], err / max(scale, 1e-30))
-                # Kernel H adds no float atomics: a second launch on the same
-                # inputs gives the same bits.
-                if torch.equal(dy, dy2) and all(torch.equal(acc_h[k], acc_h2[k]) for k in acc_h):
-                    deterministic[kind] += 1
-                else:
-                    problems.append(f"sparse_block_attn_bwd {where}: two launches differ")
+                # Neither backward kernel adds float atomics: a second launch
+                # on the same inputs gives the same bits.
+                for name, (a, acc_a), (b, acc_b) in (
+                        ("sparse_block_mlp_bwd", (gh1, acc_g), (gh1_2, acc_g2)),
+                        ("sparse_block_attn_bwd", (dy, acc_h), (dy2, acc_h2))):
+                    if torch.equal(a, b) and all(torch.equal(acc_a[k], acc_b[k]) for k in acc_a):
+                        deterministic[name][kind] += 1
+                    else:
+                        problems.append(f"{name} {where}: two launches differ")
                 if not torch.equal(gh1[~win], g[~win].float()) \
                         or not torch.equal(dy[~win], gh1_ref[~win].to(dtype)):
                     problems.append(f"backward kernels {where}: skipped windows do not pass g on")
@@ -698,6 +741,8 @@ def phase_bwd_kernels(torch, np):
                     masked_fwd_bwd=masked_fwd_bwd,
                 )
                 t = {k: cuda_ms(torch, fn, iters=5, warmup=2, ahead=True) for k, fn in calls.items()}
+                # Each backward kernel also per eager call (the host's pace included).
+                t.update({k + "_call": cuda_ms(torch, calls[k], iters=5, warmup=2) for k in ("mlp", "attn")})
                 with torch.no_grad():
                     t["mlp_plain"] = cuda_ms(torch, lambda: sparse_block.sparse_block_mlp_bwd_plain(
                         h1, tok, work, params, g), iters=3, warmup=1)
@@ -708,30 +753,24 @@ def phase_bwd_kernels(torch, np):
                 table.append(dict(stage=si + 1, M=M, C=C, dtype=kind, density=density,
                                   n_win=n_win, mlp_bound_ms=bg, attn_bound_ms=bh,
                                   mlp_bound_by=bg_by, attn_bound_by=bh_by, **t))
-                log(f"bwd {where} ({n_win}/{M} windows), card ms: G {t['mlp']:.4f} "
-                    f"(plain {t['mlp_plain']:.3f}, bound {bg:.5f} {bg_by}) H {t['attn']:.4f} "
-                    f"(plain {t['attn_plain']:.3f}, bound {bh:.5f} {bh_by}); Function bwd "
+                log(f"bwd {where} ({n_win}/{M} windows), card ms (call ms): G {t['mlp']:.4f} "
+                    f"({t['mlp_call']:.4f}; plain {t['mlp_plain']:.3f}, bound {bg:.5f} {bg_by}) H "
+                    f"{t['attn']:.4f} ({t['attn_call']:.4f}; plain {t['attn_plain']:.3f}, bound "
+                    f"{bh:.5f} {bh_by}); Function bwd "
                     f"{t['fn_bwd']:.4f}, fwd+bwd {t['fn_fwd_bwd']:.4f}; masked autograd bwd "
                     f"{t['masked_bwd']:.4f}, fwd+bwd {t['masked_fwd_bwd']:.4f}")
                 if kind == "bf16" and density == BLOCK_TABLE_DENSITY:
-                    # Kernel H is ten launches: where its time goes, per launch.
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(3):
-                            calls["attn"]()
-                        torch.cuda.synchronize()
-                    per = {}
-                    for e in prof.key_averages():
-                        if e.device_type == DeviceType.CUDA and re.search(r"\bab::", e.key):
-                            short = re.search(r"(\w+_kernel(?:<[^>]*>)?)", e.key).group(1)
-                            per[short] = per.get(short, 0.0) + (
-                                getattr(e, "self_device_time_total", 0)
-                                or getattr(e, "self_cuda_time_total", 0)) / 3
+                    # Kernels G and H are short sequences of launches: where
+                    # their time goes, per launch.
+                    log(f"bwd {where}: kernel G per call, us by launch: "
+                        + launch_us(torch, calls["mlp"], "mb"))
                     log(f"bwd {where}: kernel H per call, us by launch: "
-                        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1])))
+                        + launch_us(torch, calls["attn"], "ab"))
                     for name, key, b, by in (("sparse_block_mlp_bwd", "mlp", bg, bg_by),
                                              ("sparse_block_attn_bwd", "attn", bh, bh_by)):
                         tot = totals[name]
                         tot["ms"] += t[key]
+                        tot["call"] += t[key + "_call"]
                         tot["plain"] += t[key + "_plain"]
                         tot["bound"] += b
                         tot["by"][by] = tot["by"].get(by, 0.0) + b
@@ -740,12 +779,12 @@ def phase_bwd_kernels(torch, np):
                     f["fwd_bwd"] += t["fn_fwd_bwd"]
                     f["masked_bwd"] += t["masked_bwd"]
                     f["masked_fwd_bwd"] += t["masked_fwd_bwd"]
-                del out, out_m, ref_out, got, ref, dy2, acc_h2
+                del out, out_m, ref_out, got, ref, dy2, acc_h2, gh1_2, acc_g2
     (OUT_DIR / "bwd_kernels.json").write_text(json.dumps(table, indent=1))
     log(f"backward kernels: worst error over max|ref| of its tensor: {worst_rel}; Function "
         f"against autograd of the plain block: {worst_fn}; the forward kernel (out, h1) "
-        f"against its plain version at these shapes: {worst_fwd}; kernel H bit-equal over two "
-        f"launches in {deterministic} cases")
+        f"against its plain version at these shapes: {worst_fwd}; bit-equal over two launches "
+        f"in {deterministic} cases")
     if problems:
         fail("backward-kernel phase:\n  " + "\n  ".join(problems))
     replaces = dict(sparse_block_mlp_bwd="sast_tpu/ops/pallas/sparse_block.py:572",
@@ -759,16 +798,19 @@ def phase_bwd_kernels(torch, np):
     for name in names:
         tot = totals[name]
         log(f"kernel {name}: sum over the 4 B=12 stage shapes, bf16, density "
-            f"{BLOCK_TABLE_DENSITY}: {tot['ms']:.4f} ms on the card, plain {tot['plain']:.4f} ms, "
+            f"{BLOCK_TABLE_DENSITY}: {tot['ms']:.4f} ms on the card ({tot['call']:.4f} ms per eager "
+            f"call), plain {tot['plain']:.4f} ms, "
             f"bound {tot['bound']:.5f} ms; worst absolute error {worst[name]:.3e}, "
             f"{worst_rel[name]:.3e} of max|ref|")
         source = ("sast_tpu_torch/csrc/attn_bwd.cu" if name == "sparse_block_attn_bwd"
-                  else "sast_tpu_torch/csrc/sparse_block_bwd.cu")
+                  else "sast_tpu_torch/csrc/mlp_bwd.cu")
         out.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces[name], launches=None, max_abs_err=worst[name],
                         ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
                         bound_by=max(tot["by"], key=tot["by"].get), library_ms=None,
                         rel_err=worst_rel[name], forward_rel_err=worst_fwd,
+                        bit_equal_cases=deterministic[name], bound_share=tot["bound"] / tot["ms"],
+                        call_ms=tot["call"],
                         masked_autograd_bwd_ms=f["masked_bwd"],
                         function_bwd_ms=f["bwd"], function_fwd_bwd_ms=f["fwd_bwd"],
                         masked_autograd_fwd_bwd_ms=f["masked_fwd_bwd"],
@@ -1154,12 +1196,14 @@ def phase_training(torch, np, card):
         if busy_us <= 0:
             fail(f"training {name}: the profiler saw no kernel time on the card")
         ours = {}
+        launches_of = {"sf": "sparse_fwd (E, all launches)", "mb": "mlp_bwd (G, all launches)",
+                       "ab": "attn_bwd (H, all launches)"}
         for e in rows_k:
-            # Kernel H's launches (namespace ab) are summed under one name.
-            key = ("attn_bwd (H, all launches)" if re.search(r"\bab::", e.key)
-                   else e.key[:60])
-            if key.startswith("attn_bwd") or "window_block_kernel" in key \
-                    or "_bwd_kernel" in key or "stem" in key:
+            # The launches of kernels E, G and H (by their sources'
+            # namespaces) are summed under one name each.
+            ns = re.search(r"\b(sf|mb|ab)::", e.key)
+            key = launches_of[ns.group(1)] if ns else e.key[:60]
+            if ns or "window_block_kernel" in key or "stem" in key:
                 ours[key] = ours.get(key, 0.0) + (getattr(e, "self_device_time_total", 0)
                                                   or getattr(e, "self_cuda_time_total", 0)) / 1e3
         if name == "sparse":
@@ -1514,7 +1558,7 @@ def main() -> None:
     logs = build.build()
     ptxas = ptxas_lines(logs)
     (OUT_DIR / "build_log.txt").write_text(
-        "== registers and spills of kernels A and H\n" + "\n".join(ptxas) + "\n"
+        "== registers and spills of kernels A, E, G and H\n" + "\n".join(ptxas) + "\n"
         + "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc log in chiprun_out/build_log.txt)")

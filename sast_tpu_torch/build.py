@@ -40,7 +40,8 @@ KERNELS: Dict[str, tuple] = {
     "nms_keep": ("-fmad=false",),
     "fused_block": (),
     "sparse_block": (),
-    "sparse_block_bwd": (),
+    "sparse_fwd": (),
+    "mlp_bwd": (),
     "attn_bwd": (),
 }
 

@@ -1,9 +1,9 @@
 // Device helpers shared by the port's CUDA sources (stem_conv.cu,
-// window_block.cuh and the block kernels built on it, attn_bwd.cu): number
-// conversions, bf16 packing, the tensor-core product, warp reductions,
-// cp.async, and the two row routines of the attention block whose rounding
-// the forward and the backward's recomputation must share (the LayerNorm
-// statistics and the softmax).
+// window_block.cuh and the block kernels built on it, rows_gemm.cuh and the
+// kernels built on it): number conversions, bf16 packing, the tensor-core
+// product, warp reductions, cp.async, and the row routines of the attention
+// block whose rounding the forward and the backward's recomputation must
+// share (the LayerNorm statistics, the softmax, GELU).
 
 #pragma once
 
@@ -118,6 +118,18 @@ __device__ __forceinline__ float layer_norm(float x, float mu, float rstd, float
 // for a masked key.
 __device__ __forceinline__ float masked_logit(bool keep, float s, float scale) {
   return keep ? s * scale : MASK_VALUE;
+}
+
+// The tanh form of GELU, as the forward's MLP and the backward's
+// recomputation take it, and its derivative.
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return 0.5f * x * (1.f + tanhf(inner));
+}
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float c = 0.7978845608028654f;
+  const float t = tanhf(c * (x + 0.044715f * x * x * x));
+  return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * c * (1.f + 3.f * 0.044715f * x * x);
 }
 
 // Softmax in place over the hw real keys of one row of logits, a warp per

@@ -243,11 +243,6 @@ __device__ __forceinline__ void block_gemm(const AT* A, int lda, BRow brow, int 
   }
 }
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.f + tanhf(inner));
-}
-
 // Four consecutive tokens' channels of a window as fp32.
 __device__ __forceinline__ float4 load_y4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

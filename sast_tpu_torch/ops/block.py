@@ -275,19 +275,19 @@ def launch(
     dim_head: int,
     norm_eps: float,
     out: torch.Tensor,
-    h1: Optional[torch.Tensor] = None,
     ids: Optional[torch.Tensor] = None,
     n_win: Optional[torch.Tensor] = None,
     what: str = "window block kernel",
 ) -> None:
-    """Check the operands and launch one block kernel (``entry`` is the pair
-    from ``bind``) on the current stream. ``out`` may be ``y`` itself only
-    in the looped mode. Raises on anything the kernel does not take."""
+    """Check the operands and launch one kernel of ``csrc/window_block.cuh``
+    (D, or F; ``entry`` is the pair from ``bind``) on the current stream.
+    ``out`` may be ``y`` itself only in the looped mode. Raises on anything
+    the kernel does not take."""
     fn, plan = entry
     M, hw, C = y.shape
     keep, ops, inner, flags = operands(y, token_keep, params, num_heads, dim_head, what)
     wdt = params["wqkv"].dtype
-    tensors = [y, out] + list(ops.values()) + ([h1] if h1 is not None else [])
+    tensors = [y, out] + list(ops.values())
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: operands must be 16-byte aligned")
     n_scratch = plan(mode, M, hw, C, inner, dim_head, *flags)
@@ -299,8 +299,7 @@ def launch(
     scratch = torch.empty(max(int(n_scratch), 16), dtype=torch.uint8, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     rc = fn(
-        mode, y.data_ptr(), keep.data_ptr(), out.data_ptr(),
-        h1.data_ptr() if h1 is not None else None,
+        mode, y.data_ptr(), keep.data_ptr(), out.data_ptr(), None,
         ids.data_ptr() if ids is not None else None,
         n_win.data_ptr() if n_win is not None else None,
         *(ops[k].data_ptr() for k in PARAM_KEYS),

@@ -5,19 +5,23 @@ and ``sparse_window_block_looped`` / ``_looped_kernel``
 (sast_tpu/ops/pallas/sparse_block.py). Both walk the kept-first work list
 ``argsort(~win_keep, stable)``: slots below ``n_win`` run the block
 (``ops/block.block_window_plain`` is its plain version), the rest pass
-``y`` through. The CUDA kernels are ``csrc/sparse_block.cu`` over the shared
-device routine ``csrc/window_block.cuh``, whose note says what bounds them
-on the H100 and how a window is laid out on chip.
+``y`` through.
 
-- ``sparse_window_block``: one thread block per work-list slot; with
-  ``save_h1`` it also returns the fp32 post-attention residual h1, the one
-  tensor a backward over the same work list needs. Under grad mode it is a
-  ``torch.autograd.Function`` whose backward is ``sparse_window_block_bwd``:
-  over the same work list, the MLP-branch kernel of ``csrc/sparse_block_bwd.cu``
-  (``_mlp_bwd_kernel`` of the TPU package) and the attention-branch launches
-  of ``csrc/attn_bwd.cu`` (``_attn_bwd_kernel``), with
-  ``sparse_window_block_bwd_plain`` as their plain version.
-- ``sparse_window_block_looped``: a persistent grid (a few blocks per SM);
+- ``sparse_window_block``: the launches of ``csrc/sparse_fwd.cu`` over the
+  tokens of the kept windows (prep, QKV, a core per window and head, proj,
+  GLU, out; every product a grid of tensor-core tiles, ``csrc/rows_gemm.cuh``);
+  with ``save_h1`` it also returns the fp32 post-attention residual h1, the
+  one tensor a backward over the same work list needs. Under grad mode it is
+  a ``torch.autograd.Function`` whose backward is
+  ``sparse_window_block_bwd``: over the same work list, the MLP-branch
+  launches of ``csrc/mlp_bwd.cu`` (``_mlp_bwd_kernel`` of the TPU package)
+  and the attention-branch launches of ``csrc/attn_bwd.cu``
+  (``_attn_bwd_kernel``), with ``sparse_window_block_bwd_plain`` as their
+  plain version.
+- ``sparse_window_block_looped``: the first design of the same function,
+  one thread block per window over the device routine
+  ``csrc/window_block.cuh`` (``csrc/sparse_block.cu``, whose note says how
+  a window is laid out on chip), on a persistent grid (a few blocks per SM);
   each block walks slots ``blockIdx, += gridDim, ... < n_win`` and copies
   the next window in with ``cp.async`` while it computes this one. The
   kernel updates its token tensor in place, so unkept windows are never
@@ -37,15 +41,15 @@ the forward products do (bf16 weights: bf16 x bf16 on the tensor cores,
 fp32 sums; fp32 weights: fp32 FMA). The weight-gradient products ``X^T G``
 and the per-head products of the attention backward take the values the
 forward's products saw (``X`` rounded to the weights' dtype, so ``dW`` is
-the gradient of the product as it was computed) and an fp32 ``G``: the MLP
-kernel in fp32 FMA; the attention kernels, with bf16 weights, on the tensor
-cores with ``G`` split into bf16 ``hi + lo``. Accumulators are fp32; each
-parameter gradient is then cast to that parameter's dtype, so with bf16
-compute the matrix gradients are rounded to bf16 on their way to the fp32
-master weights, as the TPU package's ``_sparse_block_bwd_impl`` does. On the
-card the MLP kernel adds its per-window contributions with fp32 atomics, so
-the last bits of its parameter gradients vary from run to run; the attention
-kernels reduce fixed-order partials, so ``dy`` and their gradients do not.
+the gradient of the product as it was computed) and an fp32 ``G``: with
+bf16 weights on the tensor cores with ``G`` split into bf16 ``hi + lo``,
+with fp32 weights in fp32 FMA. Accumulators are fp32; each parameter
+gradient is then cast to that parameter's dtype, so with bf16 compute the
+matrix gradients are rounded to bf16 on their way to the fp32 master
+weights, as the TPU package's ``_sparse_block_bwd_impl`` does. On the card
+both backward kernels sum per-block partials in a fixed order, without
+float atomics, so ``dy`` and every parameter gradient are the same bits
+from run to run.
 """
 
 from __future__ import annotations
@@ -99,8 +103,53 @@ def sparse_window_block_plain(
 
 
 @functools.cache
-def _entry():
+def _looped_entry():
     return block.bind("sparse_block", "sast_sparse_window_block")
+
+
+@functools.cache
+def _fwd_entry():
+    lib = build.load("sparse_fwd")
+    fn = lib.sast_sparse_fwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.sast_sparse_fwd_workspace
+    size.argtypes, size.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+    return fn, size
+
+
+def _aligned(table, what):
+    """Raise unless every tensor the kernels read in 16-byte pieces is
+    16-byte aligned (the work list and the keep mask are read by element)."""
+    if any(t.data_ptr() % 16 for t in table
+           if t is not None and t.dtype not in (torch.int32, torch.bool)):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
+
+
+def _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps, save_h1):
+    """Kernel E's launches (one ``ctypes`` call) on a CUDA tensor: its
+    intermediates over the kept tokens live in one workspace allocated
+    here."""
+    what = "sparse_window_block"
+    keep, ops, inner, flags = block.operands(y, token_keep, params, num_heads, dim_head, what)
+    M, hw, C = y.shape
+    out = torch.empty_like(y)
+    h1 = torch.empty(y.shape, dtype=torch.float32, device=y.device) if save_h1 else None
+    table = [y, keep, out, h1, ids, n_win] + [ops[k] for k in block.PARAM_KEYS]
+    _aligned(table, what)
+    fn, size = _fwd_entry()
+    n_work = size(M, hw, C, inner, dim_head, flags[1])
+    if n_work < 0:
+        raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} is not "
+                         "built or does not fit the card's shared memory")
+    workspace = torch.empty(int(n_work), dtype=torch.uint8, device=y.device)
+    ptrs = (ctypes.c_void_p * len(table))(*[0 if t is None else t.data_ptr() for t in table])
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    build.check(fn(ptrs, len(table), workspace.data_ptr(), n_work, M, hw, C, inner, num_heads,
+                   dim_head, float(norm_eps), *flags, stream), what)
+    return out, h1
 
 
 def _run(wrapper, mode, y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1):
@@ -113,13 +162,17 @@ def _run(wrapper, mode, y, token_keep, win_keep, params, num_heads, dim_head, no
         raise ValueError(f"{wrapper.__name__}: win_keep must be (M,) bool")
     ids, n_win = block.work_list(win_keep)
     y = y.contiguous()
-    looped = mode == block.MODE_LOOPED
-    out = y.clone() if looped else torch.empty_like(y)
-    h1 = torch.empty(y.shape, dtype=torch.float32, device=y.device) if save_h1 else None
-    if M:
-        block.launch(_entry(), mode, out if looped else y, token_keep, params, num_heads,
-                     dim_head, norm_eps, out, h1, ids, n_win, what=wrapper.__name__)
-        wrapper.launches += 1
+    if not M:
+        h1 = torch.empty(y.shape, dtype=torch.float32, device=y.device) if save_h1 else None
+        return (torch.empty_like(y), h1) if save_h1 else torch.empty_like(y)
+    if mode == block.MODE_LOOPED:  # in place over a clone of y
+        out, h1 = y.clone(), None
+        block.launch(_looped_entry(), mode, out, token_keep, params, num_heads, dim_head,
+                     norm_eps, out, ids, n_win, what=wrapper.__name__)
+    else:
+        out, h1 = _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps,
+                              save_h1)
+    wrapper.launches += 1
     return (out, h1) if save_h1 else out
 
 
@@ -134,7 +187,7 @@ def sparse_window_block(
     save_h1: bool = False,
     leaves=None,
 ):
-    """The masked block on kept windows only, one thread block per slot.
+    """The masked block on kept windows only, as launches over their tokens.
 
     Args:
       y: (M, hw, C) norm1-ed window tokens, fp32 or bf16 (M = B * N).
@@ -312,23 +365,25 @@ def sparse_block_attn_bwd_plain(y, token_keep, work: Work, params, gh1, num_head
 
 @functools.cache
 def _mlp_entry():
-    lib = build.load("sparse_block_bwd")
-    fn = lib.sast_sparse_block_bwd
+    lib = build.load("mlp_bwd")
+    fn = lib.sast_mlp_bwd
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    plan = lib.sast_sparse_block_bwd_scratch_bytes
-    plan.argtypes, plan.restype = [ctypes.c_int] * 5, ctypes.c_longlong
-    return fn, plan
+    size = lib.sast_mlp_bwd_workspace
+    size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    return fn, size
 
 
 def sparse_block_mlp_bwd(h1, token_keep, work: Work, params, g, num_heads, dim_head):
-    """MLP branch of the backward over the work list (kernel
-    ``mlp_bwd_kernel``): same contract as ``sparse_block_mlp_bwd_plain``,
-    which a CPU tensor goes to; on a CUDA tensor the kernel launches or
-    raises. ``g`` is the cotangent of the block's output, in its dtype. The
-    kernel reads each matrix in both layouts: ``(out, in)`` for the
-    recomputation, and an ``(in, out)`` copy made here for ``g W^T``."""
+    """MLP branch of the backward over the work list (the launches of
+    ``csrc/mlp_bwd.cu``, counted as one): same contract as
+    ``sparse_block_mlp_bwd_plain``, which a CPU tensor goes to; on a CUDA
+    tensor the kernels launch or raise. ``g`` is the cotangent of the block's
+    output, in its dtype. The kernels read each matrix as stored, ``(out,
+    in)``, keep their intermediates over the kept tokens in one workspace
+    allocated here, and write every gradient whole without atomics, so two
+    calls on the same inputs give the same bits."""
     if g.device.type == "cpu":
         return sparse_block_mlp_bwd_plain(h1, token_keep, work, params, g)
     what = "sparse_block_mlp_bwd"
@@ -336,27 +391,26 @@ def sparse_block_mlp_bwd(h1, token_keep, work: Work, params, g, num_heads, dim_h
     keep, ops, inner, flags = block.operands(g, token_keep, params, num_heads, dim_head, what)
     if h1.shape != g.shape or h1.dtype != torch.float32 or not h1.is_contiguous():
         raise ValueError(f"{what}: h1 must be contiguous (M, hw, C) float32")
-    acc = _zeros_like_params(params, MLP_KEYS, g.device)
-    gh1 = torch.empty(g.shape, dtype=torch.float32, device=g.device)
     M, hw, C = g.shape
-    if M:
-        ids, n_win = work
-        table = [h1, keep, g, ids, n_win, gh1, ops["wglu"], ops["bglu"], ops["wout"],
-                 ops["bout"], ops["ls2"], params["wglu"].contiguous(),
-                 params["wout"].contiguous()] + [acc[k] for k in MLP_KEYS]
-        if any(t.data_ptr() % 16 for t in table if t.dtype != torch.int32):
-            raise ValueError(f"{what}: operands must be 16-byte aligned")
-        fn, plan = _mlp_entry()
-        n_scratch = plan(M, hw, C, inner, flags[1])
-        if n_scratch < 0:
-            raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} does not "
-                             "fit the card's shared memory")
-        scratch = torch.empty(max(int(n_scratch), 16), dtype=torch.uint8, device=g.device)
-        ptrs = (ctypes.c_void_p * len(table))(*[t.data_ptr() for t in table])
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        build.check(fn(ptrs, len(table), scratch.data_ptr(), n_scratch, M, hw, C, inner,
-                       num_heads, dim_head, *flags, stream), what)
-        sparse_block_mlp_bwd.launches += 1
+    gh1 = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    if not M:
+        return gh1, _zeros_like_params(params, MLP_KEYS, g.device)
+    acc = {k: torch.empty(params[k].shape, dtype=torch.float32, device=g.device)
+           for k in MLP_KEYS}
+    ids, n_win = work
+    table = [h1, keep, g, ids, n_win, gh1, ops["wglu"], ops["bglu"], ops["wout"], ops["bout"],
+             ops["ls2"]] + [acc[k] for k in MLP_KEYS]
+    _aligned(table, what)
+    fn, size = _mlp_entry()
+    n_work = size(M, hw, C, inner, flags[1])
+    if n_work < 0:
+        raise ValueError(f"{what}: hw {hw}, C {C}, inner {inner} is not built")
+    workspace = torch.empty(int(n_work), dtype=torch.uint8, device=g.device)
+    ptrs = (ctypes.c_void_p * len(table))(*[t.data_ptr() for t in table])
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    build.check(fn(ptrs, len(table), workspace.data_ptr(), n_work, M, hw, C, inner, *flags,
+                   stream), what)
+    sparse_block_mlp_bwd.launches += 1
     return gh1, acc
 
 
@@ -401,8 +455,7 @@ def sparse_block_attn_bwd(y, token_keep, work: Work, params, gh1, num_heads, dim
              ops["bqkv"], ops["wproj"], ops["bproj"], ops["ls1"],
              params["wqkv"].contiguous(), params["wproj"].contiguous()] \
         + [acc[k] for k in ATTN_KEYS]
-    if any(t.data_ptr() % 16 for t in table if t.dtype != torch.int32):
-        raise ValueError(f"{what}: operands must be 16-byte aligned")
+    _aligned(table, what)
     fn, size = _attn_entry()
     n_work = size(M, hw, C, dim_head, flags[1])
     if n_work < 0:

@@ -120,14 +120,18 @@ BLOCK_SHAPES = [  # M, hw, C, dim_head: small, gen1-like rows, a wide stage
 ]
 BLOCK_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                 (torch.float32, torch.bfloat16)]
+TRAIN_STAGE4 = (48, 60, 512, 32)  # the last stage of the gen4-base B = 12 training step
 
 
 @pytest.mark.parametrize("ydt,wdt", BLOCK_DTYPES, ids=["f32", "bf16", "f32-bf16w"])
-@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", BLOCK_SHAPES + [TRAIN_STAGE4],
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("kernel", ["fused", "sparse", "sparse_h1", "looped"])
 def test_block_kernels_match_plain(dev, kernel, shape, ydt, wdt):
     """Kernels D, E (with and without h1) and F against the plain block at
-    window density 0.5. Unkept tokens and skipped windows bit-equal to y."""
+    window density 0.5, also at a stage shape of the B = 12 training step,
+    where E's h1 is the residual the backward reads. Unkept tokens and
+    skipped windows bit-equal to y."""
     M, hw, C, dh = shape
     y, tok, win, params = _block_case(M, hw, C, dh, ydt, wdt, 0.5, 0, dev)
     heads = C // dh
@@ -227,9 +231,31 @@ def test_attn_bwd_kernel_is_deterministic(dev, density, shape, ydt, wdt):
         assert first[1][key].abs().max() > 0, key
 
 
+@pytest.mark.parametrize("ydt,wdt", BLOCK_DTYPES[:2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [BLOCK_SHAPES[0], BLOCK_SHAPES[3], (3072, 60, 64, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("density", [0.5, 1.0])
+def test_mlp_bwd_kernel_is_deterministic(dev, density, shape, ydt, wdt):
+    """Kernel G adds no float atomics: two launches on the same inputs give
+    bit-equal gh1 and gradients, as for kernel H above."""
+    M, hw, C, dh = shape
+    y, tok, win, params = _block_case(M, hw, C, dh, ydt, wdt, density, 4, dev)
+    _, h1 = sparse_block.sparse_window_block(y, tok, win, params, C // dh, dh, save_h1=True)
+    g = torch.from_numpy(np.random.RandomState(6).randn(M, hw, C).astype(np.float32)).to(dev, ydt)
+    work = block.work_list(win)
+    first = sparse_block.sparse_block_mlp_bwd(h1, tok, work, params, g, C // dh, dh)
+    second = sparse_block.sparse_block_mlp_bwd(h1, tok, work, params, g, C // dh, dh)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    for key in sparse_block.MLP_KEYS:
+        assert torch.equal(first[1][key], second[1][key]), key
+        assert first[1][key].abs().max() > 0, key
+
+
 def test_bwd_kernels_no_window_kept(dev):
     """With no kept window dy is the cotangent and every parameter gradient
-    is exactly zero."""
+    is exactly zero; kernel G, which writes its gradients whole into fresh
+    memory, gives exactly zero on its own."""
     y, tok, win, params = _block_case(4, 60, 64, 32, torch.float32, torch.float32, 0.5, 2, dev)
     tok, win = torch.zeros_like(tok), torch.zeros_like(win)
     g = torch.randn(y.shape, generator=torch.Generator().manual_seed(0)).to(dev)
@@ -237,6 +263,9 @@ def test_bwd_kernels_no_window_kept(dev):
     dy, dp = sparse_block.sparse_window_block_bwd(y, tok, win, params, h1, g, 2, 32)
     assert torch.equal(dy, g)
     assert all(not dp[key].any() for key in block.PARAM_KEYS)
+    gh1, acc = sparse_block.sparse_block_mlp_bwd(h1, tok, block.work_list(win), params, g, 2, 32)
+    assert torch.equal(gh1, g)
+    assert set(acc) == set(sparse_block.MLP_KEYS) and all(not v.any() for v in acc.values())
 
 
 @pytest.mark.parametrize("shape", [(6, 60, 64, 32), (3, 60, 256, 32)],

@@ -111,12 +111,11 @@ def test_plain_backward_matches_jax_grad(interpret, case):
         assert np.abs(gp[key]).max() > 1e-3, key  # the case exercises every parameter
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_attn_branch_plain_matches_jax_attn_bwd_kernel(monkeypatch, case):
-    """Kernel H's plain version alone against the JAX ``_attn_bwd_kernel``
-    (interpret mode): the same ``gh1`` that the JAX MLP-branch kernel handed
-    it, and its raw fp32 outputs (dy, the two matrix and five vector
-    gradients). rtol 2e-4 / atol 1e-5 as above."""
+def _jax_bwd_kernel_io(monkeypatch, case):
+    """``jax.grad`` of the JAX ``sparse_window_block`` on ``CASES[case]``
+    with every Pallas call in interpret mode, capturing each kernel's
+    arguments and outputs as numpy arrays by kernel name; returns them with
+    the case's inputs."""
     captured = {}
     orig = pl.pallas_call
 
@@ -136,6 +135,38 @@ def test_attn_branch_plain_matches_jax_attn_bwd_kernel(monkeypatch, case):
     fn = lambda yy, pp: j_sparse.sparse_window_block(
         yy, jnp.asarray(tok), jnp.asarray(win), pp, num_heads=HEADS, dim_head=DH)
     _jax_grads(fn, y, tok, win, w, params)
+    return captured, (y, tok, win, params)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_mlp_branch_plain_matches_jax_mlp_bwd_kernel(monkeypatch, case):
+    """Kernel G's plain version alone against the JAX ``_mlp_bwd_kernel``
+    (interpret mode): the same h1 and cotangent that the JAX kernel got, and
+    its raw fp32 outputs (gh1, the two matrix and three vector gradients).
+    rtol 2e-4 / atol 1e-5 as above."""
+    captured, (y, tok, win, params) = _jax_bwd_kernel_io(monkeypatch, case)
+    args, outs = captured["_mlp_bwd_kernel"]
+    h1 = torch.from_numpy(args[2][..., :C].copy())  # ids, n_win, h1, keep, g, ...
+    g = torch.from_numpy(args[4][..., :C].copy())
+    ttok, twin = torch.from_numpy(tok), torch.from_numpy(win)
+    gh1, acc = sparse_block.sparse_block_mlp_bwd_plain(
+        h1, ttok, block.work_list(twin), _torch_params(params), g)
+    jgh1, dwglu, dbglu, dwout, dbout, dls2 = outs
+    np.testing.assert_allclose(gh1.numpy(), jgh1[..., :C], rtol=2e-4, atol=1e-5)
+    want = dict(wglu=dwglu, bglu=dbglu[0], wout=dwout, bout=dbout[0], ls2=dls2[0])
+    assert set(acc) == set(want)
+    for key, ref in want.items():
+        np.testing.assert_allclose(acc[key].numpy(), ref, rtol=2e-4, atol=1e-5, err_msg=key)
+        assert np.abs(ref).max() > 1e-3, key
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_attn_branch_plain_matches_jax_attn_bwd_kernel(monkeypatch, case):
+    """Kernel H's plain version alone against the JAX ``_attn_bwd_kernel``
+    (interpret mode): the same ``gh1`` that the JAX MLP-branch kernel handed
+    it, and its raw fp32 outputs (dy, the two matrix and five vector
+    gradients). rtol 2e-4 / atol 1e-5 as above."""
+    captured, (y, tok, win, params) = _jax_bwd_kernel_io(monkeypatch, case)
     args, outs = captured["_attn_bwd_kernel"]
     gh1 = torch.from_numpy(args[4][..., :C].copy())  # ids, n_win, y, keep, gh1, ...
     ty, ttok, twin = torch.from_numpy(y), torch.from_numpy(tok), torch.from_numpy(win)
