@@ -4,22 +4,27 @@
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
 CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
 
-1. Print the card's name and power limit; build the eight kernels (eight
-   libraries) from ``sast_tpu_torch/csrc`` (one nvcc per source, all started
-   together), and log the registers and spills of kernels A, E, G and H.
+1. Print the card's name and power limit; build the eight kernels (seven
+   libraries: kernel D runs kernel E's launches) from ``sast_tpu_torch/csrc``
+   (one nvcc per source, all started together), and log the registers and
+   spills of kernels A, C, E, G and H.
 2. Hold each kernel against its plain PyTorch version on the card, TF32
    off, at the gen4-base b4 serving shapes, and time kernel, plain version,
    bound and library call; the stem kernel also at the training step's 12
-   lanes and the NMS kernel at the 36 frames of its ``eval_step``. Kernel A
-   (redesigned: an implicit GEMM on the tensor cores) is timed against
-   ``F.conv2d`` in turns (library, kernel, kernel, library) and its share of
-   the bound is logged. The three block kernels (fused, sparse, looped)
-   run at the four stage shapes, in bf16 and fp32, at window densities 0.1,
-   0.4 and 1.0, beside the masked torch-op path and the gather path; the
-   sparse kernel E (redesigned: launches over the kept tokens) is timed in
-   turns with the looped kernel F (the same function on E's first design,
-   one block per window) and the masked torch ops, with its share of the
-   bound and its time per launch.
+   lanes. Kernel A (redesigned: an implicit GEMM on the tensor cores) is
+   timed against ``F.conv2d`` in turns (library, kernel, kernel, library)
+   and its share of the bound is logged. The NMS kernel C (redesigned: a
+   suppression bitmask over the card, then one warp per image) is held bit
+   for bit and timed at the 4 frames of the serving step and the 36 of
+   ``eval_step``, on the card and per eager call, beside its operations
+   bound and its latency bound. The three block kernels (fused, sparse,
+   looped) run at the four stage shapes, in bf16 and fp32, at window
+   densities 0.1, 0.4 and 1.0, beside the masked torch-op path and the
+   gather path; the fused kernel D (redesigned: E's launches over every
+   window), the sparse kernel E (redesigned: launches over the kept tokens)
+   and the looped kernel F (E's first design, one block per window) are
+   timed in turns with the masked torch ops (D E F masked masked F E D),
+   with their shares of the bound and E's and D's time per launch.
 3. Drive the port's main path: ``StreamingDetector`` at gen4-base width
    (384x640 model resolution, 20 channels, dims 64/128/256/512, bf16),
    ``num_streams=4``, seeded random weights, 8 frames of seeded synthetic
@@ -29,7 +34,8 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    must give the same detections. Steady-state ms/step with CUDA events.
    Then the same weights and frames on the sparse-kernel, looped-kernel,
    fused-kernel and budget-gather attention paths: 8 block-kernel launches
-   per step, the kept-window share per stage, ms/step of each.
+   per step, the kept-window share per stage, ms/step of each, and the card
+   time per step of each path and of its hand-written kernels.
    Then, at the four stage shapes of the gen4-base B = 12 training step,
    bf16 and fp32, window densities 0.1, 0.4, 1.0 and no kept window: the
    sparse forward kernel (output and saved h1) and the two backward kernels
@@ -95,13 +101,17 @@ LAYER_SCALE = 0.05  # LayerScale of the CPU-parity model
 EVENTS_PER_FRAME = 200_000  # StreamingDetector's default budget
 # Kernels redesigned since their first port, with the change that did it.
 REDESIGNED = {"stem_conv7x4": "PR 4", "sparse_block_attn_bwd": "PR 4",
-              "sparse_window_block": "PR 5", "sparse_block_mlp_bwd": "PR 5"}
+              "sparse_window_block": "PR 5", "sparse_block_mlp_bwd": "PR 5",
+              "greedy_keep": "PR 6", "fused_window_block": "PR 6"}
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# Cycles of one dependent step of the NMS scan (a shared-memory load and two
+# logic operations), the unit of kernel C's latency bound.
+SCAN_STEP_CYCLES = 20
 
 
-def ptxas_lines(logs, names=("stem_conv", "sparse_fwd", "mlp_bwd", "attn_bwd")):
+def ptxas_lines(logs, names=("stem_conv", "nms_keep", "sparse_fwd", "mlp_bwd", "attn_bwd")):
     """Registers and spills of each kernel the nvcc logs of ``names`` list
     (``-Xptxas=-v``), one line per instantiation."""
     out = []
@@ -174,6 +184,15 @@ def launch_us(torch, fn, namespace: str, calls: int = 3):
             per[short] = per.get(short, 0.0) + (getattr(e, "self_device_time_total", 0)
                                                 or getattr(e, "self_cuda_time_total", 0)) / calls
     return ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1]))
+
+
+def sm_clocks_hz():
+    """The card's maximum and current SM clock, in Hz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    top, now = (float(v) * 1e6 for v in out.split(","))
+    return top, now
 
 
 def bound_ms(n_bytes: float, flops: float, kind: str):
@@ -328,10 +347,14 @@ def phase_kernels(torch, np):
                 max_abs_err=0.0, ms=ms_b, plain_ms=plain_b, bound_ms=b_bound,
                 bound_by=b_by, library_ms=None)
 
-    # Kernel C: (n, 1000) clustered, score-sorted candidates, for the frame
-    # count of the serving step (timed) and that of eval_step in training.
+    # Kernel C: (n, 1000) clustered, score-sorted candidates, at the frame
+    # counts of the serving step and of eval_step in training: bit-equal to
+    # the plain version; card time alone (launches queued ahead), per eager
+    # call and per launch.
     k = 1000
-    for n in NMS_FRAMES[::-1]:
+    clock_hz, clock_now = sm_clocks_hz()
+    rows = {}
+    for n in NMS_FRAMES:
         rng = np.random.RandomState(2)
         centers = rng.rand(n, 12, 2) * 600
         idx = rng.randint(0, 12, (n, k))
@@ -342,28 +365,45 @@ def phase_kernels(torch, np):
         sc = np.sort(rng.rand(n, k).astype(np.float32), axis=-1)[:, ::-1].copy()
         sc[:, -100:] = 0.0
         scores = torch.from_numpy(sc).to(DEVICE)
-        keep = nms_keep.greedy_keep(boxes, scores, 0.45)
+        call = lambda: nms_keep.greedy_keep(boxes, scores, 0.45)
+        keep = call()
         keep_ref = nms_keep.greedy_keep_plain(boxes, scores, 0.45)
         if not torch.equal(keep, keep_ref):
             fail(f"greedy keep kernel differs at {int((keep != keep_ref).sum())} candidates "
                  f"of {n} frames")
+        ms_c = cuda_ms(torch, call, ahead=True)
+        call_c = cuda_ms(torch, call)
+        plain_c = cuda_ms(torch, lambda: nms_keep.greedy_keep_plain(boxes, scores, 0.45),
+                          iters=3, warmup=1)
+        per_launch = launch_us(torch, call, "nk")
+        # Operations this data needs: one IoU test (about 12 fp32 ops) per
+        # kept earlier box for every valid candidate. Latency: the images
+        # run side by side, and the slowest one's chain is one dependent
+        # step per valid candidate (a scan over every candidate), or per
+        # kept candidate (this kernel's scan skips the others).
+        valid = scores > 0
+        kept_before = torch.cumsum(keep_ref.int(), dim=1) - keep_ref.int()
+        tests = float((kept_before * valid).sum())
+        c_bound, c_by = bound_ms(boxes.numel() * 4 + scores.numel() * 4 + keep.numel(),
+                                 12.0 * tests, "fp32")
+        n_valid, n_kept = int(valid.sum(1).max()), int(keep_ref.sum(1).max())
+        lat_valid = n_valid * SCAN_STEP_CYCLES / clock_hz * 1e3
+        lat_kept = n_kept * SCAN_STEP_CYCLES / clock_hz * 1e3
         log(f"kernel greedy_keep ({n}, {k}, 4): exact; kept {int(keep.sum())} of "
-            f"{int((scores > 0).sum())}")
-    ms_c = cuda_ms(torch, lambda: nms_keep.greedy_keep(boxes, scores, 0.45))
-    plain_c = cuda_ms(torch, lambda: nms_keep.greedy_keep_plain(boxes, scores, 0.45),
-                      iters=3, warmup=1)
-    # Work this data needs: one IoU test (about 12 fp32 ops) per kept
-    # earlier box for every valid candidate.
-    kept_before = torch.cumsum(keep_ref.int(), dim=1) - keep_ref.int()
-    tests = float((kept_before * (scores > 0)).sum())
-    c_bound, c_by = bound_ms(boxes.numel() * 4 + scores.numel() * 4 + keep.numel(),
-                             12.0 * tests, "fp32")
-    log(f"kernel greedy_keep ({n}, {k}, 4) {ms_c:.4f} ms, plain {plain_c:.4f} ms, bound "
-        f"{c_bound:.6f} ms ({c_by})")
+            f"{int(valid.sum())} valid; {ms_c:.4f} ms on the card, {call_c:.4f} ms per eager "
+            f"call (us per launch: {per_launch}), plain {plain_c:.4f} ms; operations bound "
+            f"{c_bound:.6f} ms ({c_by}, {tests:.0f} IoU tests); latency bound at "
+            f"{SCAN_STEP_CYCLES} cycles a step and {clock_hz / 1e6:.0f} MHz (clock now "
+            f"{clock_now / 1e6:.0f} MHz): {n_valid} valid candidates of the slowest image "
+            f"{lat_valid:.6f} ms, {n_kept} kept {lat_kept:.6f} ms")
+        rows[n] = dict(ms=ms_c, call_ms=call_c, plain_ms=plain_c, bound_ms=c_bound, bound_by=c_by,
+                       latency_bound_valid_ms=lat_valid, latency_bound_kept_ms=lat_kept,
+                       per_launch_us=per_launch, kept=int(keep.sum()), valid=int(valid.sum()))
+    main = rows[NMS_FRAMES[0]]
     nmsk = dict(name="greedy_keep", route="cuda", source="sast_tpu_torch/csrc/nms_keep.cu",
                 replaces="sast_tpu/ops/pallas/nms_keep.py:79", launches=None,
-                max_abs_err=0.0, ms=ms_c, plain_ms=plain_c, bound_ms=c_bound,
-                bound_by=c_by, library_ms=None)
+                max_abs_err=0.0, library_ms=None, frames={str(n): r for n, r in rows.items()},
+                sm_clock_mhz=clock_hz / 1e6, redesigned=REDESIGNED["greedy_keep"], **main)
     return [stem, dens, nmsk]
 
 
@@ -419,9 +459,10 @@ def block_bound(M_run, M, C, inner, dtype_bytes, kind):
 
 
 def phase_block_kernels(torch, np):
-    """Kernels D (fused), E (sparse, with and without h1) and F (looped)
-    against the plain block, and their times beside the masked torch-op path
-    and the gather path, per stage shape, dtype and window density."""
+    """Kernels D (fused: E's launches over every window), E (sparse, with
+    and without h1) and F (looped) against the plain block, and their times
+    beside the masked torch-op path and the gather path, per stage shape,
+    dtype and window density."""
     from sast_tpu_torch.ops import block, fused_block, sparse_block
 
     hw = BLOCK_HW
@@ -486,17 +527,17 @@ def phase_block_kernels(torch, np):
                     gather=lambda: gather.run_block(y4, tok4, win4),
                 )
                 with torch.no_grad():
-                    # Card time alone (launches queued ahead): kernel E in
-                    # turns with F (its first design's routine) and the
-                    # masked torch ops, F E masked masked E F; then the time
-                    # of each call as the eager caller paces it.
-                    order = ("sparse_window_block_looped", "sparse_window_block", "masked")
+                    # Card time alone (launches queued ahead): kernels D and
+                    # E in turns with F (their first design's routine) and
+                    # the masked torch ops, D E F masked masked F E D; then
+                    # the time of each call as the eager caller paces it.
+                    order = ("fused_window_block", "sparse_window_block",
+                             "sparse_window_block_looped", "masked")
                     turns = {k: [] for k in order}
                     for k in order + order[::-1]:
                         turns[k].append(cuda_ms(torch, calls[k], iters=10, ahead=True))
                     t = {k: sum(v) / len(v) for k, v in turns.items()}
-                    t.update({k: cuda_ms(torch, calls[k], iters=10, ahead=True)
-                              for k in ("fused_window_block", "gather")})
+                    t["gather"] = cuda_ms(torch, calls["gather"], iters=10, ahead=True)
                     t.update({k + "_call": cuda_ms(torch, fn) for k, fn in calls.items()})
                     t["plain_all"] = cuda_ms(torch, lambda: block.block_window_plain(
                         y, tok, params, heads, dh), iters=5, warmup=1)
@@ -515,12 +556,14 @@ def phase_block_kernels(torch, np):
                         ("looped", "sparse_window_block_looped"), ("masked", "masked"),
                         ("gather", "gather")))
                     + f"; plain {t['plain_all']:.4f}/{t['plain_kept']:.4f}; "
-                    f"bound {b_all:.5f}/{b_kept:.5f} ({by_kept}); E's share of the bound "
+                    f"bound {b_all:.5f}/{b_kept:.5f} ({by_kept}); shares of the bound: D "
+                    f"{b_all / t['fused_window_block']:.4f}, E "
                     f"{b_kept / t['sparse_window_block']:.4f}")
                 if kind == "bf16" and density == BLOCK_TABLE_DENSITY:
                     with torch.no_grad():
-                        log(f"block {where}: kernel E per call, us by launch: "
-                            + launch_us(torch, calls["sparse_window_block"], "sf"))
+                        for short, name in (("D", "fused_window_block"), ("E", "sparse_window_block")):
+                            log(f"block {where}: kernel {short} per call, us by launch: "
+                                + launch_us(torch, calls[name], "sf"))
                     for name in names:
                         dense = name == "fused_window_block"
                         tot = totals[name]
@@ -533,7 +576,7 @@ def phase_block_kernels(torch, np):
                         tot["by"][by] = tot["by"].get(by, 0.0) + b
     (OUT_DIR / "block_kernels.json").write_text(json.dumps(table, indent=1))
     sources = dict(
-        fused_window_block=("sast_tpu_torch/csrc/fused_block.cu",
+        fused_window_block=("sast_tpu_torch/csrc/sparse_fwd.cu",
                             "sast_tpu/ops/pallas/fused_block.py:270"),
         sparse_window_block=("sast_tpu_torch/csrc/sparse_fwd.cu",
                              "sast_tpu/ops/pallas/sparse_block.py:285"),
@@ -962,6 +1005,12 @@ ATTENTION_PATHS = {
 }
 
 
+# The serving step's hand-written kernels in a profile, by the name or
+# namespace of their sources.
+SERVING_KERNELS = {"A stem_conv": r"stem_\w*kernel|arrange_kernel", "C nms_keep": r"\bnk::",
+                   "D/E sparse_fwd": r"\bsf::", "F window_block": r"\bwb::"}
+
+
 def path_detector(cfg, model, name, max_events, num_streams):
     """A ``StreamingDetector`` on attention path ``name`` with ``model``'s
     weights."""
@@ -1058,12 +1107,20 @@ def phase_attention_paths(torch, np, cfg, model, det_masked, frames, masked_outs
         finally:
             sparse_block.MODEL_USES_LOOPED = default
         # Kernel rows only: an operator's row repeats its kernels' time.
-        busy_us = sum(getattr(e, "self_device_time_total", 0)
-                      or getattr(e, "self_cuda_time_total", 0)
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        busy_us, ours = 0.0, {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            busy_us += us
+            # The hand-written kernels by source: A, C, D and E, F.
+            for label, pat in SERVING_KERNELS.items():
+                if re.search(pat, e.key):
+                    ours[label] = ours.get(label, 0.0) + us / 3 / 1e3
         if busy_us <= 0:
             fail(f"path {name}: the profiler saw no kernel time on the card")
         results[name]["card_ms"] = busy_us / 3 / 1e3
+        results[name]["hand_written_kernels_ms"] = ours
     for name, res in results.items():
         res["step_ms"] = sum(res["step_ms_rounds"]) / 2
     for name, res in results.items():
@@ -1071,7 +1128,8 @@ def phase_attention_paths(torch, np, cfg, model, det_masked, frames, masked_outs
             f"{[round(v, 3) for v in res['step_ms_rounds']]}), "
             f"{res['step_ms'] / results['masked']['step_ms']:.3f}x masked; kernel time on the "
             f"card {res['card_ms']:.3f} ms/step, idle share "
-            f"{1 - res['card_ms'] / res['step_ms']:.3f}")
+            f"{1 - res['card_ms'] / res['step_ms']:.3f}; hand-written kernels ms/step "
+            f"{ {k: round(v, 4) for k, v in res['hand_written_kernels_ms'].items()} }")
     return results
 
 
@@ -1161,10 +1219,12 @@ def phase_training(torch, np, card):
         peak = torch.cuda.max_memory_allocated()
 
         # One evaluation step (backbone over the clip, detection at the
-        # labeled frames, NMS kernel) on the path this trainer trains on.
+        # labeled frames, NMS kernel) on the path this trainer trains on;
+        # ``fit`` keeps no state, so from zero states.
         trainer.sparse_kernel_eval = sparse
         reset_counters()
-        _, dets = trainer.eval_step(dev_batches[-1], trainer.lstm_states)
+        lstm = trainer._zero_states(B)
+        _, dets = trainer.eval_step(dev_batches[-1], lstm)
         eval_counts = read_counters()
         if tuple(dets["boxes"].shape[:1]) != (B * L,) or not bool(
                 torch.isfinite(dets["boxes"][dets["valid"]]).all()):
@@ -1183,12 +1243,11 @@ def phase_training(torch, np, card):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for b in dev_batches[2:]:
-            trainer.state, trainer.lstm_states, _ = trainer.train_step(
-                trainer.state, b, trainer.lstm_states)
+            trainer.state, lstm, _ = trainer.train_step(trainer.state, b, lstm)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / len(dev_batches[2:]) * 1e3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer.train_step(trainer.state, dev_batches[-1], trainer.lstm_states)
+            trainer.train_step(trainer.state, dev_batches[-1], lstm)
             torch.cuda.synchronize()
         rows_k = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy_us = sum(getattr(e, "self_device_time_total", 0)
@@ -1240,7 +1299,7 @@ def phase_training(torch, np, card):
             if min(shares) >= 1.0:
                 fail("training: every window is kept in every layer of the clustered batch")
             results[name]["window_share"] = shares
-        del trainer
+        del trainer, lstm  # nothing of this path stays on the card into the next one's peak
         torch.cuda.empty_cache()
     # Same seed, same batches: the two paths compute one function and round
     # at other places in bf16 (the block kernels keep activations in fp32).
@@ -1558,7 +1617,7 @@ def main() -> None:
     logs = build.build()
     ptxas = ptxas_lines(logs)
     (OUT_DIR / "build_log.txt").write_text(
-        "== registers and spills of kernels A, E, G and H\n" + "\n".join(ptxas) + "\n"
+        "== registers and spills of kernels A, C, E, G and H\n" + "\n".join(ptxas) + "\n"
         + "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc log in chiprun_out/build_log.txt)")

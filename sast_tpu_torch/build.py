@@ -38,7 +38,6 @@ KERNELS: Dict[str, tuple] = {
     "stem_conv": (),
     "density": (),
     "nms_keep": ("-fmad=false",),
-    "fused_block": (),
     "sparse_block": (),
     "sparse_fwd": (),
     "mlp_bwd": (),

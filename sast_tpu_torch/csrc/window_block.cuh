@@ -1,11 +1,14 @@
 // The masked SAST block of one attention window, for sm_90a: the device
-// routine shared by the fused (every window), sparse (kept windows, one
-// block per work-list slot) and looped (kept windows, persistent grid)
-// block kernels.
+// routine of the looped block kernel F (kept windows on a persistent grid,
+// csrc/sparse_block.cu). It was the first design of the fused (D), sparse
+// (E) and looped kernels; D and E now run the launches of csrc/sparse_fwd.cu.
+// Mode 1 (sparse: one block per work-list slot) has had no caller since
+// then. It stays: taking it out changed the code the compiler makes for the
+// looped mode (its fp32 time by up to +5% on an H100; PERF.md, section 6),
+// and F is to move onto E's launches, when this file goes.
 //
-// Replaces the bodies of the TPU kernels _tile_kernel
-// (sast_tpu/ops/pallas/fused_block.py), _block_kernel and _looped_kernel
-// (sast_tpu/ops/pallas/sparse_block.py), which all compute _fwd_window:
+// Replaces the body of the TPU kernel _looped_kernel
+// (sast_tpu/ops/pallas/sparse_block.py), which computes _fwd_window:
 //   z   = where(keep, LN2(y), y)                  two-pass variance, fp32
 //   per head: q,k,v = z Wqkv + b;  P = softmax(mask(q k^T * dh^-0.5));  P v
 //   h1  = z + ls1 * (attn_out Wproj + b)
@@ -54,9 +57,9 @@
 #include "common.cuh"
 
 // Everything is internal to the translation unit that includes this file:
-// two libraries are built from it and loaded into one process, and the
-// remembered launch state below must not be shared between them (static
-// locals of templates with external linkage are process-wide).
+// the remembered launch state below must not be shared with another
+// library loaded into the process (static locals of templates with
+// external linkage are process-wide).
 namespace wb {
 namespace {
 
@@ -68,7 +71,7 @@ constexpr int PAD = 16;
 constexpr long long SMEM_LIMIT = 227 * 1024;
 constexpr int MAX_BLOCKS_PER_SM = 4;  // looped grid: at most this many per SM
 
-enum Mode { FUSED = 0, SPARSE = 1, LOOPED = 2 };
+enum Mode { SPARSE = 1, LOOPED = 2 };
 
 // Byte offsets into dynamic shared memory; attn / m / pf are -1 where the
 // buffer is not in shared memory (attn, m: in the scratch; pf: no prefetch).
@@ -394,12 +397,7 @@ __global__ void __launch_bounds__(THREADS) window_block_kernel(const Args a) {
   unsigned char* scratch = a.scratch + (size_t)blockIdx.x * a.L.scratch_per_block;
   const YT* y = static_cast<const YT*>(a.y);
   const size_t wsize = (size_t)a.hw * a.C;
-  if (a.mode == FUSED) {
-    const int wid = blockIdx.x;
-    load_window<YT, MT>(a, wid, y + wid * wsize, reinterpret_cast<float*>(smem + a.L.zf),
-                        smem + a.L.keep);
-    compute_window<YT, WT, MT>(a, wid, smem, scratch, false);
-  } else if (a.mode == SPARSE) {
+  if (a.mode == SPARSE) {
     const int wid = a.ids[blockIdx.x];
     if ((int)blockIdx.x >= *a.n_win) {
       // Unkept window: pass y through (and as h1, which no backward reads).
@@ -445,7 +443,7 @@ __global__ void __launch_bounds__(THREADS) window_block_kernel(const Args a) {
   }
 }
 
-// Grid of one launch: a block per window or slot; in looped mode at most
+// Grid of one launch: a block per slot; in looped mode at most
 // the blocks the card holds at once (SMs x blocks per SM, capped). The
 // attribute and the occupancy are asked of the CUDA runtime once per shared-memory
 // size of this instantiation and then remembered: the calls cost more host
@@ -552,7 +550,7 @@ inline int launch(int mode, const void* y, const void* keep, void* out, void* h1
   a.scale = (float)(1.0 / sqrt((double)dh));
   if (hw > 80 || C % 16 || dh % 16 || I % 16 || heads * dh != C || M <= 0)
     return (int)cudaErrorInvalidValue;
-  if (mode != FUSED && (ids == nullptr || n_win == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ids == nullptr || n_win == nullptr) return (int)cudaErrorInvalidValue;
   if (!plan(mode, hw, C, I, dh, y_bf16 ? 2 : 4, w_bf16 ? 2 : 4, &a.L))
     return (int)cudaErrorInvalidValue;
   return dispatch(hw, y_bf16, w_bf16, LaunchFn{a, nscratch, static_cast<cudaStream_t>(stream)});

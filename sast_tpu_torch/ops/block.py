@@ -4,8 +4,8 @@ Counterpart of ``_fwd_window`` (sast_tpu/ops/pallas/sparse_block.py) and
 ``fused_block_xla`` (sast_tpu/ops/pallas/fused_block.py): the function that
 the fused, sparse and looped block kernels all compute, here as plain
 PyTorch batched over windows, plus the pieces their wrappers share
-(``kernel_params``, the kept-first work list, the launcher of
-``csrc/window_block.cuh``).
+(``kernel_params``, the kept-first work list, the operand checks, the
+launcher of the looped kernel's ``csrc/window_block.cuh``).
 
 Numerics of the kernels, which differ from the masked torch-op path of
 ``models/sast.py``: every activation is fp32; the LayerNorm variance is
@@ -34,8 +34,6 @@ MAX_HW = 80  # rows of one window the kernels hold (5 tiles of 16)
 MATRICES = ("wqkv", "wproj", "wglu", "wout")
 PARAM_KEYS = ("ln2_scale", "ln2_bias", "wqkv", "bqkv", "wproj", "bproj", "ls1",
               "wglu", "bglu", "wout", "bout", "ls2")
-
-MODE_FUSED, MODE_SPARSE, MODE_LOOPED = 0, 1, 2
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -199,6 +197,8 @@ def check_no_grad(name: str, y: torch.Tensor, params: Dict[str, torch.Tensor]) -
         )
 
 
+# The looped mode of ``csrc/window_block.cuh``, the only one with a caller.
+_LOOPED = 2
 _C_ARGS = (
     [ctypes.c_int]                      # mode
     + [ctypes.c_void_p] * 6             # y, keep, out, h1, ids, n_win
@@ -267,30 +267,29 @@ def operands(y: torch.Tensor, token_keep: torch.Tensor, params: Dict[str, torch.
 
 def launch(
     entry,
-    mode: int,
     y: torch.Tensor,
     token_keep: torch.Tensor,
     params: Dict[str, torch.Tensor],
     num_heads: int,
     dim_head: int,
     norm_eps: float,
-    out: torch.Tensor,
-    ids: Optional[torch.Tensor] = None,
-    n_win: Optional[torch.Tensor] = None,
+    ids: torch.Tensor,
+    n_win: torch.Tensor,
     what: str = "window block kernel",
 ) -> None:
-    """Check the operands and launch one kernel of ``csrc/window_block.cuh``
-    (D, or F; ``entry`` is the pair from ``bind``) on the current stream.
-    ``out`` may be ``y`` itself only in the looped mode. Raises on anything
-    the kernel does not take."""
+    """Check the operands and launch the looped kernel of
+    ``csrc/window_block.cuh`` (``entry`` is the pair from ``bind``) on the
+    current stream, in place over ``y``: the kept windows of the work list
+    ``ids`` / ``n_win`` are overwritten, the others left alone. Raises on
+    anything the kernel does not take."""
     fn, plan = entry
     M, hw, C = y.shape
     keep, ops, inner, flags = operands(y, token_keep, params, num_heads, dim_head, what)
     wdt = params["wqkv"].dtype
-    tensors = [y, out] + list(ops.values())
+    tensors = [y] + list(ops.values())
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: operands must be 16-byte aligned")
-    n_scratch = plan(mode, M, hw, C, inner, dim_head, *flags)
+    n_scratch = plan(_LOOPED, M, hw, C, inner, dim_head, *flags)
     if n_scratch < 0:
         raise ValueError(
             f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} in {wdt} does not "
@@ -299,10 +298,8 @@ def launch(
     scratch = torch.empty(max(int(n_scratch), 16), dtype=torch.uint8, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     rc = fn(
-        mode, y.data_ptr(), keep.data_ptr(), out.data_ptr(), None,
-        ids.data_ptr() if ids is not None else None,
-        n_win.data_ptr() if n_win is not None else None,
-        *(ops[k].data_ptr() for k in PARAM_KEYS),
+        _LOOPED, y.data_ptr(), keep.data_ptr(), y.data_ptr(), None, ids.data_ptr(),
+        n_win.data_ptr(), *(ops[k].data_ptr() for k in PARAM_KEYS),
         scratch.data_ptr(), n_scratch, M, hw, C, inner, num_heads, dim_head,
         float(norm_eps), *flags, stream,
     )

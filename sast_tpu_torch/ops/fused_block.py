@@ -1,10 +1,15 @@
 """Dense fused window block: the masked SAST block on every window.
 
 Replaces the TPU kernel ``_fused_fwd`` / ``_tile_kernel`` behind
-``fused_window_block`` (sast_tpu/ops/pallas/fused_block.py). The CUDA kernel
-is ``csrc/fused_block.cu``: one thread block per window over the shared
-device routine ``csrc/window_block.cuh``, whose note says what bounds it on
-the H100. Its plain version is ``fused_block_plain``
+``fused_window_block`` (sast_tpu/ops/pallas/fused_block.py). With every
+window kept that is the function of the sparse window block (kernel E), so
+the CUDA kernel is E's sequence of launches (``csrc/sparse_fwd.cu``: prep,
+QKV, a core per window and head, proj, GLU, out; every product a grid of
+tensor-core tiles over all tokens) with the identity work list: ``ids =
+arange(M)`` and ``n_win = M``, both kept on the card per (M, device), so a
+call sorts nothing and reads nothing back. A window without a kept token
+runs through the core with every key masked (a uniform softmax, finite)
+and its output is ``y``. Its plain version is ``fused_block_plain``
 (``ops/block.block_window_plain`` on all windows, the counterpart of
 ``fused_block_xla``).
 
@@ -22,7 +27,7 @@ from typing import Dict
 
 import torch
 
-from sast_tpu_torch.ops import block
+from sast_tpu_torch.ops import block, sparse_block
 
 
 def fused_block_plain(
@@ -38,19 +43,23 @@ def fused_block_plain(
 
 
 @functools.cache
-def _entry():
-    return block.bind("fused_block", "sast_fused_window_block")
+def _every_window(M: int, device: torch.device):
+    """The identity work list of M windows and ``n_win = M``, int32 on
+    ``device``."""
+    return (torch.arange(M, dtype=torch.int32, device=device),
+            torch.full((1,), M, dtype=torch.int32, device=device))
 
 
 def _forward(y, token_keep, params, num_heads, dim_head, norm_eps):
     if y.device.type == "cpu":
         return fused_block_plain(y, token_keep, params, num_heads, dim_head, norm_eps)
     y = y.contiguous()
-    out = torch.empty_like(y)
-    if y.shape[0]:
-        block.launch(_entry(), block.MODE_FUSED, y, token_keep, params, num_heads, dim_head,
-                     norm_eps, out, what="fused_window_block")
-        fused_window_block.launches += 1
+    if not y.shape[0]:
+        return torch.empty_like(y)
+    ids, n_win = _every_window(y.shape[0], y.device)
+    out, _ = sparse_block._sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head,
+                                      norm_eps, False)
+    fused_window_block.launches += 1
     return out
 
 

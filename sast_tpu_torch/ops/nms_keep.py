@@ -22,7 +22,7 @@ import torch
 
 from sast_tpu_torch import build
 
-MAX_K = 4096  # 1024 threads x 4 candidates each
+MAX_K = 4096  # 64 mask words per row: two per lane of the scan's warp
 
 
 def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
@@ -60,12 +60,15 @@ def greedy_keep_plain(
 
 @functools.cache
 def _kernel():
-    fn = build.load("nms_keep").sast_greedy_keep
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+    lib = build.load("nms_keep")
+    fn = lib.sast_greedy_keep
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [
         ctypes.c_float, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.sast_greedy_keep_workspace
+    size.argtypes, size.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    return fn, size
 
 
 def greedy_keep(
@@ -86,8 +89,8 @@ def greedy_keep(
         return greedy_keep_plain(boxes, scores, iou_threshold)
     if boxes.device.type != "cuda":
         raise ValueError(f"greedy_keep: unsupported device {boxes.device}")
-    if K > MAX_K:
-        raise ValueError(f"greedy keep kernel takes K <= {MAX_K}, got {K}")
+    if K > MAX_K or N > 65535:
+        raise ValueError(f"greedy keep kernel takes K <= {MAX_K} and N <= 65535, got {N}, {K}")
     boxes = boxes.float().contiguous()
     scores = scores.float().contiguous()
     if boxes.data_ptr() % 16:
@@ -95,11 +98,14 @@ def greedy_keep(
     keep = torch.empty((N, K), dtype=torch.bool, device=boxes.device)
     if N == 0 or K == 0:
         return keep
+    fn, size = _kernel()
+    n_work = size(N, K)
+    mask = torch.empty(n_work, dtype=torch.uint8, device=boxes.device)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     build.check(
-        _kernel()(
-            boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), N, K,
-            float(iou_threshold), stream,
+        fn(
+            boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), mask.data_ptr(), n_work,
+            N, K, float(iou_threshold), stream,
         ),
         "greedy keep kernel",
     )

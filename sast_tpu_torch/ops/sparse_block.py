@@ -129,7 +129,8 @@ def _aligned(table, what):
 
 
 def _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps, save_h1):
-    """Kernel E's launches (one ``ctypes`` call) on a CUDA tensor: its
+    """Kernel E's launches (one ``ctypes`` call) on a CUDA tensor over the
+    work list ``ids`` / ``n_win`` (kernel D passes the identity): their
     intermediates over the kept tokens live in one workspace allocated
     here."""
     what = "sparse_window_block"
@@ -152,7 +153,7 @@ def _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps
     return out, h1
 
 
-def _run(wrapper, mode, y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1):
+def _run(wrapper, y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1):
     if y.device.type == "cpu":
         return sparse_window_block_plain(
             y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1
@@ -165,10 +166,10 @@ def _run(wrapper, mode, y, token_keep, win_keep, params, num_heads, dim_head, no
     if not M:
         h1 = torch.empty(y.shape, dtype=torch.float32, device=y.device) if save_h1 else None
         return (torch.empty_like(y), h1) if save_h1 else torch.empty_like(y)
-    if mode == block.MODE_LOOPED:  # in place over a clone of y
+    if wrapper is sparse_window_block_looped:  # in place over a clone of y
         out, h1 = y.clone(), None
-        block.launch(_looped_entry(), mode, out, token_keep, params, num_heads, dim_head,
-                     norm_eps, out, ids, n_win, what=wrapper.__name__)
+        block.launch(_looped_entry(), out, token_keep, params, num_heads, dim_head, norm_eps,
+                     ids, n_win, what=wrapper.__name__)
     else:
         out, h1 = _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps,
                               save_h1)
@@ -208,8 +209,8 @@ def sparse_window_block(
         leaves = tuple(leaves) if leaves is not None else (None,) * len(block.PARAM_KEYS)
         return _SparseBlockFn.apply(y, token_keep, win_keep, params, num_heads, dim_head,
                                     norm_eps, *leaves)
-    return _run(sparse_window_block, block.MODE_SPARSE, y, token_keep, win_keep, params,
-                num_heads, dim_head, norm_eps, save_h1)
+    return _run(sparse_window_block, y, token_keep, win_keep, params, num_heads, dim_head,
+                norm_eps, save_h1)
 
 
 def sparse_window_block_looped(
@@ -224,8 +225,8 @@ def sparse_window_block_looped(
     """Looped-grid variant of ``sparse_window_block`` (same function). The
     kernel writes in place; ``y`` is cloned first and left as it was."""
     block.check_no_grad("sparse_window_block_looped", y, params)
-    return _run(sparse_window_block_looped, block.MODE_LOOPED, y, token_keep, win_keep, params,
-                num_heads, dim_head, norm_eps, False)
+    return _run(sparse_window_block_looped, y, token_keep, win_keep, params, num_heads,
+                dim_head, norm_eps, False)
 
 
 # ---------------------------------------------------------------------------
@@ -539,8 +540,8 @@ class _SparseBlockFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, *leaves):
         y = y.contiguous()
-        out, h1 = _run(sparse_window_block, block.MODE_SPARSE, y.detach(), token_keep, win_keep,
-                       params, num_heads, dim_head, norm_eps, True)
+        out, h1 = _run(sparse_window_block, y.detach(), token_keep, win_keep, params, num_heads,
+                       dim_head, norm_eps, True)
         ctx.save_for_backward(y, token_keep, win_keep, h1, *[t for t in leaves if t is not None])
         ctx.present = [t is not None for t in leaves]
         ctx.params, ctx.shape = params, (num_heads, dim_head, norm_eps)

@@ -1,11 +1,12 @@
 """The training loop (port of the ``fit`` half of
 sast_tpu/training/loop.py).
 
-``Trainer`` owns the model, the optimizer and the per-lane recurrent state
-carried across steps, and logs loss, smoothed selected-token count, step
-time and learning rate. Not ported yet, and refused rather than ignored:
-validation against a dataset, checkpoints and resume, the device mesh,
-Weights & Biases and profiler traces.
+``Trainer`` owns the model and the optimizer; ``fit`` carries the per-lane
+recurrent state across the steps of one call, starting from zero states, and
+logs loss, smoothed selected-token count, step time and learning rate. Not
+ported yet, and refused rather than ignored: validation against a dataset,
+checkpoints and resume, the device mesh, Weights & Biases and profiler
+traces.
 
     import numpy as np
     from sast_tpu_torch.config import get_config
@@ -42,7 +43,7 @@ _NOT_PORTED = {
 
 
 class Trainer:
-    """``Trainer(cfg, workdir).fit(train_batches, max_steps)``.
+    """``Trainer(cfg, workdir).fit(train_batches, max_steps=...)``.
 
     ``sparse_kernel_train`` (the JAX trainer's ``use_pallas_train``) builds
     the model on the window-skipping block kernel, which trains through its
@@ -83,7 +84,6 @@ class Trainer:
         self.train_step = make_train_step(self.model, cfg)
         self._eval_step = make_eval_step(self.model, cfg)
         self.p_smooth = SmoothedValue()
-        self.lstm_states = None
 
     def _zero_states(self, B: int):
         return zero_states(self.cfg.model.backbone, B, DTYPES[self.cfg.model.compute_dtype],
@@ -98,12 +98,20 @@ class Trainer:
         finally:
             set_sparse_kernel(self.model, self.sparse_kernel_train)
 
-    def fit(self, train_batches: Iterable[dict], max_steps: Optional[int] = None,
-            eval_loader_fn=None, profile_steps=None) -> Dict[str, float]:
+    def fit(
+        self,
+        train_batches: Iterable[dict],
+        eval_loader_fn=None,
+        max_steps: Optional[int] = None,
+        eval_max_batches: Optional[int] = None,
+        profile_steps=None,
+    ) -> Dict[str, float]:
         """Train on ``train_batches`` (dicts of numpy arrays in the layout of
         ``training/steps.py``) until ``max_steps`` optimizer steps are done or
-        the batches run out. Returns the last logged metrics."""
-        if eval_loader_fn is not None:
+        the batches run out. The arguments are the JAX trainer's, in its
+        order; every call starts from zero LSTM states, as JAX's ``fit`` does.
+        Returns the last logged metrics."""
+        if eval_loader_fn is not None or eval_max_batches is not None:
             raise NotImplementedError("validation against a dataset is not ported yet")
         if profile_steps is not None:
             raise NotImplementedError("profiler traces are not ported yet")
@@ -111,15 +119,15 @@ class Trainer:
         last_metrics: Dict[str, float] = {}
         t_last = time.time()
         step = self.state.step
+        lstm = None
         for batch in train_batches:
             if step >= max_steps:
                 break
             device_batch, _ = split_device_batch(batch)
             device_batch = to_device(device_batch, self.device)
-            if self.lstm_states is None:
-                self.lstm_states = self._zero_states(device_batch["ev_repr"].shape[1])
-            self.state, self.lstm_states, metrics = self.train_step(
-                self.state, device_batch, self.lstm_states)
+            if lstm is None:
+                lstm = self._zero_states(device_batch["ev_repr"].shape[1])
+            self.state, lstm, metrics = self.train_step(self.state, device_batch, lstm)
             step += 1
             if step % self.log_every == 0 or step == 1:
                 metrics = {k: float(v) for k, v in metrics.items()}  # waits for the card

@@ -128,6 +128,29 @@ def test_fused_window_block_matches_jax(interpret, reference):
     np.testing.assert_array_equal(out_t.numpy()[~tok], y[~tok])
 
 
+def test_fused_block_is_the_sparse_block_on_every_window():
+    """Kernel D runs kernel E's launches with every window on the work list,
+    so their functions must agree there: ``fused_block_plain`` against
+    ``sparse_window_block_plain`` with ``win_keep`` all true, and both
+    against JAX ``fused_block_xla``. Window 2 keeps no token: its output is
+    ``y`` and finite."""
+    y, tok, _, params = _case(5)
+    assert not tok[2].any()
+    pj, pt = _both(params)
+    out_j = np.asarray(jfb.fused_block_xla(jnp.asarray(y), jnp.asarray(tok), pj, HEADS, DH, EPS))
+    yt, tt = torch.from_numpy(y), torch.from_numpy(tok)
+    out_d = fused_block.fused_block_plain(yt, tt, pt, HEADS, DH, EPS)
+    out_e = sparse_block.sparse_window_block_plain(yt, tt, torch.ones(M, dtype=torch.bool), pt,
+                                                   HEADS, DH, EPS)
+    _close(out_d.numpy(), out_e.numpy(), "fused vs sparse")
+    _close(out_d.numpy(), out_j, "fused vs fused_block_xla")
+    _close(out_e.numpy(), out_j, "sparse vs fused_block_xla")
+    for out in (out_d, out_e):
+        assert torch.isfinite(out).all()
+        np.testing.assert_array_equal(out.numpy()[~tok], y[~tok])
+        np.testing.assert_array_equal(out.numpy()[2], y[2])
+
+
 def test_sparse_window_block_looped_matches_jax(interpret):
     y, tok, win, params = _case(3)
     pj, pt = _both(params)

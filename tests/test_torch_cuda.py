@@ -61,16 +61,66 @@ def test_density_kernel_matches_plain_exactly(dev):
     assert torch.equal(density.density_ratio(x), density.density_ratio_plain(x))
 
 
-def test_greedy_keep_kernel_matches_plain_exactly(dev):
-    rng = np.random.RandomState(2)
-    n, k = 3, 1500  # more candidates than threads
-    xy = rng.rand(n, k, 2) * 300
+def _candidates(rng, n, k, spread):
+    """Score-sorted candidates in clusters of width ``spread`` (long
+    suppression chains), the last eighth invalid."""
+    centers = rng.rand(n, 6, 2) * 300
+    xy = centers[np.arange(n)[:, None], rng.randint(0, 6, (n, k))] + rng.randn(n, k, 2) * spread
     wh = 5 + rng.rand(n, k, 2) * 40
-    boxes = torch.from_numpy(np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32))
-    scores = torch.from_numpy(np.sort(rng.rand(n, k).astype(np.float32), -1)[:, ::-1].copy())
-    scores[:, -200:] = 0
-    got = nms_keep.greedy_keep(boxes.to(dev), scores.to(dev), 0.45).cpu()
-    assert torch.equal(got, nms_keep.greedy_keep_plain(boxes, scores, 0.45))
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
+    scores = np.sort(rng.rand(n, k).astype(np.float32), -1)[:, ::-1].copy()
+    scores[:, k - k // 8:] = 0.0
+    return boxes, scores
+
+
+def _greedy_case(name):
+    """(boxes, scores, threshold): random boxes (3 x 1500), clustered ones
+    at the serving step's and ``eval_step``'s frame counts and at the
+    largest K, and the edges of the kernel's 64-candidate words and of its
+    arithmetic (as tests/test_torch_kernels.py holds the plain version to
+    JAX on them)."""
+    rng = np.random.RandomState(2)
+    if name == "random":  # more candidates than threads had the first design
+        n, k = 3, 1500
+        xy = rng.rand(n, k, 2) * 300
+        wh = 5 + rng.rand(n, k, 2) * 40
+        boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
+        scores = np.sort(rng.rand(n, k).astype(np.float32), -1)[:, ::-1].copy()
+        scores[:, -200:] = 0.0
+    elif name.startswith("N"):
+        n, k = map(int, name[1:].split("xK"))
+        boxes, scores = _candidates(rng, n, k, 15.0)
+    elif name.startswith("K"):
+        boxes, scores = _candidates(rng, 2, int(name[1:]), 15.0)
+    else:
+        boxes, scores = _candidates(rng, 2, 130, 15.0)
+    if name == "all-scores-zero":
+        scores[:] = 0.0
+    elif name == "duplicates":
+        boxes[:, 1::2] = boxes[:, 0::2]
+    elif name == "zero-area":
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]
+    elif name == "invalid-between-valid":
+        scores[:, 10:20] = 0.0
+    elif name == "iou-at-threshold":
+        boxes = np.array([[[0, 0, 2, 1], [0, 0, 1, 1], [0, 0, 1, 1]]], np.float32)
+        scores = np.array([[0.9, 0.8, 0.7]], np.float32)
+        return boxes, scores, 0.5
+    return boxes, scores, 0.45
+
+
+@pytest.mark.parametrize("case", [
+    "random", "N1xK1000", "N4xK1000", "N36xK1000", "N1xK4096", "K1", "K63", "K64", "K65", "K200",
+    "all-scores-zero", "duplicates", "iou-at-threshold", "zero-area", "invalid-between-valid"])
+def test_greedy_keep_kernel_matches_plain_exactly(dev, case):
+    """Kernel C (the suppression bitmask, then one warp per image) bit-equal
+    to its plain version, one launch counted."""
+    boxes, scores, thr = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                          for a in _greedy_case(case))
+    n = nms_keep.greedy_keep.launches
+    got = nms_keep.greedy_keep(boxes.to(dev), scores.to(dev), thr).cpu()
+    assert nms_keep.greedy_keep.launches == n + 1
+    assert torch.equal(got, nms_keep.greedy_keep_plain(boxes, scores, thr))
 
 
 def _block_case(M, hw, C, dim_head, ydt, wdt, density, seed, dev):
@@ -167,6 +217,29 @@ def test_block_kernels_match_plain(dev, kernel, shape, ydt, wdt):
         rtol, atol = _block_tol(h1_ref, wdt)
         torch.testing.assert_close(h1[win], h1_ref[win], rtol=rtol, atol=atol)
         assert torch.equal(h1[~win], y[~win].float())
+
+
+@pytest.mark.parametrize("ydt,wdt", BLOCK_DTYPES[:2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(7, 52, 64, 32), (3, 60, 512, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_kernel_windows_without_kept_tokens(dev, shape, ydt, wdt):
+    """Kernel D on kernel E's launches over every window, where M x hw is
+    not a multiple of the GEMMs' 64-row tile (364, 180 rows) and windows
+    keep no token: those run through the core with every key masked, and
+    their output must be y, bit for bit and finite."""
+    M, hw, C, dh = shape
+    y, tok, win, params = _block_case(M, hw, C, dh, ydt, wdt, 0.5, 7, dev)
+    tok[1] = False
+    n = fused_block.fused_window_block.launches
+    got = fused_block.fused_window_block(y, tok, params, C // dh, dh)
+    ref = fused_block.fused_block_plain(y, tok, params, C // dh, dh)
+    torch.cuda.synchronize()
+    assert fused_block.fused_window_block.launches == n + 1
+    assert not bool(tok.any(-1).all())
+    rtol, atol = _block_tol(ref, wdt)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got[~tok], y[~tok])
 
 
 def _bwd_tol(ref, wdt):

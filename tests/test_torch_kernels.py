@@ -113,22 +113,62 @@ def _clustered_candidates(rng, n, k):
     return boxes, scores
 
 
-def test_greedy_keep_plain_matches_pallas_exactly(interpret):
+def _greedy_case(name):
+    """(boxes, scores, threshold) of one named greedy-keep case: clustered
+    candidates (the default, 4 x 300) or an edge of the kernel's layout and
+    arithmetic: K below, at and above one 64-candidate mask word, no valid
+    score, duplicate boxes (IoU exactly 1), an IoU exactly at the threshold
+    (``>`` keeps it), zero-area boxes (union 1e-12) and invalid candidates
+    between valid ones."""
+    rng = np.random.RandomState(0)
+    if name == "clustered":
+        boxes, scores = _clustered_candidates(rng, 4, 300)
+    elif name.startswith("K"):
+        boxes, scores = _clustered_candidates(rng, 2, int(name[1:]))
+    else:
+        boxes, scores = _clustered_candidates(rng, 2, 130)
+    if name == "all-scores-zero":
+        scores[:] = 0.0
+    elif name == "duplicates":
+        boxes[:, 1::2] = boxes[:, 0::2]
+    elif name == "zero-area":
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]
+    elif name == "invalid-between-valid":
+        scores[:, 10:20] = 0.0
+    elif name == "iou-at-threshold":
+        # Box 1 against box 0: inter 1, union 2 + 1 + 1e-12 - 1 = 2 in fp32,
+        # IoU exactly 0.5; box 2 duplicates box 1.
+        boxes = np.array([[[0, 0, 2, 1], [0, 0, 1, 1], [0, 0, 1, 1]]], np.float32)
+        scores = np.array([[0.9, 0.8, 0.7]], np.float32)
+        return boxes, scores, 0.5
+    return boxes, scores, 0.45
+
+
+GREEDY_CASES = ["clustered", "K1", "K63", "K64", "K65", "K200", "all-scores-zero", "duplicates",
+                "iou-at-threshold", "zero-area", "invalid-between-valid"]
+
+
+@pytest.mark.parametrize("case", GREEDY_CASES)
+def test_greedy_keep_plain_matches_pallas_exactly(interpret, case):
     """Kernel C's plain version vs the Pallas greedy_keep and the XLA scan:
     the same rounded fp32 operations, so the masks agree bit for bit."""
     from sast_tpu.ops.nms import batched_greedy_keep
 
     _, _, jn = interpret
-    rng = np.random.RandomState(0)
-    boxes, scores = _clustered_candidates(rng, 4, 300)
-    kj = jax.jit(partial(jn.greedy_keep, iou_threshold=0.45))(
+    boxes, scores, thr = _greedy_case(case)
+    kj = jax.jit(partial(jn.greedy_keep, iou_threshold=thr))(
         jnp.asarray(boxes), jnp.asarray(scores)
     )
-    ks = batched_greedy_keep(jnp.asarray(boxes), jnp.asarray(scores), 0.45, use_pallas=False)
-    kt = t_nms_keep.greedy_keep(torch.from_numpy(boxes), torch.from_numpy(scores), 0.45)
+    ks = batched_greedy_keep(jnp.asarray(boxes), jnp.asarray(scores), thr, use_pallas=False)
+    kt = t_nms_keep.greedy_keep(torch.from_numpy(boxes), torch.from_numpy(scores), thr)
     np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
     np.testing.assert_array_equal(kt.numpy(), np.asarray(ks))
-    assert 0 < kt.sum() < (scores > 0).sum()  # suppression happened
+    if case == "clustered":
+        assert 0 < kt.sum() < (scores > 0).sum()  # suppression happened
+    if case == "iou-at-threshold":
+        assert kt.tolist() == [[True, True, False]]
+    if case == "all-scores-zero":
+        assert not kt.any()
 
 
 def test_kernel_wrappers_raise_off_cpu_and_cuda():

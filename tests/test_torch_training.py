@@ -373,3 +373,46 @@ def test_trainer_fit_on_the_cpu_and_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(cfg, str(tmp_path / "no"))
+
+
+def test_fit_starts_every_call_from_zero_states(tmp_path):
+    """Two ``fit`` calls in a row, one step each, give the parameters of one
+    ``fit`` step followed by a ``train_step`` from zero LSTM states: JAX's
+    ``fit`` starts every call from zero states (``lstm = None``). Lane 0 of
+    the second batch is not a sequence start, so a state carried over from
+    the first call would show. The same CPU arithmetic on both sides:
+    exact. The first call passes ``max_steps`` by position, in JAX's
+    order."""
+    cfg = _cfg(get_test_config)
+    batches = _batches(cfg)
+    assert not batches[1]["is_first"][0]
+    twice = Trainer(cfg, str(tmp_path / "twice"), device="cpu")
+    twice.fit([batches[0]], None, 1)
+    twice.fit([batches[1]], max_steps=2)
+    ref = Trainer(cfg, str(tmp_path / "ref"), device="cpu")
+    ref.fit([batches[0]], max_steps=1)
+    B = batches[1]["ev_repr"].shape[1]
+    ref.state, _, _ = ref.train_step(
+        ref.state, to_device(split_device_batch(batches[1])[0], "cpu"), ref._zero_states(B))
+    assert twice.state.step == ref.state.step == 2
+    for (name, a), (_, b) in zip(twice.model.named_parameters(), ref.model.named_parameters()):
+        assert torch.equal(a, b), name
+
+
+def test_fit_arguments_follow_the_jax_trainer(tmp_path):
+    """``Trainer.fit`` takes the JAX trainer's arguments in its order, with
+    its defaults, so a positional call means the same in both packages;
+    what is not ported among them is refused."""
+    import inspect
+
+    from sast_tpu.training.loop import Trainer as JTrainer
+
+    def shape(fn):
+        return [(n, p.kind, p.default) for n, p in inspect.signature(fn).parameters.items()]
+
+    assert shape(Trainer.fit) == shape(JTrainer.fit)
+    trainer = Trainer(_cfg(get_test_config), str(tmp_path / "run"), device="cpu")
+    for kwargs in (dict(eval_loader_fn=lambda: []), dict(eval_max_batches=2),
+                   dict(profile_steps=(1, 2))):
+        with pytest.raises(NotImplementedError):
+            trainer.fit([], **kwargs)
