@@ -4,16 +4,20 @@
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
 CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
 
-1. Print the card's name and power limit; build the eight kernels (seven
-   libraries: kernel D runs kernel E's launches) from ``sast_tpu_torch/csrc``
-   (one nvcc per source, all started together), and log the registers and
-   spills of kernels A, C, E, G and H.
+1. Print the card's name and power limit; build the eight kernels (six
+   libraries: kernel D runs kernel E's launches, and kernel F is the second
+   entry point of E's library) from ``sast_tpu_torch/csrc`` (one nvcc per
+   source, all started together), and log the registers and spills of
+   kernels A, B, C, E, F, G and H.
 2. Hold each kernel against its plain PyTorch version on the card, TF32
    off, at the gen4-base b4 serving shapes, and time kernel, plain version,
    bound and library call; the stem kernel also at the training step's 12
    lanes. Kernel A (redesigned: an implicit GEMM on the tensor cores) is
    timed against ``F.conv2d`` in turns (library, kernel, kernel, library)
-   and its share of the bound is logged. The NMS kernel C (redesigned: a
+   and its share of the bound is logged. The density kernel B (redesigned:
+   one launch from the input to the ratio) is held bit for bit, twice, and
+   timed on the card and per eager call, with its launches listed. The NMS
+   kernel C (redesigned: a
    suppression bitmask over the card, then one warp per image) is held bit
    for bit and timed at the 4 frames of the serving step and the 36 of
    ``eval_step``, on the card and per eager call, beside its operations
@@ -22,9 +26,10 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    densities 0.1, 0.4 and 1.0, beside the masked torch-op path and the
    gather path; the fused kernel D (redesigned: E's launches over every
    window), the sparse kernel E (redesigned: launches over the kept tokens)
-   and the looped kernel F (E's first design, one block per window) are
+   and the looped kernel F (redesigned: E's steps as phases of one
+   persistent cooperative launch, held to E's output bit for bit) are
    timed in turns with the masked torch ops (D E F masked masked F E D),
-   with their shares of the bound and E's and D's time per launch.
+   with their shares of the bound and their time per launch.
 3. Drive the port's main path: ``StreamingDetector`` at gen4-base width
    (384x640 model resolution, 20 channels, dims 64/128/256/512, bf16),
    ``num_streams=4``, seeded random weights, 8 frames of seeded synthetic
@@ -60,8 +65,8 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    against ``eval_step``.
 
 Prints the kernel table as one JSON line (the rows of kernels redesigned
-since their first port carry ``redesigned``, the change that did it; the
-first versions' times are in PERF.md), then the nvidia-smi line, then
+since their first port carry ``redesigned``, what the redesign made of
+them; the first versions' times are in PERF.md), then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Longer output (build
 logs, profiler table, all measurements) goes to ``chiprun_out/``.
 Exits non-zero, printing no result, without a card or outside a checkout.
@@ -99,10 +104,16 @@ BLOCK_DENSITIES = (0.1, 0.4, 1.0)
 BLOCK_TABLE_DENSITY = 0.4  # the density whose times go into the kernels line
 LAYER_SCALE = 0.05  # LayerScale of the CPU-parity model
 EVENTS_PER_FRAME = 200_000  # StreamingDetector's default budget
-# Kernels redesigned since their first port, with the change that did it.
-REDESIGNED = {"stem_conv7x4": "PR 4", "sparse_block_attn_bwd": "PR 4",
-              "sparse_window_block": "PR 5", "sparse_block_mlp_bwd": "PR 5",
-              "greedy_keep": "PR 6", "fused_window_block": "PR 6"}
+# Kernels redesigned since their first port, with what the redesign made of
+# them (PERF.md section 6 names the change that did it).
+REDESIGNED = {"stem_conv7x4": "implicit GEMM on the tensor cores",
+              "sparse_block_attn_bwd": "tensor-core launches over the kept tokens",
+              "sparse_window_block": "tensor-core launches over the kept tokens",
+              "sparse_block_mlp_bwd": "tensor-core launches over the kept tokens",
+              "greedy_keep": "suppression bitmask, then one warp per image",
+              "fused_window_block": "the sparse kernel's launches over every window",
+              "sparse_window_block_looped": "the sparse kernel's steps in one cooperative launch",
+              "density_ratio": "one launch from the input to the ratio"}
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -111,7 +122,8 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 SCAN_STEP_CYCLES = 20
 
 
-def ptxas_lines(logs, names=("stem_conv", "nms_keep", "sparse_fwd", "mlp_bwd", "attn_bwd")):
+def ptxas_lines(logs, names=("stem_conv", "density", "nms_keep", "sparse_fwd", "mlp_bwd",
+                             "attn_bwd")):
     """Registers and spills of each kernel the nvcc logs of ``names`` list
     (``-Xptxas=-v``), one line per instantiation."""
     out = []
@@ -166,10 +178,10 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3, ahead: bool = False) ->
     return start.elapsed_time(end) / iters
 
 
-def launch_us(torch, fn, namespace: str, calls: int = 3):
+def launch_us(torch, fn, namespace, calls: int = 3):
     """Card time per call of each kernel of ``namespace`` (its source's
-    namespace, e.g. ``ab`` for kernel H) that ``fn`` launches, in us, from
-    the profiler over ``calls`` calls."""
+    namespace, e.g. ``ab`` for kernel H; None: every kernel on the card)
+    that ``fn`` launches, in us, from the profiler over ``calls`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -179,11 +191,34 @@ def launch_us(torch, fn, namespace: str, calls: int = 3):
         torch.cuda.synchronize()
     per = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and re.search(rf"\b{namespace}::", e.key):
-            short = re.search(r"(\w+_kernel(?:<[^>]*>)?)", e.key).group(1)
+        if e.device_type == DeviceType.CUDA and (
+                namespace is None or re.search(rf"\b{namespace}::", e.key)):
+            found = re.search(r"(\w+_kernel(?:<[^>]*>)?)", e.key)
+            short = found.group(1) if found else e.key[:48]
             per[short] = per.get(short, 0.0) + (getattr(e, "self_device_time_total", 0)
                                                 or getattr(e, "self_cuda_time_total", 0)) / calls
     return ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1]))
+
+
+LOOPED_PHASES = ("work list", "prep", "QKV", "core", "proj", "GLU", "out")
+
+
+def looped_phase_us(torch, sparse_block, fn, calls: int = 3):
+    """Kernel F's time per phase, in us, from its phase clock
+    (``sparse_block.LOOPED_STAMPS``), the mean over ``calls`` calls of
+    ``fn``; each phase's grid barrier is counted in it."""
+    stamps = torch.zeros(8, dtype=torch.int64, device=DEVICE)
+    sparse_block.LOOPED_STAMPS, tot = stamps, [0.0] * len(LOOPED_PHASES)
+    try:
+        for _ in range(calls):
+            stamps.zero_()
+            fn()
+            t = stamps.tolist()
+            for k in range(len(LOOPED_PHASES)):
+                tot[k] += (t[k + 1] - t[k]) / 1e3 / calls
+    finally:
+        sparse_block.LOOPED_STAMPS = None
+    return dict(zip(LOOPED_PHASES, tot))
 
 
 def sm_clocks_hz():
@@ -333,19 +368,28 @@ def phase_kernels(torch, np):
                 library_call_ms=lib_call, turns_ms=turns,
                 redesigned=REDESIGNED["stem_conv7x4"])
 
-    # Kernel B.
+    # Kernel B: bit-equal on both inputs, twice (its per-image tickets must
+    # be back at 0 after a call); card time alone (launches queued ahead),
+    # per eager call, and every kernel one call puts on the card.
     for i, xi in enumerate(xs):
-        if not torch.equal(density.density_ratio(xi), density.density_ratio_plain(xi)):
-            fail(f"density kernel differs from its plain version on input {i}")
-    ms_b = cuda_ms(torch, lambda: density.density_ratio(x))
+        ref = density.density_ratio_plain(xi)
+        for _ in range(2):
+            if not torch.equal(density.density_ratio(xi), ref):
+                fail(f"density kernel differs from its plain version on input {i}")
+    call_b = lambda: density.density_ratio(x)
+    ms_b = cuda_ms(torch, call_b, ahead=True)
+    call_ms_b = cuda_ms(torch, call_b)
+    per_launch_b = launch_us(torch, call_b, None)
     plain_b = cuda_ms(torch, lambda: density.density_ratio_plain(x), iters=5)
     b_bound, b_by = bound_ms(x.numel() + B * 4 * C * 4, 2.0 * x.numel(), "fp32")
-    log(f"kernel density_ratio {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
-        f"bound {b_bound:.4f} ms ({b_by}); exact on both inputs")
+    log(f"kernel density_ratio {ms_b:.4f} ms on the card, {call_ms_b:.4f} ms per eager call "
+        f"(us per launch: {per_launch_b}), plain {plain_b:.4f} ms, bound {b_bound:.4f} ms "
+        f"({b_by}), share of the bound {b_bound / ms_b:.3f}; exact on both inputs, twice")
     dens = dict(name="density_ratio", route="cuda", source="sast_tpu_torch/csrc/density.cu",
                 replaces="sast_tpu/ops/pallas/density.py:168", launches=None,
                 max_abs_err=0.0, ms=ms_b, plain_ms=plain_b, bound_ms=b_bound,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, call_ms=call_ms_b, bound_share=b_bound / ms_b,
+                per_launch_us=per_launch_b, redesigned=REDESIGNED["density_ratio"])
 
     # Kernel C: (n, 1000) clustered, score-sorted candidates, at the frame
     # counts of the serving step and of eval_step in training: bit-equal to
@@ -490,8 +534,13 @@ def phase_block_kernels(torch, np):
                 got_e1, h1 = sparse_block.sparse_window_block(
                     y, tok, win, params, heads, dh, save_h1=True)
                 got_f = sparse_block.sparse_window_block_looped(y, tok, win, params, heads, dh)
+                got_f2 = sparse_block.sparse_window_block_looped(y, tok, win, params, heads, dh)
                 torch.cuda.synchronize()
                 where = f"stage {si + 1} {kind} density {density}"
+                # F runs E's routines in E's order: the same bits, every launch.
+                if not torch.equal(got_f, got_e) or not torch.equal(got_f, got_f2):
+                    fail(f"sparse_window_block_looped {where}: not bit-equal to kernel E "
+                         "or to its own second launch")
                 for name, got in (("fused_window_block", got_d), ("sparse_window_block", got_e),
                                   ("sparse_window_block", got_e1),
                                   ("sparse_window_block_looped", got_f)):
@@ -527,10 +576,10 @@ def phase_block_kernels(torch, np):
                     gather=lambda: gather.run_block(y4, tok4, win4),
                 )
                 with torch.no_grad():
-                    # Card time alone (launches queued ahead): kernels D and
-                    # E in turns with F (their first design's routine) and
-                    # the masked torch ops, D E F masked masked F E D; then
-                    # the time of each call as the eager caller paces it.
+                    # Card time alone (launches queued ahead): kernels D, E
+                    # and F in turns with the masked torch ops, D E F masked
+                    # masked F E D; then the time of each call as the eager
+                    # caller paces it.
                     order = ("fused_window_block", "sparse_window_block",
                              "sparse_window_block_looped", "masked")
                     turns = {k: [] for k in order}
@@ -558,12 +607,33 @@ def phase_block_kernels(torch, np):
                     + f"; plain {t['plain_all']:.4f}/{t['plain_kept']:.4f}; "
                     f"bound {b_all:.5f}/{b_kept:.5f} ({by_kept}); shares of the bound: D "
                     f"{b_all / t['fused_window_block']:.4f}, E "
-                    f"{b_kept / t['sparse_window_block']:.4f}")
+                    f"{b_kept / t['sparse_window_block']:.4f}, F "
+                    f"{b_kept / t['sparse_window_block_looped']:.4f}; F bit-equal to E")
                 if kind == "bf16" and density == BLOCK_TABLE_DENSITY:
                     with torch.no_grad():
-                        for short, name in (("D", "fused_window_block"), ("E", "sparse_window_block")):
+                        for short, name in (("D", "fused_window_block"), ("E", "sparse_window_block"),
+                                            ("F", "sparse_window_block_looped")):
                             log(f"block {where}: kernel {short} per call, us by launch: "
                                 + launch_us(torch, calls[name], "sf"))
+                        # F's phases on its own grid (as many blocks as the
+                        # card holds at once) and on one block per SM.
+                        row["looped_phase_us"] = looped_phase_us(
+                            torch, sparse_block, calls["sparse_window_block_looped"])
+                        sms = torch.cuda.get_device_properties(0).multi_processor_count
+                        sparse_block.LOOPED_BLOCKS = sms
+                        try:
+                            row["looped_ms_1_per_sm"] = cuda_ms(
+                                torch, calls["sparse_window_block_looped"], iters=10, ahead=True)
+                            row["looped_phase_us_1_per_sm"] = looped_phase_us(
+                                torch, sparse_block, calls["sparse_window_block_looped"])
+                        finally:
+                            sparse_block.LOOPED_BLOCKS = 0
+                    for key, label in (("looped_phase_us", "its own grid"),
+                                       ("looped_phase_us_1_per_sm", f"{sms} blocks")):
+                        log(f"block {where}: kernel F on {label}, us by phase (barrier "
+                            "included): " + ", ".join(f"{k} {v:.1f}" for k, v in row[key].items()))
+                    log(f"block {where}: kernel F on {sms} blocks {row['looped_ms_1_per_sm']:.4f} "
+                        f"ms on the card (own grid {t['sparse_window_block_looped']:.4f})")
                     for name in names:
                         dense = name == "fused_window_block"
                         tot = totals[name]
@@ -580,7 +650,7 @@ def phase_block_kernels(torch, np):
                             "sast_tpu/ops/pallas/fused_block.py:270"),
         sparse_window_block=("sast_tpu_torch/csrc/sparse_fwd.cu",
                              "sast_tpu/ops/pallas/sparse_block.py:285"),
-        sparse_window_block_looped=("sast_tpu_torch/csrc/sparse_block.cu",
+        sparse_window_block_looped=("sast_tpu_torch/csrc/sparse_fwd.cu",
                                     "sast_tpu/ops/pallas/sparse_block.py:903"),
     )
     out = []
@@ -1008,7 +1078,7 @@ ATTENTION_PATHS = {
 # The serving step's hand-written kernels in a profile, by the name or
 # namespace of their sources.
 SERVING_KERNELS = {"A stem_conv": r"stem_\w*kernel|arrange_kernel", "C nms_keep": r"\bnk::",
-                   "D/E sparse_fwd": r"\bsf::", "F window_block": r"\bwb::"}
+                   "D/E sparse_fwd": r"^(?!.*looped_kernel).*\bsf::", "F looped": r"looped_kernel"}
 
 
 def path_detector(cfg, model, name, max_events, num_streams):
@@ -1617,7 +1687,7 @@ def main() -> None:
     logs = build.build()
     ptxas = ptxas_lines(logs)
     (OUT_DIR / "build_log.txt").write_text(
-        "== registers and spills of kernels A, C, E, G and H\n" + "\n".join(ptxas) + "\n"
+        "== registers and spills of kernels A, B, C, E, F, G and H\n" + "\n".join(ptxas) + "\n"
         + "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc log in chiprun_out/build_log.txt)")

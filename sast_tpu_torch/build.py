@@ -38,7 +38,6 @@ KERNELS: Dict[str, tuple] = {
     "stem_conv": (),
     "density": (),
     "nms_keep": ("-fmad=false",),
-    "sparse_block": (),
     "sparse_fwd": (),
     "mlp_bwd": (),
     "attn_bwd": (),

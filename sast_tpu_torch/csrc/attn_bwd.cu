@@ -10,7 +10,7 @@
 // ops/sparse_block.py sparse_block_attn_bwd_plain is its plain version and
 // states the arithmetic; the rounding points are the same here. The LN2 row
 // statistics and the softmax rows are common.cuh's routines, which the
-// forward (window_block.cuh) runs too.
+// forward (sparse_fwd.cu) runs too.
 //
 // Rows are the tokens of the kept windows, gathered through the work list:
 // kept row i is token i % hw of window ids[i / hw], for i < n_win * hw (n_win
@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(THREADS) prep_kernel(const Args a) {
     const bool kept = a.keep[tk] != 0;
     const YT* yr = y + o;
     float mu = 0.f, rstd = 0.f;
-    // The forward's LN2 (window_block.cuh ln2_rows), read from y.
+    // The forward's LN2 (sparse_fwd.cu prep_rows), read from y.
     if (kept) row_stats([&](int c) { return to_f<YT>(yr[c]); }, C, a.eps, mu, rstd);
     const size_t i = (size_t)j * C;  // kept row j of the compact buffers
     for (int c = lane; c < C; c += 32) {

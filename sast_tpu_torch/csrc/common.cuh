@@ -1,6 +1,5 @@
 // Device helpers shared by the port's CUDA sources (stem_conv.cu,
-// window_block.cuh and the block kernels built on it, rows_gemm.cuh and the
-// kernels built on it): number conversions, bf16 packing, the tensor-core
+// rows_gemm.cuh and the block kernels built on it): number conversions, bf16 packing, the tensor-core
 // product, warp reductions, cp.async, and the row routines of the attention
 // block whose rounding the forward and the backward's recomputation must
 // share (the LayerNorm statistics, the softmax, GELU).
@@ -13,8 +12,8 @@
 #include <stdint.h>
 
 // Device code only, so nothing here is shared between the libraries built
-// from it (window_block.cuh's anonymous namespace is for host-side state).
-// No anonymous namespace inside: nvcc's generated launch stubs name a
+// from it (rows_gemm.cuh, which keeps host-side state, is included inside
+// each source's own anonymous namespace). No anonymous namespace inside: nvcc's generated launch stubs name a
 // source's own one, and a second, brought in by `using namespace sast`,
 // makes that name ambiguous.
 namespace sast {

@@ -1,6 +1,6 @@
-// Event-density pyramid of one 32x32 input tile, shared by the stem kernel
-// (stem_conv.cu, fused variant) and the standalone density kernel
-// (density.cu).
+// Event-density pyramid of one 32x32 input tile, for the stem kernel
+// (stem_conv.cu, fused variant). The standalone density kernel (density.cu)
+// computes the same counts in registers.
 //
 // The ratio of the JAX package (sast_tpu/ops/sparse.py non_zero_ratio)
 // max-pools a uint8 NHWC input by 4, 8, 16 and 32 and counts, per channel,

@@ -1,14 +1,16 @@
 // Tile products over the kept rows of a work list, for sm_90a: the machinery
 // that the block kernels written as launches over the kept tokens share
-// (attn_bwd.cu, kernel H; mlp_bwd.cu, kernel G; sparse_fwd.cu, kernel E).
+// (attn_bwd.cu, kernel H; mlp_bwd.cu, kernel G; sparse_fwd.cu, kernels E and
+// F, whose persistent launch runs gemm_tile in a tile loop).
 //
 // Row i of a launch is token i % hw of window ids[i / hw], for i < n_win hw;
 // n_win is read on the device, and blocks beyond it return at once. The
 // intermediates over those rows are compact: row i of a workspace buffer.
-//   rows_gemm_kernel  out[i][n] = sum_k A[i][k] B(n, k): 64 x 64 tiles, k in
+//   gemm_tile         out[i][n] = sum_k A[i][k] B(n, k): one 64 x 64 tile, k in
 //                     steps of 32 through a ring of NST cp.async stages, the
 //                     result staged in shared memory for an epilogue functor
-//                     (coalesced stores, per-block column sums, paired columns)
+//                     (coalesced stores, per-block column sums, paired columns);
+//   rows_gemm_kernel  one gemm_tile per block
 //   tn_gemm_kernel    split-K X^T G (X in WT, G fp32 split into bf16 hi + lo)
 //                     into per-split partials, with G's column sums
 //   reduce_kernel     every partial summed in a fixed order: no float atomics,
@@ -164,17 +166,20 @@ __host__ __device__ constexpr int gemm_smem_bytes() {
   return tiles > staged ? tiles : staged;
 }
 
+// One 64 x 64 output tile of the GEMM over `nk` kept rows: row block rb
+// (rows rb BM ..), column block cb, in the dynamic shared memory `smem`
+// (gemm_smem_bytes). Every thread of the block calls it; the tile's rows
+// start below nk. rows_gemm_kernel runs one tile per block; a persistent
+// kernel calls it in its tile loop, with a barrier between two tiles.
 template <typename WT, typename AT, bool BT, typename Epi>
-__global__ void __launch_bounds__(THREADS) rows_gemm_kernel(const Rows w, const GemmOp op, const Epi epi) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int nk = kept_rows(w);
-  const int i0 = blockIdx.y * BM;
-  if (i0 >= nk) return;
+__device__ __forceinline__ void gemm_tile(unsigned char* smem, const int nk, const int rb,
+                                          const int cb, const GemmOp& op, const Epi& epi) {
+  const int i0 = rb * BM;
   constexpr bool FP32 = std::is_same<WT, float>::value;
   constexpr bool PAIR = Epi::PAIR;
   constexpr int HALF = BN / 2;
   const int N = op.N, K = op.K;
-  const int n0 = blockIdx.x * (PAIR ? HALF : BN);
+  const int n0 = cb * (PAIR ? HALF : BN);
   // NST stages of (A tile in AT, B tile in WT); fp32 A is rounded to WT in
   // the fragment loads.
   constexpr int ABYTES = BM * LDK * (int)sizeof(AT);
@@ -322,10 +327,18 @@ __global__ void __launch_bounds__(THREADS) rows_gemm_kernel(const Rows w, const 
       if (tid < BN && n0 + tid < N) {
         float s = 0.f;
         for (int r = 0; r < BM; ++r) s += cs[r * LDC + tid];
-        epi.colsum(blockIdx.y, n0 + tid, s);
+        epi.colsum(rb, n0 + tid, s);
       }
     }
   }
+}
+
+template <typename WT, typename AT, bool BT, typename Epi>
+__global__ void __launch_bounds__(THREADS) rows_gemm_kernel(const Rows w, const GemmOp op, const Epi epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nk = kept_rows(w);
+  if ((int)blockIdx.y * BM >= nk) return;
+  gemm_tile<WT, AT, BT>(smem, nk, blockIdx.y, blockIdx.x, op, epi);
 }
 
 // Above 48 KB of dynamic shared memory a kernel needs the attribute: asked

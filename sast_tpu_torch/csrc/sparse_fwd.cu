@@ -1,7 +1,9 @@
-// The sparse window block (kernel E), for sm_90a: the masked SAST block on
-// the kept windows as a short sequence of launches over their tokens.
+// The sparse window block (kernels E and F), for sm_90a: the masked SAST
+// block on the kept windows as a short sequence of launches over their
+// tokens (E), or the same steps as phases of one persistent cooperative
+// launch (F, a second entry point of this library).
 //
-// Replaces the TPU kernel _block_kernel behind _sparse_window_block_impl /
+// E replaces the TPU kernel _block_kernel behind _sparse_window_block_impl /
 // sparse_window_block (sast_tpu/ops/pallas/sparse_block.py), which computes
 // _fwd_window on the kept-first work list ids = argsort(~win_keep, stable).
 // With the identity work list (ids = 0..M-1, n_win = M) the same launches
@@ -15,9 +17,8 @@
 //   out = where(keep, h2, y)
 // Activations are fp32; the operands of every product are rounded to the
 // weights' type WT (bf16 or float); products accumulate in fp32. These are
-// the rounding points of window_block.cuh's routine (kernel F, and the first
-// design of this kernel and of D) and of ops/block.py block_window_plain,
-// the plain version; the LN2 row statistics, the softmax rows and GELU are
+// the rounding points of ops/block.py block_window_plain, the plain
+// version; the LN2 row statistics, the softmax rows and GELU are
 // common.cuh's routines, which the backward's recomputation runs too.
 //
 // Rows are the tokens of the kept windows (rows_gemm.cuh): row i is token
@@ -37,12 +38,30 @@
 // tiles (mma.sync.m16n8k16 bf16, fp32 sums) with bf16 weights; fp32 weights
 // run the same tiles on fp32 FMA (no TF32). No float atomics.
 //
-// What bounds it on an H100: operations (2 hw (4 C^2 + 3 C I) + 4 hw^2 C per
-// kept window). A window is too small to fill the card (stage 4 of the b4
-// step keeps 3-16 windows for 132 SMs), so each product is a grid of 64 x 64
-// tiles over all kept tokens, and each weight tile is read once per 64 rows,
-// not once per window. The compact intermediates pass through device memory
-// (mostly L2); the wrapper allocates them as one workspace.
+// Kernel F replaces the TPU kernel _looped_kernel behind
+// sparse_window_block_looped (the same function on a persistent grid of 8
+// programs that walk the kept-first slots). Here it is one kernel launched
+// with cudaLaunchCooperativeKernel on as many blocks as the card holds at
+// once (2 or 3 per SM, by the call's rows: WIDE_ROWS), running 0. the work
+// list itself (a stable compaction of win_keep into ids and n_win, one
+// block), then steps 1-6 above, with a grid barrier (cooperative_groups)
+// between two phases. In each phase block b takes the phase's tiles b,
+// b + gridDim.x, ... (counted on the device from n_win) and runs them
+// through the same device routines as E's kernels (prep_rows, gemm_tile
+// with the same epilogues, core_item), so every output element is summed in
+// E's order and F's output equals E's bit for bit. F writes out whole (prep
+// copies y at skipped slots) and no h1. An optional clock times its phases.
+//
+// What bounds them on an H100: operations (2 hw (4 C^2 + 3 C I) + 4 hw^2 C
+// per kept window). A window is too small to fill the card (stage 4 of the
+// b4 step keeps 3-16 windows for 132 SMs), so each product is a grid of 64 x
+// 64 tiles over all kept tokens, and each weight tile is read once per 64
+// rows, not once per window. The compact intermediates pass through device
+// memory (mostly L2); the wrappers allocate them as one workspace. E pays a
+// launch and its ramp per step; F pays a grid barrier instead, and sorts
+// nothing on the host side of the call.
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -79,13 +98,14 @@ __host__ __device__ __forceinline__ Rows rows_of(const Args& a) { return Rows{a.
 // block.
 constexpr int ROWS = 16;
 
+// Rows b ROWS .. (b + 1) ROWS - 1 of the work list's order.
 template <typename YT, typename WT>
-__global__ void __launch_bounds__(THREADS) prep_kernel(const Args a) {
+__device__ __forceinline__ void prep_rows(const Args& a, const int b) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hw = a.hw, C = a.C, n_win = *a.n_win;
   const YT* y = static_cast<const YT*>(a.y);
   WT* zr = static_cast<WT*>(a.zr);
-  for (int j = blockIdx.x * ROWS + warp; j < (blockIdx.x + 1) * ROWS; j += WARPS) {
+  for (int j = b * ROWS + warp; j < (b + 1) * ROWS; j += WARPS) {
     if (j >= a.M * hw) return;
     const int slot = j / hw;
     const size_t tk = (size_t)a.ids[slot] * hw + (j - slot * hw), o = tk * C;
@@ -112,6 +132,11 @@ __global__ void __launch_bounds__(THREADS) prep_kernel(const Args a) {
   }
 }
 
+template <typename YT, typename WT>
+__global__ void __launch_bounds__(THREADS) prep_kernel(const Args a) {
+  prep_rows<YT, WT>(a, blockIdx.x);
+}
+
 // ---------------------------------------------------------------------------
 // 3. core: one block per (kept window, head), everything in shared memory.
 
@@ -133,12 +158,12 @@ inline CoreLayout core_layout(int R, int dh, int wbytes) {
   return L;
 }
 
+// Head h of the window in slot `slot` (< n_win), in the shared memory
+// `smem` (L.total bytes).
 template <typename WT, int MT>
-__global__ void __launch_bounds__(THREADS) core_kernel(const Args a, const CoreLayout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ __forceinline__ void core_item(const Args& a, const CoreLayout& L, const int h,
+                                          const int slot, unsigned char* smem) {
   constexpr int R = MT * 16;
-  const int h = blockIdx.x, slot = blockIdx.y;
-  if (slot >= *a.n_win) return;
   const int wid = a.ids[slot];
   const int hw = a.hw, C = a.C, dh = a.dh;
   const size_t i0 = (size_t)slot * hw;
@@ -181,6 +206,13 @@ __global__ void __launch_bounds__(THREADS) core_kernel(const Args a, const CoreL
   });
 }
 
+template <typename WT, int MT>
+__global__ void __launch_bounds__(THREADS) core_kernel(const Args a, const CoreLayout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if ((int)blockIdx.y >= *a.n_win) return;
+  core_item<WT, MT>(a, L, blockIdx.x, blockIdx.y, smem);
+}
+
 // ---------------------------------------------------------------------------
 // Epilogues of launches 4 and 6.
 
@@ -211,6 +243,116 @@ struct OutEpi {
     return 0.f;
   }
 };
+
+// ---------------------------------------------------------------------------
+// Kernel F: the six launches above as phases of one cooperative launch.
+
+// 0. The work list ids = argsort(~win_keep, stable) and n_win, by one
+// block: each thread counts the kept windows of a contiguous chunk, a block
+// scan turns the counts into offsets, and each thread writes its chunk's
+// kept windows from its offset and its skipped ones from n_win + (chunk
+// start - offset). `scan` is WARPS ints of shared memory.
+__device__ __forceinline__ void build_work_list(const unsigned char* win_keep, const int M,
+                                                int* ids, int* n_win, int* scan) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int per = (M + THREADS - 1) / THREADS;
+  const int b = min(tid * per, M), e = min(b + per, M);
+  int n = 0;
+  for (int i = b; i < e; ++i) n += win_keep[i] != 0;
+  int x = n;  // inclusive scan over the warp's lanes
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += v;
+  }
+  if (lane == 31) scan[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int t = lane < WARPS ? scan[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, t, o);
+      if (lane >= o) t += v;
+    }
+    if (lane < WARPS) scan[lane] = t;
+  }
+  __syncthreads();
+  const int total = scan[WARPS - 1];
+  int k = x - n + (warp > 0 ? scan[warp - 1] : 0), u = total + b - k;
+  for (int i = b; i < e; ++i) {
+    if (win_keep[i] != 0) ids[k++] = i;
+    else ids[u++] = i;
+  }
+  if (tid == 0) *n_win = total;
+}
+
+// Every tile of one GEMM over the nk kept rows: block b takes tiles b,
+// b + gridDim.x, ..., row block t / columns, column block t % columns.
+template <typename WT, typename Epi>
+__device__ __forceinline__ void gemm_phase(unsigned char* smem, const int nk, const GemmOp& op,
+                                           const Epi& epi) {
+  const int cols = Epi::PAIR ? BN / 2 : BN;
+  const int nc = (op.N + cols - 1) / cols, tiles = nc * ((nk + BM - 1) / BM);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    __syncthreads();  // the previous tile's epilogue is done with the shared memory
+    gemm_tile<WT, WT, false>(smem, nk, t / nc, t % nc, op, epi);
+  }
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Phases 0-6 with a grid barrier between two; a.ids and a.n_win are ids
+// and n_win, which phase 0 writes. MINB blocks per SM bound the registers
+// (see WIDE_ROWS). With `stamps` (8 zeros, or null) block 0 writes the
+// card's clock in ns at its start and after each barrier (stamps[1..6]),
+// and every block its end into stamps[7] (the latest), so phase k took
+// stamps[k + 1] - stamps[k], its barrier included.
+template <typename YT, typename WT, int MT, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+    looped_kernel(const Args a, const unsigned char* win_keep, int* ids, int* n_win,
+                  const CoreLayout L, unsigned long long* stamps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int C = a.C, I = a.I, nb = gridDim.x;
+  const bool clock = stamps != nullptr && threadIdx.x == 0;
+  auto sync = [&](int k) {
+    grid.sync();
+    if (clock && blockIdx.x == 0) stamps[k] = globaltimer();
+  };
+  if (clock && blockIdx.x == 0) stamps[0] = globaltimer();
+  if (blockIdx.x == 0) build_work_list(win_keep, a.M, ids, n_win, reinterpret_cast<int*>(smem));
+  sync(1);
+  const int nw = *n_win, nk = nw * a.hw;
+  for (int b = blockIdx.x; b < (a.M * a.hw + ROWS - 1) / ROWS; b += nb) prep_rows<YT, WT>(a, b);
+  sync(2);
+  gemm_phase<WT>(smem, nk, GemmOp{a.zr, a.wqkv, 3 * C, C, 0},
+                 StoreEpi<WT>{static_cast<WT*>(a.qkv), a.bqkv, 3 * C});
+  sync(3);
+  for (int t = blockIdx.x; t < a.heads * nw; t += nb) {
+    __syncthreads();
+    core_item<WT, MT>(a, L, t % a.heads, t / a.heads, smem);
+  }
+  sync(4);
+  const Rows w = rows_of(a);
+  WT* h1r = static_cast<WT*>(a.h1r);
+  WT* m = static_cast<WT*>(a.qkv);  // over QKV, dead after the core
+  gemm_phase<WT>(smem, nk, GemmOp{a.zr, a.wproj, C, C, 0},
+                 H1Epi<WT>{w, a.zh, h1r, nullptr, a.bproj, a.ls1, C});
+  sync(5);
+  gemm_phase<WT>(smem, nk, GemmOp{h1r, a.wglu, I, C, I}, GluEpi<WT>{m, nullptr, a.bglu, I});
+  sync(6);
+  gemm_phase<WT>(smem, nk, GemmOp{m, a.wout, C, I, 0},
+                 OutEpi<YT>{w, a.keep, static_cast<const YT*>(a.y), static_cast<YT*>(a.out), a.zh,
+                            a.bout, a.ls2, C});
+  if (stamps != nullptr) {
+    __syncthreads();  // every thread of the block is done
+    if (clock) atomicMax(stamps + 7, globaltimer());
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Host side.
@@ -268,6 +410,93 @@ int dispatch_types(const Args& a, const Plan& P, int y_bf16, int w_bf16, cudaStr
   return y_bf16 ? run<bf16, bf16, MT>(a, P, s) : run<float, bf16, MT>(a, P, s);
 }
 
+// Kernel F's workspace: E's, then ids (M ints) and n_win.
+inline long long looped_bytes(const Plan& P, int M) { return P.bytes + (M + 1LL) * 4; }
+
+// One cooperative launch of looped_kernel. `blocks` 0 takes as many blocks
+// as the card holds at once (the occupancy at this shared memory times the
+// SMs, asked once per instantiation and size); a larger grid is refused by
+// the launch, and its error returned.
+template <typename YT, typename WT, int MT, int MINB>
+int run_looped(const Args& a, const unsigned char* win_keep, int* ids, int* n_win,
+               unsigned long long* stamps, const Plan& P, int blocks, cudaStream_t s) {
+  const int gemm = gemm_smem_bytes<WT, WT, false>();
+  const int smem = P.core.total > gemm ? P.core.total : gemm;
+  auto kernel = looped_kernel<YT, WT, MT, MINB>;
+  static int known_smem = -1, per_sm = 0;
+  if (smem != known_smem) {
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    known_smem = smem;
+  }
+  if (blocks == 0) {
+    int sms = 0;
+    const int rc = sm_count(&sms);
+    if (rc != 0) return rc;
+    blocks = per_sm * sms;
+    if (blocks == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  Args args = a;
+  CoreLayout layout = P.core;
+  void* params[] = {&args, &win_keep, &ids, &n_win, &layout, &stamps};
+  const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                                    dim3(blocks), dim3(THREADS), params, smem, s);
+  // A refused launch also sets the runtime's last error, which the next
+  // launch of this library would report as its own: take it back here.
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// Rows (M hw) from which F runs 3 blocks per SM (80 registers) rather than
+// 2 (118 in bf16, 128 in fp32). On the H100 at the b4 stage shapes, window
+// density 0.4 (PERF.md section 6, kernel F), 3 blocks per SM took 18%
+// (bf16) and 15% (fp32) less time at 61440 rows; at 15360 rows 3% less in
+// bf16 but 13% more in fp32; at 3840 and 960 rows up to 23% more.
+constexpr int WIDE_ROWS = 32768;
+
+template <int MT, int MINB>
+int dispatch_looped(const Args& a, const unsigned char* win_keep, int* ids, int* n_win,
+                    unsigned long long* stamps, const Plan& P, int blocks, int y_bf16, int w_bf16,
+                    cudaStream_t s) {
+  if (!w_bf16)
+    return run_looped<float, float, MT, MINB>(a, win_keep, ids, n_win, stamps, P, blocks, s);
+  return y_bf16 ? run_looped<bf16, bf16, MT, MINB>(a, win_keep, ids, n_win, stamps, P, blocks, s)
+                : run_looped<float, bf16, MT, MINB>(a, win_keep, ids, n_win, stamps, P, blocks, s);
+}
+
+template <int MT>
+int dispatch_looped(const Args& a, const unsigned char* win_keep, int* ids, int* n_win,
+                    unsigned long long* stamps, const Plan& P, int blocks, int y_bf16, int w_bf16,
+                    cudaStream_t s) {
+  return a.M * a.hw >= WIDE_ROWS
+             ? dispatch_looped<MT, 3>(a, win_keep, ids, n_win, stamps, P, blocks, y_bf16, w_bf16, s)
+             : dispatch_looped<MT, 2>(a, win_keep, ids, n_win, stamps, P, blocks, y_bf16, w_bf16, s);
+}
+
+// The weight operands from a pointer table, in PARAM_KEYS order: ln2_scale,
+// ln2_bias, wqkv, bqkv, wproj, bproj, ls1, wglu, bglu, wout, bout, ls2.
+inline void set_weights(Args& a, const void* const* p) {
+  auto f32 = [&](int i) { return static_cast<const float*>(p[i]); };
+  a.ln2s = f32(0); a.ln2b = f32(1); a.wqkv = p[2]; a.bqkv = f32(3); a.wproj = p[4];
+  a.bproj = f32(5); a.ls1 = f32(6); a.wglu = p[7]; a.bglu = f32(8); a.wout = p[9];
+  a.bout = f32(10); a.ls2 = f32(11);
+}
+
+// The workspace buffers and the shape.
+inline void set_shape(Args& a, const Plan& P, void* work, int M, int hw, int C, int I, int heads,
+                      int dh, float eps) {
+  unsigned char* w = static_cast<unsigned char*>(work);
+  a.zh = reinterpret_cast<float*>(w + P.off[0]); a.zr = w + P.off[1];
+  a.qkv = w + P.off[2]; a.h1r = w + P.off[3];
+  a.M = M; a.hw = hw; a.C = C; a.I = I; a.heads = heads; a.dh = dh;
+  a.eps = eps;
+  a.scale = (float)(1.0 / sqrt((double)dh));
+}
+
 }  // namespace
 }  // namespace sf
 
@@ -292,20 +521,47 @@ extern "C" int sast_sparse_fwd(const void* const* p, int np, void* work, long lo
   if (make_plan(M, hw, C, I, dh, w_bf16 ? 2 : 4, &P) != 0 || nwork < P.bytes)
     return (int)cudaErrorInvalidValue;
   Args a{};
-  auto f32 = [&](int i) { return static_cast<const float*>(p[i]); };
   a.y = p[0]; a.keep = static_cast<const unsigned char*>(p[1]); a.out = const_cast<void*>(p[2]);
   a.h1 = static_cast<float*>(const_cast<void*>(p[3]));
   a.ids = static_cast<const int*>(p[4]); a.n_win = static_cast<const int*>(p[5]);
-  a.ln2s = f32(6); a.ln2b = f32(7); a.wqkv = p[8]; a.bqkv = f32(9); a.wproj = p[10];
-  a.bproj = f32(11); a.ls1 = f32(12); a.wglu = p[13]; a.bglu = f32(14); a.wout = p[15];
-  a.bout = f32(16); a.ls2 = f32(17);
-  unsigned char* w = static_cast<unsigned char*>(work);
-  a.zh = reinterpret_cast<float*>(w + P.off[0]); a.zr = w + P.off[1];
-  a.qkv = w + P.off[2]; a.h1r = w + P.off[3];
-  a.M = M; a.hw = hw; a.C = C; a.I = I; a.heads = heads; a.dh = dh;
-  a.eps = eps;
-  a.scale = (float)(1.0 / sqrt((double)dh));
+  set_weights(a, p + 6);
+  set_shape(a, P, work, M, hw, C, I, heads, dh, eps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return hw <= 64 ? dispatch_types<4>(a, P, y_bf16, w_bf16, s)
                   : dispatch_types<5>(a, P, y_bf16, w_bf16, s);
+}
+
+// Kernel F's workspace bytes, as sast_sparse_fwd_workspace.
+extern "C" long long sast_looped_fwd_workspace(int M, int hw, int C, int I, int dh, int w_bf16) {
+  sf::Plan P;
+  const int rc = sf::make_plan(M, hw, C, I, dh, w_bf16 ? 2 : 4, &P);
+  return rc < 0 ? rc : sf::looped_bytes(P, M);
+}
+
+// Kernel F, one cooperative launch: the work list of win_keep on the card,
+// then E's six launches as phases (out is written whole; no h1). Pointer
+// table: y, keep, out, win_keep (M bytes), the weights as in
+// sast_sparse_fwd, then the phase clock (8 uint64 zeros, or null; see
+// looped_kernel) (17). `blocks` 0 fills the card.
+extern "C" int sast_looped_fwd(const void* const* p, int np, void* work, long long nwork, int M,
+                               int hw, int C, int I, int heads, int dh, float eps, int y_bf16,
+                               int w_bf16, int blocks, void* stream) {
+  using namespace sf;
+  if (np != 17 || heads * dh != C || (y_bf16 && !w_bf16) || blocks < 0)
+    return (int)cudaErrorInvalidValue;
+  Plan P;
+  if (make_plan(M, hw, C, I, dh, w_bf16 ? 2 : 4, &P) != 0 || nwork < looped_bytes(P, M))
+    return (int)cudaErrorInvalidValue;
+  int* ids = reinterpret_cast<int*>(static_cast<unsigned char*>(work) + P.bytes);
+  Args a{};
+  a.y = p[0]; a.keep = static_cast<const unsigned char*>(p[1]); a.out = const_cast<void*>(p[2]);
+  a.ids = ids; a.n_win = ids + M;
+  set_weights(a, p + 4);
+  set_shape(a, P, work, M, hw, C, I, heads, dh, eps);
+  const unsigned char* win_keep = static_cast<const unsigned char*>(p[3]);
+  auto* stamps = static_cast<unsigned long long*>(const_cast<void*>(p[16]));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return hw <= 64
+             ? dispatch_looped<4>(a, win_keep, ids, ids + M, stamps, P, blocks, y_bf16, w_bf16, s)
+             : dispatch_looped<5>(a, win_keep, ids, ids + M, stamps, P, blocks, y_bf16, w_bf16, s);
 }

@@ -37,7 +37,7 @@
 //   streamed one kh slice at a time.
 // - mma.sync.m16n8k16 bf16 with fp32 sums; 8 warps, each 32 pixels x up to
 //   32 channels; rounded to bf16 at the store. Both operands use the same
-//   permutation of k inside each block of 16 (window_block.cuh does the
+//   permutation of k inside each block of 16 (common.cuh load_k4 does the
 //   same), so every fragment load is one 4- or 8-byte load.
 // - The tile's one or two 32 x 32 input cells feed density_tile from the
 //   same shared halo; the counts stay integer atomics, which are exact.

@@ -4,8 +4,7 @@ Counterpart of ``_fwd_window`` (sast_tpu/ops/pallas/sparse_block.py) and
 ``fused_block_xla`` (sast_tpu/ops/pallas/fused_block.py): the function that
 the fused, sparse and looped block kernels all compute, here as plain
 PyTorch batched over windows, plus the pieces their wrappers share
-(``kernel_params``, the kept-first work list, the operand checks, the
-launcher of the looped kernel's ``csrc/window_block.cuh``).
+(``kernel_params``, the kept-first work list, the operand checks).
 
 Numerics of the kernels, which differ from the masked torch-op path of
 ``models/sast.py``: every activation is fp32; the LayerNorm variance is
@@ -18,13 +17,10 @@ GELU is the tanh form.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-
-from sast_tpu_torch import build
 
 MASK_VALUE = -1e4
 MAX_HW = 80  # rows of one window the kernels hold (5 tiles of 16)
@@ -197,31 +193,6 @@ def check_no_grad(name: str, y: torch.Tensor, params: Dict[str, torch.Tensor]) -
         )
 
 
-# The looped mode of ``csrc/window_block.cuh``, the only one with a caller.
-_LOOPED = 2
-_C_ARGS = (
-    [ctypes.c_int]                      # mode
-    + [ctypes.c_void_p] * 6             # y, keep, out, h1, ids, n_win
-    + [ctypes.c_void_p] * 12            # weights, PARAM_KEYS order
-    + [ctypes.c_void_p, ctypes.c_longlong]  # scratch, its bytes
-    + [ctypes.c_int] * 6                # M, hw, C, inner, heads, dim_head
-    + [ctypes.c_float]                  # eps
-    + [ctypes.c_int] * 2                # y is bf16, weights are bf16
-    + [ctypes.c_void_p]                 # stream
-)
-_PLAN_ARGS = [ctypes.c_int] * 8  # mode, M, hw, C, inner, dim_head, y bf16, w bf16
-
-
-def bind(library: str, entry: str):
-    """The launch and scratch-size entry points of one built library."""
-    lib = build.load(library)
-    fn = getattr(lib, entry)
-    fn.argtypes, fn.restype = _C_ARGS, ctypes.c_int
-    plan = getattr(lib, entry + "_scratch_bytes")
-    plan.argtypes, plan.restype = _PLAN_ARGS, ctypes.c_longlong
-    return fn, plan
-
-
 def operands(y: torch.Tensor, token_keep: torch.Tensor, params: Dict[str, torch.Tensor],
              num_heads: int, dim_head: int, what: str):
     """Check what every block kernel takes and return ``(keep, ops, inner,
@@ -263,44 +234,3 @@ def operands(y: torch.Tensor, token_keep: torch.Tensor, params: Dict[str, torch.
             ops[key] = t.detach().to(torch.float32).contiguous()
     flags = (int(y.dtype == torch.bfloat16), int(wdt == torch.bfloat16))
     return keep, ops, inner, flags
-
-
-def launch(
-    entry,
-    y: torch.Tensor,
-    token_keep: torch.Tensor,
-    params: Dict[str, torch.Tensor],
-    num_heads: int,
-    dim_head: int,
-    norm_eps: float,
-    ids: torch.Tensor,
-    n_win: torch.Tensor,
-    what: str = "window block kernel",
-) -> None:
-    """Check the operands and launch the looped kernel of
-    ``csrc/window_block.cuh`` (``entry`` is the pair from ``bind``) on the
-    current stream, in place over ``y``: the kept windows of the work list
-    ``ids`` / ``n_win`` are overwritten, the others left alone. Raises on
-    anything the kernel does not take."""
-    fn, plan = entry
-    M, hw, C = y.shape
-    keep, ops, inner, flags = operands(y, token_keep, params, num_heads, dim_head, what)
-    wdt = params["wqkv"].dtype
-    tensors = [y] + list(ops.values())
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: operands must be 16-byte aligned")
-    n_scratch = plan(_LOOPED, M, hw, C, inner, dim_head, *flags)
-    if n_scratch < 0:
-        raise ValueError(
-            f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} in {wdt} does not "
-            "fit the card's shared memory"
-        )
-    scratch = torch.empty(max(int(n_scratch), 16), dtype=torch.uint8, device=y.device)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    rc = fn(
-        _LOOPED, y.data_ptr(), keep.data_ptr(), y.data_ptr(), None, ids.data_ptr(),
-        n_win.data_ptr(), *(ops[k].data_ptr() for k in PARAM_KEYS),
-        scratch.data_ptr(), n_scratch, M, hw, C, inner, num_heads, dim_head,
-        float(norm_eps), *flags, stream,
-    )
-    build.check(rc, what)

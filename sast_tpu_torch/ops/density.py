@@ -3,8 +3,9 @@
 Replaces the TPU kernel ``density_ratio_tpu`` (sast_tpu/ops/pallas/density.py,
 ``_counts_pallas`` / ``_slab_kernel``): the per-stage, per-channel share of
 non-zero cells of the input max-pooled by 4, 8, 16 and 32, normalised by
-``C * Hp * Wp`` as in the reference. The kernel is ``csrc/density.cu``; its
-note says what bounds it on the H100 and how it is laid out.
+``C * Hp * Wp`` as in the reference. The kernel is ``csrc/density.cu``, one
+launch from the input to the ratio; its note says what bounds it on the H100
+and how it is laid out.
 
 ``density_ratio`` dispatches on the tensor's device: a CPU tensor goes to
 ``density_ratio_plain``, a CUDA tensor launches the kernel or raises. The
@@ -26,8 +27,9 @@ POOLS = (4, 8, 16, 32)
 def density_supported(shape, dtype) -> bool:
     """Static gate of the kernel: uint8 values (the kernel's any-non-zero
     test is max-non-zero only for non-negative values), H and W divisible by
-    32 (a block's tile holds whole cells of every level), C <= 32 and
-    C % 4 == 0 (4-byte loads; shared memory)."""
+    32 (a warp's tile holds whole cells of every level), C <= 32 and
+    C % 4 == 0 (a 4-pixel cell row is whole 16-byte loads, four channels to
+    a word; one instantiation per C)."""
     if len(shape) != 4 or dtype != torch.uint8:
         return False
     _, H, W, C = shape
@@ -70,12 +72,22 @@ def non_zero_ratio_plain(x: torch.Tensor, num_stages: int = 4) -> torch.Tensor:
 
 @functools.cache
 def _kernel():
-    fn = build.load("density").sast_density_counts
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
+    lib = build.load("density")
+    fn = lib.sast_density_ratio
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.sast_density_partials_bytes
+    size.argtypes, size.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    return fn, size
+
+
+@functools.cache
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The kernel's per-image tickets: n int32 zeros on ``device``, made once
+    and kept. The last block of each image sets its ticket back to 0, so
+    calls that follow one another on a stream share them without a zeroing
+    launch (calls on two streams of one device at once would not)."""
+    return torch.zeros(n, dtype=torch.int32, device=device)
 
 
 def density_ratio_plain(x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +98,9 @@ def density_ratio_plain(x: torch.Tensor) -> torch.Tensor:
 def density_ratio(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) uint8 -> (B, 4, C) fp32 density ratio.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel: one
+    allocation (the ratio and the kernel's per-block counts behind it) and
+    one launch, bit-equal to the plain version."""
     if not density_supported(x.shape, x.dtype):
         raise ValueError(f"density kernel gate fails for {tuple(x.shape)} {x.dtype}")
     if x.device.type == "cpu":
@@ -96,14 +110,18 @@ def density_ratio(x: torch.Tensor) -> torch.Tensor:
     B, H, W, C = x.shape
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("density kernel needs a contiguous, 16-byte aligned input")
-    counts = torch.zeros((B, 4, C), dtype=torch.int32, device=x.device)
+    fn, size = _kernel()
+    n_out = B * 4 * C
+    buf = torch.empty(n_out + size(B, H, W, C) // 4, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(
-        _kernel()(x.data_ptr(), counts.data_ptr(), B, H, W, C, stream),
+        fn(x.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * n_out,
+           _tickets(x.device, max(64, 1 << (B - 1).bit_length())).data_ptr(), B, H, W, C,
+           stream),
         "density kernel",
     )
     density_ratio.launches += 1
-    return counts.to(torch.float32) / cell_counts(H, W, C, x.device)[None, :, None]
+    return buf[:n_out].view(B, 4, C)
 
 
 density_ratio.launches = 0  # kernel launches, read by chip_smoke.py

@@ -18,15 +18,15 @@ and ``sparse_window_block_looped`` / ``_looped_kernel``
   and the attention-branch launches of ``csrc/attn_bwd.cu``
   (``_attn_bwd_kernel``), with ``sparse_window_block_bwd_plain`` as their
   plain version.
-- ``sparse_window_block_looped``: the first design of the same function,
-  one thread block per window over the device routine
-  ``csrc/window_block.cuh`` (``csrc/sparse_block.cu``, whose note says how
-  a window is laid out on chip), on a persistent grid (a few blocks per SM);
-  each block walks slots ``blockIdx, += gridDim, ... < n_win`` and copies
-  the next window in with ``cp.async`` while it computes this one. The
-  kernel updates its token tensor in place, so unkept windows are never
-  touched; the wrapper clones ``y`` first and hands the clone to the
-  kernel, because its callers still need ``y``.
+- ``sparse_window_block_looped``: the same steps as phases of one
+  persistent cooperative launch (the second entry point of
+  ``csrc/sparse_fwd.cu``, whose note says how): the kernel builds the work
+  list from ``win_keep`` itself, then runs prep, QKV, the cores, proj, GLU
+  and out over the kept tokens with a grid barrier between two phases, on
+  as many blocks as the card holds at once. It runs E's device routines in
+  E's order, so its output equals E's bit for bit. One ``ctypes`` call, one
+  workspace and a fresh output; no sort and no host read. If the card
+  refuses the cooperative launch, the wrapper raises.
 
 The work list and ``n_win`` stay on the device (the kernels read ``n_win``
 from memory), so neither wrapper synchronises with the host. Each wrapper
@@ -102,9 +102,15 @@ def sparse_window_block_plain(
     return (out, h1) if save_h1 else out
 
 
-@functools.cache
-def _looped_entry():
-    return block.bind("sparse_block", "sast_sparse_window_block")
+# Blocks of kernel F's cooperative launch; 0 takes as many as the card holds
+# at once (the occupancy times the SMs). A grid larger than that is refused
+# by the launch, and the wrapper raises.
+LOOPED_BLOCKS = 0
+# Kernel F's phase clock: None, or a CUDA tensor of 8 int64 zeros into which
+# the next launch writes the card's clock in ns at its start, after each of
+# its six grid barriers and at its end (``csrc/sparse_fwd.cu`` looped_kernel;
+# phase k took entry k + 1 - entry k). Read by chip_smoke.py.
+LOOPED_STAMPS = None
 
 
 @functools.cache
@@ -126,6 +132,45 @@ def _aligned(table, what):
     if any(t.data_ptr() % 16 for t in table
            if t is not None and t.dtype not in (torch.int32, torch.bool)):
         raise ValueError(f"{what}: operands must be 16-byte aligned")
+
+
+@functools.cache
+def _looped_entry():
+    lib = build.load("sparse_fwd")
+    fn = lib.sast_looped_fwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.sast_looped_fwd_workspace
+    size.argtypes, size.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+    return fn, size
+
+
+def _looped_fwd(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
+    """Kernel F (one ``ctypes`` call, one cooperative launch) on a CUDA
+    tensor: the work list of ``win_keep``, built on the card, and the block
+    over it; its intermediates live in one workspace allocated here."""
+    what = "sparse_window_block_looped"
+    keep, ops, inner, flags = block.operands(y, token_keep, params, num_heads, dim_head, what)
+    if win_keep.device != y.device:
+        raise ValueError(f"{what}: win_keep is on {win_keep.device}, y on {y.device}")
+    M, hw, C = y.shape
+    out = torch.empty_like(y)
+    table = [y, keep, out, win_keep.contiguous()] + [ops[k] for k in block.PARAM_KEYS]
+    table.append(LOOPED_STAMPS)
+    _aligned(table, what)
+    fn, size = _looped_entry()
+    n_work = size(M, hw, C, inner, dim_head, flags[1])
+    if n_work < 0:
+        raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} is not "
+                         "built or does not fit the card's shared memory")
+    workspace = torch.empty(int(n_work), dtype=torch.uint8, device=y.device)
+    ptrs = (ctypes.c_void_p * len(table))(*[0 if t is None else t.data_ptr() for t in table])
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    build.check(fn(ptrs, len(table), workspace.data_ptr(), n_work, M, hw, C, inner, num_heads,
+                   dim_head, float(norm_eps), *flags, LOOPED_BLOCKS, stream), what)
+    return out
 
 
 def _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps, save_h1):
@@ -161,16 +206,15 @@ def _run(wrapper, y, token_keep, win_keep, params, num_heads, dim_head, norm_eps
     M = y.shape[0]
     if win_keep.shape != (M,) or win_keep.dtype != torch.bool:
         raise ValueError(f"{wrapper.__name__}: win_keep must be (M,) bool")
-    ids, n_win = block.work_list(win_keep)
     y = y.contiguous()
     if not M:
         h1 = torch.empty(y.shape, dtype=torch.float32, device=y.device) if save_h1 else None
         return (torch.empty_like(y), h1) if save_h1 else torch.empty_like(y)
-    if wrapper is sparse_window_block_looped:  # in place over a clone of y
-        out, h1 = y.clone(), None
-        block.launch(_looped_entry(), out, token_keep, params, num_heads, dim_head, norm_eps,
-                     ids, n_win, what=wrapper.__name__)
+    if wrapper is sparse_window_block_looped:
+        out, h1 = _looped_fwd(y, token_keep, win_keep, params, num_heads, dim_head,
+                              norm_eps), None
     else:
+        ids, n_win = block.work_list(win_keep)
         out, h1 = _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps,
                               save_h1)
     wrapper.launches += 1
@@ -222,8 +266,9 @@ def sparse_window_block_looped(
     dim_head: int,
     norm_eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Looped-grid variant of ``sparse_window_block`` (same function). The
-    kernel writes in place; ``y`` is cloned first and left as it was."""
+    """Looped-grid variant of ``sparse_window_block`` (same function, no
+    h1): one persistent cooperative launch that builds its own work list.
+    Returns a new tensor; ``y`` is left as it was."""
     block.check_no_grad("sparse_window_block_looped", y, params)
     return _run(sparse_window_block_looped, y, token_keep, win_keep, params, num_heads,
                 dim_head, norm_eps, False)

@@ -151,8 +151,25 @@ def test_fused_block_is_the_sparse_block_on_every_window():
         np.testing.assert_array_equal(out.numpy()[2], y[2])
 
 
-def test_sparse_window_block_looped_matches_jax(interpret):
-    y, tok, win, params = _case(3)
+def _looped_case(density, hw, seed=3):
+    """``_case``'s weights with windows of ``hw`` tokens (60 and 80 are the
+    kernels' two core tilings, 4 and 5 row tiles of 16) at window density
+    ``density``: none, some (window 0 kept, window 1 skipped) or all kept."""
+    y, tok, win, params = _case(seed)
+    rng = np.random.RandomState(seed + 10)
+    y = rng.randn(M, hw, C).astype(np.float32)
+    win = rng.rand(M) < density
+    if 0.0 < density < 1.0:
+        win[0], win[1] = True, False
+    tok = (rng.rand(M, hw) > 0.5) & win[:, None]
+    tok[0, 0] = win[0]
+    return y, tok, win, params
+
+
+@pytest.mark.parametrize("hw", [60, 80])
+@pytest.mark.parametrize("density", [0.0, 0.4, 1.0])
+def test_sparse_window_block_looped_matches_jax(interpret, density, hw):
+    y, tok, win, params = _looped_case(density, hw)
     pj, pt = _both(params)
     out_j = jsb.sparse_window_block_looped(
         jnp.asarray(y), jnp.asarray(tok), jnp.asarray(win), pj, HEADS, DH, EPS)

@@ -58,7 +58,42 @@ def test_stem_kernel_matches_plain(dev, dtype, shape, cout):
 
 def test_density_kernel_matches_plain_exactly(dev):
     x = _events((3, 96, 64, 12), 1).to(dev)
+    n = density.density_ratio.launches
     assert torch.equal(density.density_ratio(x), density.density_ratio_plain(x))
+    assert density.density_ratio.launches == n + 1
+
+
+def _density_input(name, shape):
+    """Kernel B's edges: all zero, every value non-zero, or zero but for one
+    event at each corner of one 32x32 tile (each in its own channel) in the
+    last image; ``events`` as ``_events``."""
+    B, H, W, C = shape
+    if name == "events":
+        return _events(shape, 2)
+    if name == "zeros":
+        return torch.zeros(shape, dtype=torch.uint8)
+    if name == "nonzero":
+        return torch.randint(1, 256, shape, dtype=torch.uint8,
+                             generator=torch.Generator().manual_seed(3))
+    x = torch.zeros(shape, dtype=torch.uint8)
+    for i, (r, c) in enumerate([(32, 32), (32, 63), (63, 32), (63, 63)]):
+        x[-1, r, c, (3 * i) % C] = 1 + i
+    return x
+
+
+@pytest.mark.parametrize("name", ["events", "zeros", "nonzero", "corners"])
+@pytest.mark.parametrize("shape", [(1, 64, 96, 20), (3, 64, 96, 20), (2, 96, 64, 4),
+                                   (1, 64, 64, 32), (4, 384, 640, 20), (12, 384, 640, 20)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_density_kernel_edge_inputs(dev, shape, name):
+    """Kernel B bit-equal to its plain version on its edges: one and three
+    images, C of 4, 20 and 32, and the stem inputs of the serving (b4) and
+    training (B 12) steps; twice in a row, since the kernel's per-image
+    tickets must be back at 0 after each call."""
+    x = _density_input(name, shape).to(dev)
+    ref = density.density_ratio_plain(x)
+    for _ in range(2):
+        assert torch.equal(density.density_ratio(x), ref)
 
 
 def _candidates(rng, n, k, spread):
@@ -197,7 +232,7 @@ def test_block_kernels_match_plain(dev, kernel, shape, ydt, wdt):
         n = wrapper.launches
         y0 = y.clone()
         got = wrapper(y, tok, win, params, heads, dh)
-        assert torch.equal(y, y0)  # the wrapper clones; the caller's y is untouched
+        assert torch.equal(y, y0)  # the caller's y is untouched
         ref = sparse_block.sparse_window_block_plain(y, tok, win, params, heads, dh)
     else:
         wrapper = sparse_block.sparse_window_block
@@ -217,6 +252,49 @@ def test_block_kernels_match_plain(dev, kernel, shape, ydt, wdt):
         rtol, atol = _block_tol(h1_ref, wdt)
         torch.testing.assert_close(h1[win], h1_ref[win], rtol=rtol, atol=atol)
         assert torch.equal(h1[~win], y[~win].float())
+
+
+B4_STAGES = [(1024, 60, 64, 32), (256, 60, 128, 32), (64, 60, 256, 32), (16, 60, 512, 32)]
+
+
+@pytest.mark.parametrize("density", [0.0, 0.4, 1.0, "none"])
+@pytest.mark.parametrize("ydt,wdt", BLOCK_DTYPES[:2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", B4_STAGES, ids=lambda s: "x".join(map(str, s)))
+def test_looped_kernel_is_the_sparse_kernel(dev, shape, ydt, wdt, density):
+    """Kernel F (one cooperative launch) against kernel E (six launches) at
+    the four gen4-base b4 stage shapes: F runs E's device routines in E's
+    order, so the same bits, and the same bits again on a second launch.
+    Density 0 keeps one window with one kept token; "none" keeps no window
+    (every token passes through)."""
+    M, hw, C, dh = shape
+    y, tok, win, params = _block_case(M, hw, C, dh, ydt, wdt, 0.0 if density == "none" else density,
+                                      5, dev)
+    if density == "none":
+        win, tok = torch.zeros_like(win), torch.zeros_like(tok)
+    n = sparse_block.sparse_window_block_looped.launches
+    with torch.no_grad():
+        got = sparse_block.sparse_window_block_looped(y, tok, win, params, C // dh, dh)
+        again = sparse_block.sparse_window_block_looped(y, tok, win, params, C // dh, dh)
+        e = sparse_block.sparse_window_block(y, tok, win, params, C // dh, dh)
+    ref = sparse_block.sparse_window_block_plain(y, tok, win, params, C // dh, dh)
+    torch.cuda.synchronize()
+    assert sparse_block.sparse_window_block_looped.launches == n + 2
+    assert torch.equal(got, e)
+    assert torch.equal(got, again)
+    rtol, atol = _block_tol(ref, wdt)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+    assert torch.equal(got[~tok], y[~tok])
+
+
+def test_looped_kernel_raises_on_a_refused_launch(dev, monkeypatch):
+    """A cooperative grid larger than the card holds at once is refused by
+    the launch: the wrapper raises and counts no launch."""
+    y, tok, win, params = _block_case(4, 60, 64, 32, torch.float32, torch.float32, 0.5, 1, dev)
+    monkeypatch.setattr(sparse_block, "LOOPED_BLOCKS", 1 << 20)
+    n = sparse_block.sparse_window_block_looped.launches
+    with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA error"):
+        sparse_block.sparse_window_block_looped(y, tok, win, params, 2, 32)
+    assert sparse_block.sparse_window_block_looped.launches == n
 
 
 @pytest.mark.parametrize("ydt,wdt", BLOCK_DTYPES[:2], ids=["f32", "bf16"])

@@ -74,13 +74,33 @@ def test_stem_plain_matches_pallas(interpret, with_density):
     assert stem_conv7x4.launches == launches  # CPU tensors never launch
 
 
-def test_density_plain_matches_pallas(interpret):
+def _density_input(name, B, H=64, W=96, C=20):
+    """Kernel B's inputs: seeded sparse events with an empty band and a
+    dense block (``events``), all zero, every value non-zero, or zero but
+    for one event at each corner of one 32x32 tile (each in its own
+    channel), in the last image."""
+    rng = np.random.RandomState(5)
+    if name == "events":
+        return _events_u8(rng, (B, H, W, C), lam=0.05)
+    if name == "zeros":
+        return np.zeros((B, H, W, C), np.uint8)
+    if name == "nonzero":
+        return rng.randint(1, 256, (B, H, W, C)).astype(np.uint8)
+    x = np.zeros((B, H, W, C), np.uint8)
+    for i, (r, c) in enumerate([(32, 32), (32, 63), (63, 32), (63, 63)]):
+        x[-1, r, c, 3 * i] = 1 + i
+    return x
+
+
+@pytest.mark.parametrize("name,B", [("events", 2), ("zeros", 1), ("zeros", 3), ("nonzero", 1),
+                                    ("nonzero", 3), ("corners", 1), ("corners", 3)])
+def test_density_plain_matches_pallas(interpret, name, B):
     """Kernel B's plain version vs density_ratio_tpu: both are integer
     counts over a power-of-two cell count, so 1e-6 is rounding of the
-    final division only."""
+    final division only. The cases are the card kernel's edges: empty and
+    full inputs, single events on a tile's corners, one and three images."""
     _, jd, _ = interpret
-    rng = np.random.RandomState(5)
-    x = _events_u8(rng, (2, 64, 96, 20), lam=0.05)
+    x = _density_input(name, B)
     assert density_supported(x.shape, torch.uint8)
     rj = jax.jit(jd.density_ratio_tpu)(jnp.asarray(x))
     rt = density_ratio(torch.from_numpy(x))
