@@ -63,6 +63,19 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    the masked path at a cut size, gradients compared leaf by leaf; the
    first step again under remat ``none`` and ``dots``; ``infer_step``
    against ``eval_step``.
+6. Train, validate, checkpoint and resume at gen4-base full width (B 4,
+   T 5, L 3, bf16, EMA on): clips made in memory in the reader's format,
+   assembled by the port's ``assemble_batch`` and ``Prefetcher``;
+   ``Trainer.fit`` with ``val_every=2`` for 4 steps on the sparse-kernel
+   path (kernels A, E, G and H; C through ``eval_step``'s NMS) must
+   validate twice, save at steps 2 and 4 and report JAX's metric keys;
+   a fresh trainer resumed from the directory must hold the same bits
+   (parameters, statistics, AdamW moments and count, EMA, best val/AP),
+   and one more step on both must too; a weights-only resume keeps count 0
+   and best -1; ``validation_torch.main`` on a reference-style ``.ckpt``
+   must load what the converter and the weight bridge give on the host,
+   bit for bit. Times: ms per train step and per validation batch,
+   checkpoint save and restore seconds and bytes.
 
 Prints the kernel table as one JSON line (the rows of kernels redesigned
 since their first port carry ``redesigned``, what the redesign made of
@@ -78,6 +91,7 @@ import copy
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1203,6 +1217,100 @@ def phase_attention_paths(torch, np, cfg, model, det_masked, frames, masked_outs
     return results
 
 
+def reference_state_dict(torch, np, variables, model_cfg):
+    """A state_dict in the layout of the reference implementation's
+    Lightning checkpoints ('mdl.' prefix, the head under 'yolox_head.') that
+    ``checkpoint/torch_convert.convert_state_dict`` turns back into
+    ``variables`` (the flax-layout tree of ``weights.to_jax_variables``):
+    every transform of the converter inverted, at any model config."""
+    from sast_tpu_torch.checkpoint.torch_convert import _qkv_permutation
+
+    sd = {}
+
+    def put(key, value):
+        sd[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+
+    def conv(key, kernel):  # (kH, kW, I, O) -> (O, I, kH, kW)
+        put(key, np.transpose(kernel, (3, 2, 0, 1)))
+
+    def base_conv(prefix, p, s):
+        conv(f"{prefix}.conv.weight", p["Conv_0"]["kernel"])
+        put(f"{prefix}.bn.weight", p["BatchNorm_0"]["scale"])
+        put(f"{prefix}.bn.bias", p["BatchNorm_0"]["bias"])
+        put(f"{prefix}.bn.running_mean", s["BatchNorm_0"]["mean"])
+        put(f"{prefix}.bn.running_var", s["BatchNorm_0"]["var"])
+
+    def csp(prefix, p, s):
+        for i, name in enumerate(("conv1", "conv2", "conv3")):
+            base_conv(f"{prefix}.{name}", p[f"BaseConv_{i}"], s[f"BaseConv_{i}"])
+        j = 0
+        while f"Bottleneck_{j}" in p:
+            bp, bs = p[f"Bottleneck_{j}"], s[f"Bottleneck_{j}"]
+            base_conv(f"{prefix}.m.{j}.conv1", bp["BaseConv_0"], bs["BaseConv_0"])
+            if "DWConv_0" in bp:
+                for k, part in enumerate(("dconv", "pconv")):
+                    base_conv(f"{prefix}.m.{j}.conv2.{part}", bp["DWConv_0"][f"BaseConv_{k}"],
+                              bs["DWConv_0"][f"BaseConv_{k}"])
+            else:
+                base_conv(f"{prefix}.m.{j}.conv2", bp["BaseConv_1"], bs["BaseConv_1"])
+            j += 1
+
+    def dense(prefix, p):
+        put(f"{prefix}.weight", np.transpose(p["kernel"]))
+        if "bias" in p:
+            put(f"{prefix}.bias", p["bias"])
+
+    def ms_wsa(prefix, p, dim, dim_head):
+        inv = np.argsort(_qkv_permutation(dim, dim_head))
+        put(f"{prefix}.qkv.weight", np.transpose(p["qkv"]["kernel"][:, inv]))
+        if "bias" in p["qkv"]:
+            put(f"{prefix}.qkv.bias", p["qkv"]["bias"][inv])
+        dense(f"{prefix}.proj", p["proj"])
+        for n in ("norm1", "norm2"):
+            put(f"{prefix}.{n}.weight", p[n]["scale"])
+            put(f"{prefix}.{n}.bias", p[n]["bias"])
+        put(f"{prefix}.ls1.gamma", p["ls1"]["gamma"])
+        put(f"{prefix}.ls2.gamma", p["ls2"]["gamma"])
+        dense(f"{prefix}.mlp.net.0.proj", p["mlp"]["GLU_0"]["Dense_0"])
+        dense(f"{prefix}.mlp.net.2", p["mlp"]["Dense_0"])
+
+    params, stats = variables["params"], variables["batch_stats"]
+    bb = model_cfg.backbone
+    for i in range(bb.num_stages):
+        sp, st = f"mdl.backbone.stages.{i}", params["backbone"][f"stage{i}"]
+        conv(f"{sp}.downsample_cf2cl.conv.weight", st["downsample"]["Conv_0"]["kernel"])
+        put(f"{sp}.downsample_cf2cl.norm.weight", st["downsample"]["LayerNorm_0"]["scale"])
+        put(f"{sp}.downsample_cf2cl.norm.bias", st["downsample"]["LayerNorm_0"]["bias"])
+        conv(f"{sp}.lstm.conv1x1.weight", st["lstm"]["Conv_0"]["kernel"])
+        put(f"{sp}.lstm.conv1x1.bias", st["lstm"]["Conv_0"]["bias"])
+        if "mask_token" in st:
+            put(f"{sp}.mask_token", st["mask_token"])
+        for j in range(bb.num_blocks[i]):
+            bp, blk = f"{sp}.att_blocks.{j}.att", st[f"block{j}"]
+            for name in ("win_attn", "grid_attn"):
+                ms_wsa(f"{bp}.{name}", blk[name], bb.stage_dims[i], bb.attention.dim_head)
+            if j == 0:
+                dense(f"{bp}.to_scores", blk["to_scores"])
+                put(f"{bp}.to_controls.weight", np.transpose(blk["to_controls"]["weight"]))
+    fpn_p, fpn_s = params["fpn"], stats["fpn"]
+    for name in ("lateral_conv0", "reduce_conv1", "bu_conv2", "bu_conv1"):
+        base_conv(f"mdl.fpn.{name}", fpn_p[name], fpn_s[name])
+    for name in ("C3_p4", "C3_p3", "C3_n3", "C3_n4"):
+        csp(f"mdl.fpn.{name}", fpn_p[name], fpn_s[name])
+    head_p, head_s = params["head"], stats["head"]
+    for k in range(len(model_cfg.fpn.in_stages)):
+        base_conv(f"mdl.yolox_head.stems.{k}", head_p[f"stem{k}"], head_s[f"stem{k}"])
+        for c in range(2):
+            for kind in ("cls", "reg"):
+                base_conv(f"mdl.yolox_head.{kind}_convs.{k}.{c}", head_p[f"{kind}_conv{k}_{c}"],
+                          head_s[f"{kind}_conv{k}_{c}"])
+        for kind in ("cls", "reg", "obj"):
+            p = head_p[f"{kind}_pred{k}"]
+            conv(f"mdl.yolox_head.{kind}_preds.{k}.weight", p["kernel"])
+            put(f"mdl.yolox_head.{kind}_preds.{k}.bias", p["bias"])
+    return sd
+
+
 def clustered_train_batch(torch, np, cfg, rng, step, batch_size=None, seq_len=None):
     """A training batch whose scenes leave windows unkept: the labels of
     ``synthetic_train_batch``, and as events three blobs per lane
@@ -1267,6 +1375,9 @@ def phase_training(torch, np, card):
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = read_counters()
+        # ``fit`` ends with a checkpoint (phase 6 checks them); the output
+        # directory keeps only the metrics.
+        shutil.rmtree(workdir / "ckpts")
         rows = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()]
         losses = [r["train/loss"] for r in rows]
         if len(rows) != TRAIN_STEPS or not all(np.isfinite(v) for v in losses):
@@ -1660,6 +1771,240 @@ def phase_cpu_parity(torch, np):
                                       for k, v in worst.items()})
 
 
+def memory_clip(np, cfg, rng, clip, is_first):
+    """One clip in the format ``SequenceReader``/``ClipIterator`` yield, made
+    in memory: (T, H, W, C) uint8 events at the dataset's resolution, one
+    ``FrameLabels`` (or None) per timestep with a few boxes at its scale, the
+    timestamps past the evaluator's first 0.5 s, two labeled timesteps."""
+    from sast_tpu_torch.data.labels import FrameLabels
+    from sast_tpu_torch.data.synthetic import sparse_event_input
+
+    T = cfg.dataset.sequence_length
+    h, w = cfg.dataset.resolution_hw
+    C = cfg.model.backbone.input_channels
+    labels = [None] * T
+    for t in sorted(rng.choice(T, size=2, replace=False)):
+        n = rng.randint(1, 6)
+        bw, bh = rng.uniform(30, 160, n), rng.uniform(30, 120, n)
+        rows = np.stack([np.full(n, (20 + clip * T + t) * 50_000), rng.uniform(0, w - bw),
+                         rng.uniform(0, h - bh), bw, bh, rng.randint(0, cfg.model.head.num_classes, n),
+                         np.ones(n)], 1)
+        labels[t] = FrameLabels(rows, (h, w))
+    return {"ev_repr": sparse_event_input(rng, (T, h, w, C), 0.9), "labels": labels,
+            "is_first": is_first, "is_real_mask": np.ones((T,), bool)}
+
+
+FIT_LANES = 4
+FIT_STEPS = 4
+FIT_VAL_EVERY = 2
+FIT_EVAL_BATCHES = 2
+VAL_KEYS = {"val/AP", "val/AP_50", "val/AP_75", "val/AP_S", "val/AP_M", "val/AP_L"}  # JAX's
+
+
+def _clock(torch, fn, times):
+    """``fn`` with its host-clock seconds, to the card's end, appended to
+    ``times``."""
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return timed
+
+
+def _states_differ(torch, a, b):
+    """Names of what differs between two ``TrainState``s: parameters and
+    statistics, AdamW moments and step tensors, count, EMA copy."""
+    bad = [k for k, v in a.model.state_dict().items() if not torch.equal(v, b.model.state_dict()[k])]
+    if a.optimizer.count != b.optimizer.count:
+        bad.append("optimizer count")
+    sa, sb = a.optimizer.adamw.state_dict()["state"], b.optimizer.adamw.state_dict()["state"]
+    if set(sa) != set(sb):
+        bad.append("AdamW state keys")
+    bad += [f"AdamW {i} {k}" for i in sa for k, v in sa[i].items()
+            if k not in sb.get(i, {}) or not torch.equal(v, sb[i][k])]
+    if (a.ema_params is None) != (b.ema_params is None):
+        bad.append("EMA presence")
+    elif a.ema_params is not None:
+        bad += [f"EMA {k}" for k, v in a.ema_params.items() if not torch.equal(v, b.ema_params[k])]
+    return bad
+
+
+def phase_fit_validate(torch, np, card):
+    """Train, validate, checkpoint and resume on the card at gen4-base full
+    width, from in-memory clips assembled by the port's data pipeline; then
+    the validation CLI on a reference-style ``.ckpt``."""
+    import tempfile
+
+    import validation_torch
+    from sast_tpu_torch.checkpoint.torch_convert import convert_state_dict
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.batch import Prefetcher, assemble_batch, to_device
+    from sast_tpu_torch.models.detector import YoloXDetector, init_weights
+    from sast_tpu_torch.training.loop import Trainer
+    from sast_tpu_torch.weights import load_jax_variables, to_jax_variables
+
+    # gen4-base as the dataset's users train it, with an EMA copy so that
+    # validation swaps it in and the checkpoints carry it.
+    cfg = get_config("gen4", "base", **{"training.ema_decay": 0.999})
+    tr, T = cfg.training, cfg.dataset.sequence_length
+    L, G = tr.max_labeled_frames_per_lane, cfg.model.head.max_gt
+    log(f"fit/validate gen4-base: B {FIT_LANES}, T {T}, L {L}, "
+        f"{cfg.dataset.resolution_hw} -> {cfg.model.backbone.in_res_hw}, "
+        f"{cfg.model.backbone.input_channels} channels, {cfg.model.compute_dtype}, "
+        f"ema {tr.ema_decay}")
+    rng = np.random.RandomState(8)
+    t0 = time.perf_counter()
+    train_clips = [[memory_clip(np, cfg, rng, s * FIT_LANES + b, s == 0) for b in range(FIT_LANES)]
+                   for s in range(FIT_STEPS + 1)]
+    eval_clips = [[memory_clip(np, cfg, rng, 100 + s * FIT_LANES + b, s == 0)
+                   for b in range(FIT_LANES)] for s in range(FIT_EVAL_BATCHES)]
+    log(f"fit/validate: {FIT_STEPS + 1 + FIT_EVAL_BATCHES} batches of clips made on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def batches(clips):
+        return Prefetcher(assemble_batch(c, L, G) for c in clips)
+
+    evals = []
+
+    def eval_loader():
+        evals.append(1)
+        return batches(eval_clips)
+
+    work = Path(tempfile.mkdtemp(prefix="fit_validate_", dir=OUT_DIR))
+    try:
+        trainer = Trainer(cfg, str(work / "run"), log_every=1, val_every=FIT_VAL_EVERY,
+                          sparse_kernel_train=True, sparse_kernel_eval=True, device=DEVICE)
+        step_s, val_s, save_s, saved = [], [], [], []
+        trainer.train_step = _clock(torch, trainer.train_step, step_s)
+        trainer.validate = _clock(torch, trainer.validate, val_s)
+        save = trainer.ckpt.save
+
+        def recorded_save(step, state, metrics=None):
+            saved.append(step)
+            return save(step, state, metrics)
+
+        trainer.ckpt.save = _clock(torch, recorded_save, save_s)
+        reset_counters()
+        metrics = trainer.fit(batches(train_clips[:FIT_STEPS]), eval_loader_fn=eval_loader,
+                              max_steps=FIT_STEPS, eval_max_batches=FIT_EVAL_BATCHES)
+        counts = read_counters()
+        fit_step_s = list(step_s)
+        per_step = 8 * T  # attention layers x timesteps
+        n_val = FIT_STEPS // FIT_VAL_EVERY
+        expect = dict(stem_conv7x4=2 * T * FIT_STEPS + T * FIT_EVAL_BATCHES * n_val,
+                      sparse_window_block=2 * per_step * FIT_STEPS
+                      + per_step * FIT_EVAL_BATCHES * n_val,
+                      sparse_block_mlp_bwd=per_step * FIT_STEPS,
+                      sparse_block_attn_bwd=per_step * FIT_STEPS,
+                      greedy_keep=FIT_EVAL_BATCHES * n_val)
+        if {k: counts[k] for k in expect} != expect:
+            fail(f"fit/validate: launches {counts}, expected {expect}")
+        val = {k for k in metrics if k.startswith("val/")}
+        rows = [json.loads(line) for line in (work / "run" / "metrics.jsonl").read_text().splitlines()]
+        val_steps = [r["step"] for r in rows if "val/AP" in r]
+        if len(evals) != n_val or val_steps != [2, 4] or val != VAL_KEYS:
+            fail(f"fit/validate: validations {len(evals)} at steps {val_steps}, keys {sorted(val)}")
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        if len(losses) != FIT_STEPS or not all(np.isfinite(losses)):
+            fail(f"fit/validate: losses {losses}")
+        retained = trainer.ckpt.all_steps()
+        if saved != [2, 4] or retained[-1] != 4 or trainer.ckpt.best_step() not in retained:
+            fail(f"fit/validate: saves at {saved}, retained {retained}")
+        ckpt_bytes = (work / "run" / "ckpts" / "step_4.pt").stat().st_size
+        log(f"fit/validate: {FIT_STEPS} steps, validations at steps {val_steps}, "
+            f"{ {k: round(v, 5) for k, v in sorted(metrics.items()) if k.startswith('val/')} }, "
+            f"best val/AP {trainer.best_val_ap}, checkpoints saved at {saved}, retained "
+            f"{retained}; launches {counts}")
+
+        # Resume: a fresh trainer from the same directory holds the first
+        # one's bits; one more step on both from the same batch (cuDNN and
+        # torch in their deterministic modes) gives the same bits again.
+        resumed = Trainer(cfg, str(work / "run"), sparse_kernel_train=True,
+                          sparse_kernel_eval=True, device=DEVICE)
+        restore_s = []
+        _clock(torch, resumed.maybe_resume, restore_s)(True)
+        bad = _states_differ(torch, trainer.state, resumed.state)
+        if bad or resumed.state.step != FIT_STEPS or resumed.best_val_ap != trainer.best_val_ap:
+            fail(f"fit/validate: resume differs in {bad[:5]}, step {resumed.state.step}, best "
+                 f"{resumed.best_val_ap} against {trainer.best_val_ap}")
+        extra = to_device({k: v for k, v in assemble_batch(train_clips[-1], L, G).items()
+                           if not k.startswith("_")}, DEVICE)
+        det_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.utils.deterministic.fill_uninitialized_memory = False  # as the steps before
+        try:
+            for t in (trainer, resumed):
+                t.train_step(t.state, extra, t._zero_states(FIT_LANES))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det_flags
+        bad = _states_differ(torch, trainer.state, resumed.state)
+        if bad:
+            fail(f"fit/validate: the step after resume differs in {bad[:5]}")
+        fine_tune = Trainer(cfg, str(work / "run"), device=DEVICE)
+        fine_tune.maybe_resume(True, weights_only=True)
+        best = torch.load(trainer.ckpt.path(trainer.ckpt.best_step()), map_location="cpu",
+                          weights_only=True)
+        bad = [k for k, v in fine_tune.model.state_dict().items()
+               if not torch.equal(v.cpu(), best["model"][k])]
+        if fine_tune.state.step != 0 or fine_tune.best_val_ap != -1.0 or bad:
+            fail(f"fit/validate: weights-only resume: step {fine_tune.state.step}, best "
+                 f"{fine_tune.best_val_ap}, differs in {bad[:5]}")
+        log(f"fit/validate: resume bit-equal (parameters, statistics, AdamW moments and count "
+            f"{resumed.state.optimizer.count}, EMA, best val/AP), and so is the step after it; "
+            f"weights-only resume: count 0, best -1, the best step's weights")
+        del trainer, resumed, fine_tune, extra
+
+        # A reference-style Lightning checkpoint of seeded random weights and
+        # statistics through the validation CLI, against the converter and
+        # the weight bridge on the host.
+        src = YoloXDetector(cfg.model)
+        g = torch.Generator().manual_seed(9)
+        init_weights(src, g)
+        with torch.no_grad():
+            for name, buf in src.named_buffers():
+                buf.copy_(torch.rand(buf.shape, generator=g) + (0.5 if name.endswith("var") else -0.5))
+        sd = reference_state_dict(torch, np, to_jax_variables(src), cfg.model)
+        path = work / "reference.ckpt"
+        torch.save({"state_dict": sd, "epoch": 0}, path)
+        metrics_ref, val_trainer = validation_torch.main(
+            ["--dataset", "gen4", "--size", "base", "--data", "unused", "--ckpt", str(path),
+             "--max-batches", "1", "--sparse-kernel", "--device", DEVICE,
+             "--workdir", str(work / "validation")], eval_batches=batches(eval_clips))
+        params, stats = convert_state_dict(sd, cfg.model)
+        ref = load_jax_variables(YoloXDetector(cfg.model), {"params": params, "batch_stats": stats})
+        got = val_trainer.model.state_dict()
+        bad = [k for k, v in ref.state_dict().items() if not torch.equal(got[k].cpu(), v)]
+        if bad or set(metrics_ref) != VAL_KEYS:
+            fail(f"fit/validate: reference checkpoint differs in {bad[:5]}; metrics {metrics_ref}")
+        log(f"fit/validate: reference .ckpt ({len(sd)} tensors, {path.stat().st_size} bytes) "
+            f"loaded by validation_torch.main bit-equal to convert_state_dict + "
+            f"load_jax_variables on the host, BatchNorm statistics included; metrics "
+            f"{ {k: round(v, 5) for k, v in sorted(metrics_ref.items())} }")
+        del val_trainer
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    res = dict(train_step_ms=[s * 1e3 for s in fit_step_s],
+               validation_ms_per_batch=[s * 1e3 / FIT_EVAL_BATCHES for s in val_s],
+               save_s=save_s, restore_s=restore_s[0], checkpoint_bytes=ckpt_bytes, launches=counts,
+               metrics={k: v for k, v in metrics.items() if k.startswith("val/")})
+    log(f"fit/validate on {card}: train step "
+        f"{[round(v, 1) for v in res['train_step_ms']]} ms (B {FIT_LANES}, host clock to the "
+        f"card's end, batches uploaded inside); validation "
+        f"{[round(v, 1) for v in res['validation_ms_per_batch']]} ms per batch (B {FIT_LANES}, "
+        f"NMS and the Prophesee evaluation included); checkpoint save "
+        f"{[round(v, 3) for v in save_s]} s, restore {restore_s[0]:.3f} s, {ckpt_bytes} bytes")
+    return res
+
+
 def main() -> None:
     if not (ROOT / "sast_tpu_torch" / "csrc").is_dir():
         fail("sast_tpu_torch/ not found beside chip_smoke.py: run it from a checkout")
@@ -1735,12 +2080,23 @@ def main() -> None:
     kernels += bwd_kernels
     log(f"phase 5: training step ok ({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    fit_validate = phase_fit_validate(torch, np, smi)
+    # Launches on this slice's path (fit with validation, counted from 0
+    # over that run): kernels A, C, E, G and H.
+    for k in kernels:
+        if k["name"] in fit_validate["launches"] and fit_validate["launches"][k["name"]]:
+            k["launches_fit_validate"] = fit_validate["launches"][k["name"]]
+    log(f"phase 6: train, validate, checkpoint and resume ok ({time.perf_counter() - t0:.1f} s)")
+
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
-                  training=training, seconds=time.perf_counter() - t_start)
+                  training=training, fit_validate=fit_validate,
+                  seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("redesigned",)  # kernels redesigned since their first port
+    # Kernels redesigned since their first port; launches on phase 6's path.
+    extra = ("redesigned", "launches_fit_validate")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(smi)

@@ -1,12 +1,16 @@
-"""The training loop (port of the ``fit`` half of
-sast_tpu/training/loop.py).
+"""The training loop (port of sast_tpu/training/loop.py): fit, validate,
+checkpoints and resume.
 
-``Trainer`` owns the model and the optimizer; ``fit`` carries the per-lane
-recurrent state across the steps of one call, starting from zero states, and
-logs loss, smoothed selected-token count, step time and learning rate. Not
-ported yet, and refused rather than ignored: validation against a dataset,
-checkpoints and resume, the device mesh, Weights & Biases and profiler
-traces.
+``Trainer`` owns the model and the optimizer. ``fit`` carries the per-lane
+recurrent state across the steps of one call, starting from zero states,
+logs loss, smoothed selected-token count, step time and learning rate,
+validates every ``val_every`` steps when it is given an evaluation loader,
+keeps the best checkpoint by val/AP, saves every ``ckpt_every`` steps
+otherwise, and always ends with a save. ``validate`` streams evaluation
+clips with the LSTM state carried across them and scores the labeled frames
+with the Prophesee protocol, on the EMA copy of the parameters when there is
+one. Not ported, and refused rather than ignored: the device mesh, Weights &
+Biases, profiler traces, rendered panels and the gradient-flow figure.
 
     import numpy as np
     from sast_tpu_torch.config import get_config
@@ -20,15 +24,19 @@ traces.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
+from sast_tpu_torch.checkpoint.io import CheckpointManager
 from sast_tpu_torch.config import ExperimentConfig
 from sast_tpu_torch.data.batch import split_device_batch, to_device
+from sast_tpu_torch.eval.prophesee import PropheseeEvaluator, detections_to_prophesee
 from sast_tpu_torch.models.backbone import zero_states
 from sast_tpu_torch.models.detector import DTYPES, resolve_device, set_sparse_kernel
 from sast_tpu_torch.training.steps import create_train_state, make_eval_step, make_train_step
@@ -36,15 +44,16 @@ from sast_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
 _NOT_PORTED = {
     "use_wandb": "Weights & Biases logging",
-    "val_every": "validation against a dataset",
-    "ckpt_every": "checkpoints",
     "mesh": "the data-parallel mesh",
 }
 
 
 class Trainer:
-    """``Trainer(cfg, workdir).fit(train_batches, max_steps=...)``.
+    """``Trainer(cfg, workdir).fit(train_batches, eval_loader_fn, max_steps)``.
 
+    ``val_every`` and ``ckpt_every`` mean what they mean in the JAX trainer:
+    validate (and save with the val/AP) every ``val_every`` steps when
+    ``fit`` has an evaluation loader, else save every ``ckpt_every`` steps.
     ``sparse_kernel_train`` (the JAX trainer's ``use_pallas_train``) builds
     the model on the window-skipping block kernel, which trains through its
     hand-written backward; ``sparse_kernel_eval`` switches ``eval_step`` to
@@ -58,6 +67,8 @@ class Trainer:
         cfg: ExperimentConfig,
         workdir: str,
         log_every: int = 50,
+        val_every: Optional[int] = 10_000,
+        ckpt_every: Optional[int] = None,
         sparse_kernel_train: bool = False,
         sparse_kernel_eval: bool = False,
         learning_rate: Optional[float] = None,
@@ -75,6 +86,8 @@ class Trainer:
         os.makedirs(workdir, exist_ok=True)
         self.logger = MetricLogger(workdir)
         self.log_every = log_every
+        self.val_every = val_every
+        self.ckpt_every = ckpt_every
         seed = cfg.training.seed if cfg.training.seed is not None else 0
         self.state, self.model = create_train_state(
             cfg, seed, learning_rate, sparse_kernel=sparse_kernel_train, device=self.device
@@ -84,64 +97,196 @@ class Trainer:
         self.train_step = make_train_step(self.model, cfg)
         self._eval_step = make_eval_step(self.model, cfg)
         self.p_smooth = SmoothedValue()
+        self.best_val_ap = -1.0
+        self._ckpt = None
 
     def _zero_states(self, B: int):
         return zero_states(self.cfg.model.backbone, B, DTYPES[self.cfg.model.compute_dtype],
                            self.device)
 
     def eval_step(self, batch: Dict[str, torch.Tensor], lstm_states):
-        """One evaluation step on device tensors, on the attention path
-        ``sparse_kernel_eval`` names."""
+        """One evaluation step on device tensors, with the model's current
+        parameters, on the attention path ``sparse_kernel_eval`` names."""
         set_sparse_kernel(self.model, self.sparse_kernel_eval)
         try:
             return self._eval_step(batch, lstm_states)
         finally:
             set_sparse_kernel(self.model, self.sparse_kernel_train)
 
+    # -- checkpointing -------------------------------------------------------
+    @property
+    def ckpt(self) -> CheckpointManager:
+        if self._ckpt is None:
+            self._ckpt = CheckpointManager(os.path.join(self.workdir, "ckpts"))
+        return self._ckpt
+
+    def maybe_resume(self, resume: bool, weights_only: bool = False) -> None:
+        if not resume:
+            return
+        if self.ckpt.latest_step() is None:
+            print("no checkpoint found; starting fresh", file=sys.stderr)
+            return
+        if weights_only:
+            # A fresh run starting from old weights (fine-tune): its own best
+            # must not compete with the source run's history.
+            self.ckpt.restore_weights(self.state)
+        else:
+            # A full resume continues the same run: recover the historical
+            # best so that a worse checkpoint after it cannot become 'best'.
+            self.ckpt.restore(self.state)
+            self.best_val_ap = max(self.best_val_ap, self.ckpt.best_val_ap())
+        print(f"resumed from step {self.state.step}", file=sys.stderr)
+
+    # -- validation ------------------------------------------------------------
+    @contextlib.contextmanager
+    def _eval_parameters(self):
+        """The EMA copy in the model's parameters for the duration, when
+        there is one; the trained values are copied back afterwards, also
+        when the body raises. Copies into the parameters' storage keep the
+        optimizer's references valid."""
+        ema = self.state.ema_params
+        if ema is None:
+            yield
+            return
+        params = dict(self.model.named_parameters())
+        trained = {name: p.detach().clone() for name, p in params.items()}
+        try:
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.copy_(ema[name])
+            yield
+        finally:
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.copy_(trained[name])
+
+    def validate(
+        self,
+        eval_batches: Iterable[dict],
+        max_batches: Optional[int] = None,
+        save_viz: int = 0,
+    ) -> Dict[str, float]:
+        """Streaming evaluation over ``eval_batches`` (at most
+        ``max_batches``): ``val/<metric>`` of the Prophesee protocol, or
+        ``{}`` when no labeled frame was seen."""
+        if save_viz:
+            raise NotImplementedError("rendered prediction panels (utils/viz.py) are not ported yet")
+        cfg = self.cfg
+        evaluator = PropheseeEvaluator(cfg.dataset.name, cfg.dataset.downsample_by_factor_2)
+        lstm = None
+        n = 0
+        try:
+            with self._eval_parameters():
+                for batch in eval_batches:
+                    device_batch, host = split_device_batch(batch)
+                    device_batch = to_device(device_batch, self.device)
+                    if lstm is None:
+                        lstm = self._zero_states(device_batch["ev_repr"].shape[1])
+                    lstm, dets = self.eval_step(device_batch, lstm)
+                    dets_np = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                               for k, v in dets.items()}
+
+                    labels_flat = [fl for lane in host["_labels"] for fl in lane]
+                    frame_valid = np.asarray(batch["frame_valid"]).reshape(-1)
+                    sel, times, gts = [], [], []
+                    for f, fl in enumerate(labels_flat):
+                        if not frame_valid[f] or fl is None or len(fl) == 0:
+                            continue
+                        t = np.unique(fl.t)
+                        if t.size != 1:
+                            raise ValueError("the labels of one frame must share a timestamp")
+                        sel.append(f)
+                        times.append(int(t[0]))
+                        gts.append(fl.to_structured())
+                    if sel:
+                        sub = {k: v[np.asarray(sel)] for k, v in dets_np.items()}
+                        evaluator.add_labels(gts)
+                        evaluator.add_predictions(detections_to_prophesee(sub, times))
+                    n += 1
+                    if max_batches is not None and n >= max_batches:
+                        break
+        finally:
+            # A truncated consumer must release the prefetcher's producer
+            # thread and its buffered batches and h5 handles.
+            if hasattr(eval_batches, "close"):
+                eval_batches.close()
+        evaluator.gather_across_processes()
+        if not evaluator.has_data():
+            return {}
+        h, w = cfg.model.backbone.in_res_hw
+        metrics = evaluator.evaluate_buffer(h, w) or {}
+        return {f"val/{k}": v for k, v in metrics.items()}
+
+    # -- fit -------------------------------------------------------------------
     def fit(
         self,
         train_batches: Iterable[dict],
-        eval_loader_fn=None,
+        eval_loader_fn: Optional[Callable[[], Iterable[dict]]] = None,
         max_steps: Optional[int] = None,
         eval_max_batches: Optional[int] = None,
         profile_steps=None,
     ) -> Dict[str, float]:
         """Train on ``train_batches`` (dicts of numpy arrays in the layout of
         ``training/steps.py``) until ``max_steps`` optimizer steps are done or
-        the batches run out. The arguments are the JAX trainer's, in its
+        the batches run out, validating on ``eval_loader_fn()`` every
+        ``val_every`` steps. The arguments are the JAX trainer's, in its
         order; every call starts from zero LSTM states, as JAX's ``fit`` does.
         Returns the last logged metrics."""
-        if eval_loader_fn is not None or eval_max_batches is not None:
-            raise NotImplementedError("validation against a dataset is not ported yet")
         if profile_steps is not None:
             raise NotImplementedError("profiler traces are not ported yet")
         max_steps = max_steps or self.cfg.training.max_steps
         last_metrics: Dict[str, float] = {}
         t_last = time.time()
         step = self.state.step
+        last_ckpt_step = step
         lstm = None
-        for batch in train_batches:
-            if step >= max_steps:
-                break
-            device_batch, _ = split_device_batch(batch)
-            device_batch = to_device(device_batch, self.device)
-            if lstm is None:
-                lstm = self._zero_states(device_batch["ev_repr"].shape[1])
-            self.state, lstm, metrics = self.train_step(self.state, device_batch, lstm)
-            step += 1
-            if step % self.log_every == 0 or step == 1:
-                metrics = {k: float(v) for k, v in metrics.items()}  # waits for the card
-                sn = self.p_smooth.update(metrics.pop("P"))
-                dt = (time.time() - t_last) / min(self.log_every, step)
-                t_last = time.time()
-                log = {f"train/{k}": v for k, v in metrics.items()}
-                # The update that produced this step used schedule(step - 1).
-                lr = self.state.optimizer.schedule(step - 1)
-                log.update({"train/SN": sn, "train/step_time_s": dt, "train/lr": lr})
-                self.logger.log(log, step)
-                print(f"step {step}  loss {metrics['loss']:.3f}  SN {sn:.0f}  "
-                      f"{dt * 1000:.0f} ms/step  lr {lr:.3e}", file=sys.stderr)
-                last_metrics = log
-        if hasattr(train_batches, "close"):
-            train_batches.close()
+        try:
+            for batch in train_batches:
+                if step >= max_steps:
+                    break
+                device_batch, _ = split_device_batch(batch)
+                device_batch = to_device(device_batch, self.device)
+                if lstm is None:
+                    lstm = self._zero_states(device_batch["ev_repr"].shape[1])
+                self.state, lstm, metrics = self.train_step(self.state, device_batch, lstm)
+                step += 1
+                if step % self.log_every == 0 or step == 1:
+                    metrics = {k: float(v) for k, v in metrics.items()}  # waits for the card
+                    sn = self.p_smooth.update(metrics.pop("P"))
+                    dt = (time.time() - t_last) / min(self.log_every, step)
+                    t_last = time.time()
+                    log = {f"train/{k}": v for k, v in metrics.items()}
+                    # The update that produced this step used schedule(step - 1).
+                    lr = self.state.optimizer.schedule(step - 1)
+                    log.update({"train/SN": sn, "train/step_time_s": dt, "train/lr": lr})
+                    self.logger.log(log, step)
+                    print(f"step {step}  loss {metrics['loss']:.3f}  SN {sn:.0f}  "
+                          f"{dt * 1000:.0f} ms/step  lr {lr:.3e}", file=sys.stderr)
+                    last_metrics = log
+
+                if (eval_loader_fn is not None and self.val_every is not None
+                        and step % self.val_every == 0):
+                    val_metrics = self.validate(eval_loader_fn(), max_batches=eval_max_batches)
+                    if val_metrics:
+                        self.logger.log(val_metrics, step)
+                        print("  ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()),
+                              file=sys.stderr)
+                        last_metrics.update(val_metrics)
+                    val_ap = val_metrics.get("val/AP", -1.0)
+                    self.best_val_ap = max(self.best_val_ap, val_ap)
+                    self.ckpt.save(step, self.state, metrics={"val_AP": val_ap})
+                    last_ckpt_step = step
+                elif self.ckpt_every is not None and step % self.ckpt_every == 0:
+                    self.ckpt.save(step, self.state)
+                    last_ckpt_step = step
+        finally:
+            # Breaking at max_steps leaves an endless prefetcher's producer
+            # blocked mid-put; release it and its buffers.
+            if hasattr(train_batches, "close"):
+                train_batches.close()
+
+        # A run never ends without its last state, whatever max_steps is
+        # against val_every and ckpt_every.
+        if step > 0 and last_ckpt_step != step:
+            self.ckpt.save(step, self.state)
         return last_metrics

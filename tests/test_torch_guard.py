@@ -6,22 +6,40 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sast_tpu")
+# The JAX stack, the JAX package, its CLIs, and matplotlib (which the
+# card's stated installs lack).
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sast_tpu", "train", "validation",
+             "matplotlib")
+# Third-party modules allowed only inside a function of one file each.
+LAZY_ONLY = {"h5py": "sast_tpu_torch/data/sequence.py",
+             "hdf5plugin": "sast_tpu_torch/data/sequence.py"}
 
 
 def _port_sources():
-    return sorted((ROOT / "sast_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "sast_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "train_torch.py", ROOT / "validation_torch.py"]
+
+
+def _imports(path: Path):
+    """(line, module, inside a function) of every absolute import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield child.lineno, alias.name, in_function
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.lineno, child.module, in_function
+            yield from walk(child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+    yield from walk(tree, False)
 
 
 def _imported_modules(path: Path):
-    tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield node.lineno, alias.name
-        elif isinstance(node, ast.ImportFrom):
-            if node.level == 0 and node.module:
-                yield node.lineno, node.module
+    for line, mod, _ in _imports(path):
+        yield line, mod
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -36,12 +54,31 @@ def test_port_imports_no_jax_and_no_jax_package(path):
     assert not bad, f"{path}: forbidden imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_h5py_is_imported_only_inside_the_sequence_reader(path):
+    """``h5py`` (and the optional ``hdf5plugin``) only inside a function of
+    ``data/sequence.py``: everything else of the port, and that module
+    itself, imports where ``h5py`` is absent."""
+    rel = str(path.relative_to(ROOT))
+    bad = [(line, mod) for line, mod, in_function in _imports(path)
+           if mod.split(".")[0] in LAZY_ONLY
+           and not (in_function and LAZY_ONLY[mod.split(".")[0]] == rel)]
+    assert not bad, f"{path}: {bad}"
+
+
 def test_guard_covers_the_training_modules():
-    """The training slice's modules are among the guarded sources."""
+    """The training and dataset slices' modules and the CLIs are among the
+    guarded sources."""
     names = {str(p.relative_to(ROOT)) for p in _port_sources()}
     for mod in ("models/losses.py", "training/optimizer.py", "training/steps.py",
-                "training/loop.py", "data/synthetic.py", "data/batch.py", "utils/logging.py"):
+                "training/loop.py", "data/synthetic.py", "data/batch.py", "utils/logging.py",
+                "data/sequence.py", "data/module.py", "data/streaming.py", "data/augment.py",
+                "data/labels.py", "eval/coco.py", "eval/prophesee.py", "checkpoint/io.py",
+                "checkpoint/torch_convert.py", "registry.py"):
         assert f"sast_tpu_torch/{mod}" in names
+    assert {"train_torch.py", "validation_torch.py", "chip_smoke.py"} <= names
+    assert any(mod == "h5py" and inside for _, mod, inside in
+               _imports(ROOT / "sast_tpu_torch" / "data" / "sequence.py"))
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

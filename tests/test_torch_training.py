@@ -350,7 +350,7 @@ def test_to_jax_variables_inverts_load_jax_variables(run):
 def test_trainer_fit_on_the_cpu_and_refusals(tmp_path):
     """``Trainer.fit`` for three steps on synthetic batches (CPU, plain
     versions): finite loss, the schedule's rate of the last update, a JSONL
-    row per logged step; and what is not ported raises."""
+    row per logged step, a save at the end; and what is not ported raises."""
     cfg = _cfg(get_test_config)
     trainer = Trainer(cfg, str(tmp_path / "run"), log_every=1, sparse_kernel_train=True,
                       device="cpu")
@@ -365,11 +365,15 @@ def test_trainer_fit_on_the_cpu_and_refusals(tmp_path):
     batch = to_device(synthetic_train_batch(cfg, rng), "cpu")
     _, dets = trainer.eval_step(batch, trainer._zero_states(2))
     assert dets["boxes"].shape == (4, cfg.model.postprocess.max_detections, 4)
-    for kwargs in (dict(use_wandb=True), dict(val_every=10), dict(ckpt_every=5), dict(mesh=object())):
+    for kwargs in (dict(use_wandb=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             Trainer(cfg, str(tmp_path / "no"), device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="validation"):
-        trainer.fit([], eval_loader_fn=lambda: [])
+    with_ckpt = Trainer(cfg, str(tmp_path / "ckpt"), val_every=10, ckpt_every=5, device="cpu")
+    assert (with_ckpt.val_every, with_ckpt.ckpt_every) == (10, 5)
+    # The three steps ended with a save; no batch, no step: nothing more to
+    # validate or save.
+    assert trainer.fit([], eval_loader_fn=lambda: []) == {}
+    assert trainer.ckpt.all_steps() == [3] and trainer.ckpt.metrics(3) is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(cfg, str(tmp_path / "no"))
@@ -402,7 +406,7 @@ def test_fit_starts_every_call_from_zero_states(tmp_path):
 def test_fit_arguments_follow_the_jax_trainer(tmp_path):
     """``Trainer.fit`` takes the JAX trainer's arguments in its order, with
     its defaults, so a positional call means the same in both packages;
-    what is not ported among them is refused."""
+    what is not ported among them (profiler traces) is refused."""
     import inspect
 
     from sast_tpu.training.loop import Trainer as JTrainer
@@ -412,7 +416,6 @@ def test_fit_arguments_follow_the_jax_trainer(tmp_path):
 
     assert shape(Trainer.fit) == shape(JTrainer.fit)
     trainer = Trainer(_cfg(get_test_config), str(tmp_path / "run"), device="cpu")
-    for kwargs in (dict(eval_loader_fn=lambda: []), dict(eval_max_batches=2),
-                   dict(profile_steps=(1, 2))):
-        with pytest.raises(NotImplementedError):
-            trainer.fit([], **kwargs)
+    assert trainer.fit([], eval_loader_fn=lambda: [], eval_max_batches=2) == {}
+    with pytest.raises(NotImplementedError):
+        trainer.fit([], profile_steps=(1, 2))
