@@ -76,6 +76,27 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    must load what the converter and the weight bridge give on the host,
    bit for bit. Times: ms per train step and per validation batch,
    checkpoint save and restore seconds and bytes.
+7. Train as ``train.py`` trains, at gen4-base full width. (a) Data
+   parallel: two ranks over gloo on the one card, each on 2 lanes of a
+   4-lane batch (fp32, sparse-kernel path, 2 steps), against one process on
+   the 4 lanes at a constant rate of 1e-5: each step's summed gradients,
+   each parameter's change, BatchNorm statistics, EMA and AdamW moments
+   element by element within rtol 1e-4 + atol 1e-6 but for at most 4 times
+   as many elements as the floor leaves outside (the one process with its
+   lanes in three other orders, and without cuDNN), by at most 4 times the
+   floor's worst error; half the update must fail that check; the ranks'
+   states bit-equal; a world of one over NCCL bit
+   for bit against no process group; ``Trainer.validate`` of 2 batches over
+   the two ranks equal to one process over the same frames (kernel C); ms
+   per step and all-reduce ms per step. (b) The regularizers at 0.1 on the
+   sparse-kernel config (B 12, bf16): no launch of E, G or H (the masked
+   path), the same bits twice; every rate 0 gives phase 5's first step bit
+   for bit. (c) The card-resident cache from in-memory sequences (360x640,
+   20 channels, T 5, B 4) bit-equal to the host ``DataModule`` in the
+   stream, random (weighted) and mixed modes and for evaluation; bytes
+   resident, ms per gathered batch and per host assembly plus upload. (d)
+   ``fit(profile_steps=(2, 3))`` writes a trace that holds those steps and
+   names kernel E's launches; it is removed afterwards.
 
 Prints the kernel table as one JSON line (the rows of kernels redesigned
 since their first port carry ``redesigned``, what the redesign made of
@@ -87,6 +108,7 @@ Exits non-zero, printing no result, without a card or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -1801,14 +1823,21 @@ FIT_EVAL_BATCHES = 2
 VAL_KEYS = {"val/AP", "val/AP_50", "val/AP_75", "val/AP_S", "val/AP_M", "val/AP_L"}  # JAX's
 
 
-def _clock(torch, fn, times):
-    """``fn`` with its host-clock seconds, to the card's end, appended to
-    ``times``."""
-    def timed(*args, **kwargs):
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def _clock(torch, fn, times, device=None):
+    """``fn`` with its host-clock seconds, to the device's end (``DEVICE``
+    unless given), appended to ``times``."""
+    device = device or DEVICE
+
+    def timed(*args, **kwargs):
+        sync(torch, device)
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
+        sync(torch, device)
         times.append(time.perf_counter() - t0)
         return out
     return timed
@@ -2005,6 +2034,633 @@ def phase_fit_validate(torch, np, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: data parallelism, the stochastic regularizers, the card-resident
+# clip cache and profiler traces.
+
+DP_WORLD = 2
+DP_LANES = 4  # the global batch; each of the two ranks takes 2 lanes
+DP_STEPS = 2
+# The peak rate of the data-parallel comparison, constant (no warm-up): each
+# step moves every parameter by about the rate, 10 times DP_ATOL, so a world
+# that applied another update than one process is caught.
+DP_LR = 1e-5
+DP_RTOL, DP_ATOL = 1e-4, 1e-6
+# The floor: one process computing the same function in other orders, its
+# lanes permuted and its convolutions without cuDNN. The world may leave at
+# most DP_FLOOR_FACTOR times as many elements of a group outside rtol + atol
+# as the worst floor run, by at most DP_FLOOR_FACTOR times its worst error.
+DP_FLOOR_ORDERS = ((2, 3, 0, 1), (1, 0, 3, 2), (3, 2, 1, 0))
+DP_FLOOR_FACTOR = 4
+DP_DATA_SEED = 71
+DP_LIMIT_S = 600  # the two-rank run, spawn to join
+CACHE_SEQS = ((40, (6, 12, 19, 27, 33, 39)), (30, (4, 9, 15, 22, 29)))  # frames, labeled
+CACHE_BATCHES = 4
+PROFILE_WINDOW = (2, 3)
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN and torch in their deterministic modes for the duration."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def dp_config(warmup=False):
+    """gen4-base at full width in fp32 with a global batch of 4 lanes, EMA
+    on, the rate ``DP_LR`` (reached after the one-cycle warm-up of 3000
+    steps from a twentieth of it with ``warmup``, else constant)."""
+    from sast_tpu_torch.config import get_config
+
+    return get_config("gen4", "base", **{
+        "model.compute_dtype": "float32", "training.batch_size_train": DP_LANES,
+        "training.ema_decay": 0.999, "training.learning_rate": DP_LR, "training.seed": 0,
+        "training.lr_scheduler.use": warmup})
+
+
+def dp_batches(np, cfg, order=None, seed=DP_DATA_SEED):
+    """The global batches of the data-parallel comparison; ``order``
+    permutes their lanes."""
+    from sast_tpu_torch.data.synthetic import synthetic_train_batch
+
+    rng = np.random.RandomState(seed)
+    out = [synthetic_train_batch(cfg, rng, sparsity=0.9) for _ in range(DP_STEPS)]
+    out[0]["is_first"] = np.ones(DP_LANES, bool)
+    out[1]["is_first"] = np.array([False, True, False, True])
+    if order is not None:
+        order = np.asarray(order)
+        out = [{k: (v[:, order] if k == "ev_repr" else v[order]) for k, v in b.items()}
+               for b in out]
+    return out
+
+
+def lanes_of(batch, rank, world):
+    """Rank ``rank``'s rows of a global batch (``ev_repr`` is (T, B, ...))."""
+    n = batch["ev_repr"].shape[1] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    return {k: (v[:, rows] if k == "ev_repr" else v[rows]) for k, v in batch.items()}
+
+
+def with_ground_truth(torch, eval_step):
+    """``eval_step`` whose detections are each frame's ground truth, moved
+    and scored as functions of the box alone, and nothing else: the metrics
+    then depend on which frames are evaluated, not on the batch they came
+    in (random weights alone score an AP of 0)."""
+
+    def step(batch, lstm):
+        lstm, dets = eval_step(batch, lstm)
+        G = batch["gt_boxes"].shape[2]
+        gt = batch["gt_boxes"].reshape(-1, G, 4).float()
+        dets["boxes"][:, :G] = (torch.cat([gt[..., :2] - gt[..., 2:] / 2, gt[..., :2]
+                                           + gt[..., 2:] / 2], -1) + 2 * torch.sin(7 * gt)
+                                ).to(dets["boxes"].dtype)
+        dets["classes"][:, :G] = batch["gt_classes"].reshape(-1, G).to(dets["classes"].dtype)
+        dets["cls_conf"][:, :G] = (0.5 + 0.4 * torch.cos(3 * gt[..., 0] + gt[..., 1])).to(
+            dets["cls_conf"].dtype)
+        dets["valid"][:, :G] = batch["gt_valid"].reshape(-1, G)
+        dets["valid"][:, G:] = False
+        return lstm, dets
+
+    return step
+
+
+def dp_eval_batches(np, cfg, rank, world):
+    """Two evaluation batches of this rank's lanes of 4, clips made in
+    memory at the dataset's resolution, timestamps unique per lane."""
+    from sast_tpu_torch.data.batch import assemble_batch
+
+    n = DP_LANES // world
+    lanes = []
+    for lane in range(rank * n, (rank + 1) * n):
+        rng = np.random.RandomState(300 + lane)
+        lanes.append([memory_clip(np, cfg, rng, 2 * lane + c, c == 0) for c in range(2)])
+    return [assemble_batch([lane[c] for lane in lanes], cfg.training.max_labeled_frames_per_lane,
+                           cfg.model.head.max_gt) for c in range(2)]
+
+
+def _host(t):
+    """A copy of ``t`` on the host (``.cpu()`` of a host tensor is itself)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def dp_run(torch, np, cfg, device, mesh, workdir, order=None, seed=DP_DATA_SEED,
+           validate=True):
+    """``Trainer.fit`` for ``DP_STEPS`` steps on this process's lanes (all of
+    them without ``mesh``) on the sparse-kernel path, then ``validate`` on
+    two evaluation batches. Returns the compared tensors by group, on the
+    host (each step's summed gradients, each parameter's change over the
+    run, BatchNorm statistics, EMA copy, AdamW moments), step and all-reduce
+    seconds, the launches of each part, the metrics."""
+    import torch.distributed as dist
+
+    from sast_tpu_torch.training.loop import Trainer
+
+    rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    trainer = Trainer(cfg, workdir, log_every=1, sparse_kernel_train=True,
+                      sparse_kernel_eval=True, device=device, mesh=mesh)
+    params = trainer.state.optimizer.params
+    init = [_host(p) for p in params]
+    grads, step_s, reduce_s, metrics = [], [], [], []
+    update, train_step = trainer.state.optimizer.step, trainer.train_step
+
+    def recorded_update():
+        grads.append([_host(p.grad) for p in params])
+        return update()
+
+    def recorded_step(state, batch, lstm):
+        reduce_s.append(0.0)
+        out = _clock(torch, train_step, step_s, device)(state, batch, lstm)
+        metrics.append({k: float(v) for k, v in out[2].items()})
+        return out
+
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(*args, **kwargs):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        out = all_reduce(*args, **kwargs)
+        sync(torch, device)
+        if reduce_s:
+            reduce_s[-1] += time.perf_counter() - t0
+        return out
+
+    trainer.state.optimizer.step, trainer.train_step = recorded_update, recorded_step
+    dist.all_reduce = timed_all_reduce
+    try:
+        reset_counters()
+        trainer.fit([lanes_of(b, rank, world) for b in dp_batches(np, cfg, order, seed)],
+                    max_steps=DP_STEPS)
+        fit_counts = read_counters()
+        adam = trainer.state.optimizer.adamw.state
+        groups = {f"step {s + 1} gradients": grads[s] for s in range(DP_STEPS)}
+        groups.update({
+            "parameter changes": [_host(p) - p0 for p, p0 in zip(params, init)],
+            "BatchNorm statistics": [_host(b) for b in trainer.model.buffers()],
+            "EMA copy": [_host(t) for t in trainer.state.ema_params.values()],
+            "AdamW moments": [_host(adam[p][k]) for p in params
+                              for k in ("exp_avg", "exp_avg_sq")],
+        })
+        res = dict(groups=groups, step_s=step_s, reduce_s=reduce_s, metrics=metrics,
+                   fit_counts=fit_counts)
+        if validate:
+            trainer._eval_step = with_ground_truth(torch, trainer._eval_step)
+            reset_counters()
+            res["validation"] = trainer.validate(dp_eval_batches(np, cfg, rank, world))
+            res["validate_counts"] = read_counters()
+    finally:
+        dist.all_reduce = all_reduce
+    return res
+
+
+def _digest(torch, tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank(rank, port, out_dir, cfg, device, seed):
+    """One rank of the two-rank world: gloo over CUDA tensors on card 0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sast_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+        device = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=DP_WORLD)
+    try:
+        with deterministic(torch):
+            res = dp_run(torch, np, cfg, device, make_mesh(device),
+                         str(Path(out_dir) / f"run{rank}"), seed=seed)
+        # Both ranks hold the same summed gradients and state; rank 0's
+        # tensors stand for both, the digest shows that they agree.
+        res["digest"] = _digest(torch, [t for g in res["groups"].values() for t in g])
+        res["files"] = sorted(p.name for p in (Path(out_dir) / f"run{rank}").iterdir())
+        if rank:
+            res["groups"] = None
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _outside(got, want):
+    """(elements outside rtol ``DP_RTOL`` + atol ``DP_ATOL``, worst
+    absolute error)."""
+    n = sum(int(((a - b).abs() > DP_ATOL + DP_RTOL * b.abs()).sum()) for a, b in zip(got, want))
+    return n, max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def within_floor(got, want, floors):
+    """``got`` against ``want`` beside the floor runs' tensors of the same
+    group: (holds, readings)."""
+    n, worst = _outside(got, want)
+    floor = [_outside(f, want) for f in floors]
+    n_floor, worst_floor = max(c for c, _ in floor), max(w for _, w in floor)
+    holds = n <= DP_FLOOR_FACTOR * n_floor and (n == 0 or worst <= DP_FLOOR_FACTOR * worst_floor)
+    return holds, dict(outside=n, worst=worst, floor_outside=[c for c, _ in floor],
+                       floor_worst=[w for _, w in floor], elements=sum(t.numel() for t in want))
+
+
+def phase_data_parallel(torch, np, card, work, warmup=False, seed=DP_DATA_SEED, checks=True):
+    """7a: two gloo ranks on the card (B 2 each of a B 4 batch) against one
+    process on the four lanes, beside the floor (the one process with its
+    lanes in three other orders and with its convolutions without cuDNN);
+    a world of one over NCCL against no process group, bit for bit;
+    ``Trainer.validate`` over the two ranks. ``warmup`` and ``seed`` choose
+    the rate's schedule and the data; ``checks=False`` runs the comparison
+    alone, fails only where the world is beyond the floor, and reports
+    whether half the update would have been caught."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from sast_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dp_config(warmup)
+    card0 = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    log(f"data parallel gen4-base: global B {DP_LANES} ({DP_WORLD} ranks x "
+        f"{DP_LANES // DP_WORLD} lanes over gloo on card 0), T {cfg.dataset.sequence_length}, "
+        f"fp32, sparse-kernel path, {DP_STEPS} steps, rate {DP_LR} "
+        f"({'one-cycle warm-up' if warmup else 'constant'}), ema {cfg.training.ema_decay}, "
+        f"data seed {seed}")
+    work = work / "data_parallel"
+    work.mkdir()
+    try:
+        with deterministic(torch):
+            ref = dp_run(torch, np, cfg, DEVICE, None, str(work / "one"), seed=seed,
+                         validate=checks)
+            floors = {f"lanes {list(o)}": dp_run(torch, np, cfg, DEVICE, None,
+                                                 str(work / "floor"), order=o, seed=seed,
+                                                 validate=False)
+                      for o in DP_FLOOR_ORDERS}
+            torch.backends.cudnn.enabled = False  # PyTorch's own convolution kernels
+            try:
+                floors["no cuDNN"] = dp_run(torch, np, cfg, DEVICE, None, str(work / "floor"),
+                                            seed=seed, validate=False)
+            finally:
+                torch.backends.cudnn.enabled = True
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_dp_rank, args=(_free_port(), str(work), cfg, DEVICE, seed),
+                                 nprocs=DP_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + DP_LIMIT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+                if time.monotonic() > deadline:
+                    fail(f"data parallel: the world of {DP_WORLD} did not end in {DP_LIMIT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        world_s = time.perf_counter() - t0
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+        if len({r["digest"] for r in ranks}) != 1:
+            fail("data parallel: the ranks' states differ")
+        readings, bad = {}, []
+        for g, want in ref["groups"].items():
+            holds, readings[g] = within_floor(ranks[0]["groups"][g], want,
+                                              [f["groups"][g] for f in floors.values()])
+            if not holds:
+                bad.append(g)
+        # The check can fail: half of one process's update is outside
+        # nearly everywhere.
+        change = ref["groups"]["parameter changes"]
+        half_holds, half = within_floor([c / 2 for c in change], change,
+                                        [f["groups"]["parameter changes"]
+                                         for f in floors.values()])
+        # The metrics within 1e-5 at step 1 (every run at the same
+        # parameters); from step 2 on within 1e-5 or 4 times the floor's.
+        def rel(run, s, k):
+            a, b = run["metrics"][s][k], ref["metrics"][s][k]
+            return abs(a - b) / max(abs(b), 1e-30)
+
+        metric_rel, metrics_bad = {}, []
+        for s in range(DP_STEPS):
+            for k in ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg", "P", "grad_norm"):
+                floor = max(rel(f, s, k) for f in floors.values())
+                metric_rel[f"step {s + 1} {k}"] = (rel(ranks[0], s, k), floor)
+                tol = 1e-5 if s == 0 else max(1e-5, DP_FLOOR_FACTOR * floor)
+                if metric_rel[f"step {s + 1} {k}"][0] > tol:
+                    metrics_bad.append(f"step {s + 1} {k}")
+        update = max(float(c.abs().max()) for c in change)
+        log(f"data parallel on {card}: world 2 against one process beside the floor runs "
+            f"{list(floors)} (elements outside rtol {DP_RTOL} + atol {DP_ATOL}, worst error): "
+            + "; ".join(f"{g} {r}" for g, r in readings.items())
+            + f"; parameter change up to {update:.3g}; half the update leaves "
+            f"{half['outside']} of {half['elements']} outside; metrics, relative error "
+            f"(the floor's worst): {metric_rel}")
+        if bad or metrics_bad:
+            fail(f"data parallel: world 2 differs from one process beyond {DP_FLOOR_FACTOR} times "
+                 f"the floor in {bad}, metrics {metrics_bad}")
+        res = dict(comparison=readings, floor_runs=list(floors), parameter_change=update,
+                   half_update_outside=half["outside"], half_update_caught=not half_holds,
+                   metrics_relative=metric_rel)
+        if not checks:
+            return res
+        if half_holds:
+            fail(f"data parallel: the comparison cannot fail: half the update passes ({half})")
+        if ranks[0]["validation"] != ref["validation"] or not ref["validation"].get("val/AP"):
+            fail(f"data parallel: validate over two ranks {ranks[0]['validation']} against one "
+                 f"process {ref['validation']}")
+        for r in ranks:
+            if not (r["fit_counts"]["stem_conv7x4"] and r["fit_counts"]["sparse_window_block"]
+                    and r["fit_counts"]["sparse_block_mlp_bwd"]
+                    and r["fit_counts"]["sparse_block_attn_bwd"]
+                    and r["validate_counts"]["greedy_keep"]):
+                fail(f"data parallel: launches {r['fit_counts']}, {r['validate_counts']}")
+        if ranks[1]["files"] or "metrics.jsonl" not in ranks[0]["files"]:
+            fail(f"data parallel: rank 0 wrote {ranks[0]['files']}, rank 1 {ranks[1]['files']}")
+        step_ms = [[s * 1e3 for s in r["step_s"]] for r in ranks]
+        reduce_ms = [[s * 1e3 for s in r["reduce_s"]] for r in ranks]
+        log(f"data parallel on {card}: train step ms per rank {step_ms} (host clock to the card's "
+            f"end, B 2 each), all-reduce ms per step per rank {reduce_ms} (gloo over CUDA "
+            f"tensors; BatchNorm's, the loss's, the gradients' and the metrics'); one process at "
+            f"B 4: {[round(s * 1e3, 1) for s in ref['step_s']]} ms; the world ran {world_s:.1f} s "
+            f"from spawn to join; validate over two ranks {ranks[0]['validation']} equals one "
+            f"process's")
+
+        # A world of one over NCCL computes what no process group computes.
+        backend = "nccl" if card0.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                                world_size=1, **({"device_id": card0} if backend == "nccl" else {}))
+        try:
+            with deterministic(torch):
+                nccl = dp_run(torch, np, cfg, DEVICE, make_mesh(card0), str(work / "nccl"),
+                              seed=seed, validate=False)
+        finally:
+            dist.destroy_process_group()
+        differ = [g for g, tensors in nccl["groups"].items()
+                  if not all(torch.equal(a, b) for a, b in zip(tensors, ref["groups"][g]))]
+        if differ or any(a != b for a, b in zip(nccl["metrics"], ref["metrics"])):
+            fail(f"data parallel: a world of one over NCCL differs from no process group in "
+                 f"{differ}")
+        log(f"data parallel on {card}: a world of one over NCCL is bit-equal to no process group "
+            f"(gradients, parameters, statistics, EMA, AdamW moments, metrics); train step "
+            f"{[round(s * 1e3, 1) for s in nccl['step_s']]} ms, all-reduce "
+            f"{[round(s * 1e3, 3) for s in nccl['reduce_s']]} ms per step")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res | dict(rank_step_ms=step_ms, rank_all_reduce_ms=reduce_ms,
+                      one_process_step_ms=[s * 1e3 for s in ref["step_s"]],
+                      nccl_world_of_one_step_ms=[s * 1e3 for s in nccl["step_s"]],
+                      nccl_world_of_one_all_reduce_ms=[s * 1e3 for s in nccl["reduce_s"]],
+                      validation=ref["validation"], world_seconds=world_s,
+                      launches={k: v for k, v in ranks[0]["fit_counts"].items() if v}
+                      | {"greedy_keep": ranks[0]["validate_counts"]["greedy_keep"]})
+
+
+def with_rates(cfg, rate):
+    cfg = with_attention(cfg, drop_path=rate, drop_mlp=rate)
+    bb = cfg.model.backbone
+    bb = dataclasses.replace(bb, lstm=dataclasses.replace(bb.lstm, drop_cell_update=rate))
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb))
+
+
+def phase_regularizers(torch, np, card, phase5_first, work):
+    """7b: the sparse-kernel config of phase 5 (gen4-base, B 12, bf16) with
+    every rate 0.1: the masked path (no launch of E, G or H), the same bits
+    from the same seed and step twice; with every rate 0, phase 5's first
+    step."""
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.batch import to_device
+    from sast_tpu_torch.data.synthetic import synthetic_train_batch
+    from sast_tpu_torch.training.loop import Trainer, state_tensors
+
+    cfg = get_config("gen4", "base")
+    B = cfg.training.batch_size_train
+    batch = synthetic_train_batch(cfg, np.random.RandomState(21), sparsity=0.9)  # phase 5's first
+    batch["is_first"] = np.ones(B, bool)
+    batch = to_device(batch, DEVICE)
+    out = {}
+    for i, rate in enumerate((0.0, 0.1, 0.1)):
+        trainer = Trainer(with_rates(cfg, rate), str(work / f"regularizers{i}"),
+                          sparse_kernel_train=True, device=DEVICE)
+        reset_counters()
+        step_s = []
+        # Rates 0 run as phase 5 ran; the regularized steps in the
+        # deterministic modes, so that two of them can give the same bits.
+        with deterministic(torch) if rate else contextlib.nullcontext():
+            _, _, metrics = _clock(torch, trainer.train_step, step_s)(
+                trainer.state, batch, trainer._zero_states(B))
+        counts = read_counters()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if rate == 0.0:
+            keys = ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg")
+            same = {k: metrics[k] == phase5_first[f"train/{k}"] for k in keys}
+            same["SN"] = metrics["P"] == phase5_first["train/SN"]
+            if not all(same.values()):
+                fail(f"regularizers: rates 0 differ from phase 5's first step: {same}; "
+                     f"{metrics} against {phase5_first}")
+            log(f"regularizers: every rate 0 gives phase 5's first step bit for bit (loss "
+                f"{metrics['loss']!r}, its terms, foreground count, selected tokens); gradient "
+                f"norm {metrics['grad_norm']!r} against phase 5's "
+                f"{phase5_first['train/grad_norm']!r}")
+            out["rates0_step_ms"] = step_s[0] * 1e3
+        else:
+            if (counts["sparse_window_block"] or counts["sparse_block_mlp_bwd"]
+                    or counts["sparse_block_attn_bwd"] or not counts["stem_conv7x4"]):
+                fail(f"regularizers: rates {rate} on the sparse-kernel config launched {counts}")
+            if not np.isfinite(metrics["loss"]):
+                fail(f"regularizers: loss {metrics['loss']}")
+            digest = _digest(torch, state_tensors(trainer.state))
+            if "digest" in out and (out["digest"] != digest or out["loss"] != metrics["loss"]):
+                fail("regularizers: the same seed and step twice gave other bits")
+            out.update(digest=digest, loss=metrics["loss"], counts=counts,
+                       rates_step_ms=out.get("rates_step_ms", []) + [step_s[0] * 1e3])
+        del trainer
+        torch.cuda.empty_cache()
+    log(f"regularizers on {card}: drop_path = drop_mlp = drop_cell_update = 0.1 on the "
+        f"sparse-kernel config: loss {out['loss']:.5f} twice bit-equal, launches "
+        f"{out['counts']} (no E, G or H: the masked path); step ms "
+        f"{[round(v, 1) for v in out['rates_step_ms']]} against {out['rates0_step_ms']:.1f} "
+        f"at rates 0 (host clock, first step of a trainer, B {B})")
+    out.pop("digest")
+    return out
+
+
+def cache_readers(np, cfg):
+    """In-memory sequences at the dataset's resolution (u8, (N, H, W, C)),
+    labels in the recording's pixels as ``labels.npz`` holds them."""
+    from sast_tpu_torch.config import DATASET_RES_HW
+    from sast_tpu_torch.data.sequence import MemorySequenceReader
+    from sast_tpu_torch.data.synthetic import sparse_event_input
+
+    rng = np.random.RandomState(41)
+    h, w = cfg.dataset.resolution_hw
+    C = cfg.model.backbone.input_channels
+    H, W = DATASET_RES_HW[cfg.dataset.name]
+    readers = []
+    for i, (n, labeled) in enumerate(CACHE_SEQS):
+        rows, start = [], []
+        for r in labeled:
+            start.append(len(rows))
+            for _ in range(rng.randint(1, 4)):
+                bw, bh = rng.uniform(60, 300), rng.uniform(60, 200)
+                rows.append((r * 50_000, rng.uniform(0, W - bw), rng.uniform(0, H - bh), bw, bh,
+                             rng.randint(0, cfg.model.head.num_classes), 1.0))
+        readers.append(MemorySequenceReader(
+            f"seq{i}", sparse_event_input(rng, (n, h, w, C), 0.9), np.asarray(rows, np.float32),
+            np.asarray(start), np.asarray(labeled), cfg.dataset.name,
+            cfg.dataset.downsample_by_factor_2))
+    return readers
+
+
+def phase_device_cache(torch, np, card):
+    """7c: the card-resident cache against the host ``DataModule`` from the
+    same in-memory sequences (360x640, 20 channels, T 5, B 4) in the stream,
+    random (weighted) and mixed modes and for evaluation, bit for bit; bytes
+    resident, ms per gathered batch, ms for host assembly plus upload."""
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.batch import to_device
+    from sast_tpu_torch.data.device_cache import DeviceCachedEvalStream, DeviceCachedTrainStream
+    from sast_tpu_torch.data.module import DataModule
+
+    base = get_config("gen4", "base", **{
+        "training.batch_size_train": 4, "training.batch_size_eval": 4,
+        "dataset.data_augmentation_random.zoom.prob": 0.0,
+        "dataset.data_augmentation_stream.zoom.prob": 0.0, "dataset.weighted_sampling": True})
+    t0 = time.perf_counter()
+    readers = cache_readers(np, base)
+    log(f"device cache: {len(readers)} sequences of {[n for n, _ in CACHE_SEQS]} frames at "
+        f"{base.dataset.resolution_hw}, {base.model.backbone.input_channels} channels, made on the "
+        f"host in {time.perf_counter() - t0:.1f} s")
+    keys = ("is_first", "frame_tidx", "frame_valid", "gt_boxes", "gt_classes", "gt_valid")
+    res = {}
+
+    def check(got, ref, what):
+        if not torch.equal(got["ev_repr"].cpu(), torch.from_numpy(np.asarray(ref["ev_repr"]))):
+            fail(f"device cache {what}: ev_repr differs from the host's")
+        for k in keys:
+            if not np.array_equal(np.asarray(got[k]), np.asarray(ref[k])):
+                fail(f"device cache {what}: {k} differs from the host's")
+
+    def timed(fn):
+        times = []
+        out = _clock(torch, fn, times)()
+        return out, times[0] * 1e3
+
+    for mode in ("stream", "random", "mixed"):
+        cfg = dataclasses.replace(base, dataset=dataclasses.replace(base.dataset,
+                                                                    train_sampling=mode))
+        stream = DeviceCachedTrainStream(cfg, seed=5, device=DEVICE, readers=readers)
+        cached = iter(stream)
+        host = iter(DataModule(cfg, readers={"train": readers}).train_batches(seed=5,
+                                                                              prefetch=False))
+        gather_ms, host_ms = [], []
+        for i in range(CACHE_BATCHES):
+            got, ms = timed(lambda: next(cached))
+            gather_ms.append(ms)
+            ref, ms = timed(lambda: next(host))
+            up, ms_up = timed(lambda: to_device({k: ref[k] for k in ("ev_repr",)}, DEVICE))
+            host_ms.append(ms + ms_up)
+            check(got, ref, f"{mode} batch {i}")
+        res[mode] = dict(gather_ms=gather_ms, host_assembly_upload_ms=host_ms,
+                         bytes_resident=stream.nbytes)
+        del stream, cached
+        torch.cuda.empty_cache()
+    ev_stream = DeviceCachedEvalStream(base, "test", device=DEVICE, readers=readers)
+    host_eval = list(DataModule(base, readers={"test": readers}).eval_batches("test",
+                                                                              prefetch=False))
+    cached_eval = list(ev_stream)
+    if len(cached_eval) != len(host_eval):
+        fail(f"device cache eval: {len(cached_eval)} batches against {len(host_eval)}")
+    for i, (got, ref) in enumerate(zip(cached_eval, host_eval)):
+        check(got, ref, f"eval batch {i}")
+    res["eval"] = dict(batches=len(cached_eval), bytes_resident=ev_stream.nbytes)
+    del ev_stream, cached_eval
+    torch.cuda.empty_cache()
+    modes = ("stream", "random", "mixed")
+    log(f"device cache on {card}: bit-equal to the host DataModule in the stream, random "
+        f"(weighted) and mixed modes ({CACHE_BATCHES} batches each, B 4, T 5) and over the "
+        f"{res['eval']['batches']} evaluation batches; {res['stream']['bytes_resident']} bytes "
+        f"resident per split; ms per gathered batch "
+        f"{ {m: [round(v, 3) for v in res[m]['gather_ms']] for m in modes} }, host assembly "
+        f"plus upload of the same batch "
+        f"{ {m: [round(v, 1) for v in res[m]['host_assembly_upload_ms']] for m in modes} }")
+    return res
+
+
+def phase_profile(torch, np, card, work):
+    """7d: ``fit(profile_steps=(2, 3))`` at gen4-base (B 4, bf16, the
+    sparse-kernel path) writes a trace that holds steps 2 and 3 and names
+    kernel E's launches; the trace is removed afterwards."""
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.synthetic import synthetic_train_batch
+    from sast_tpu_torch.training.loop import Trainer
+
+    cfg = get_config("gen4", "base", **{"training.batch_size_train": 4})
+    rng = np.random.RandomState(61)
+    batches = [synthetic_train_batch(cfg, rng, sparsity=0.9) for _ in range(3)]
+    work = work / "profile"
+    trainer = Trainer(cfg, str(work), log_every=1, sparse_kernel_train=True, device=DEVICE)
+    reset_counters()
+    trainer.fit(batches, max_steps=3, profile_steps=PROFILE_WINDOW)
+    counts = read_counters()
+    files = sorted((work / "trace").glob("*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"profiler: traces {files}")
+    size = files[0].stat().st_size
+    events = json.loads(files[0].read_text())["traceEvents"]
+    steps = sorted({int(e["name"].split()[1]) for e in events
+                    if str(e.get("name", "")).startswith("train_step ")})
+    e_launches = sum(1 for e in events if e.get("cat") == "kernel" and "sf::" in e.get("name", ""))
+    shutil.rmtree(work / "trace")
+    if steps != list(range(PROFILE_WINDOW[0], PROFILE_WINDOW[1] + 1)) or not e_launches:
+        fail(f"profiler: the trace holds steps {steps} and {e_launches} launches of kernel E")
+    log(f"profiler on {card}: fit(profile_steps={PROFILE_WINDOW}) wrote one trace of {size} "
+        f"bytes holding steps {steps} and {e_launches} launches of kernel E (sf::); the three "
+        f"steps launched {counts['sparse_window_block']} in all; trace removed")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(trace_bytes=size, steps=steps, kernel_e_launches_in_trace=e_launches,
+                launches=counts)
+
+
+def phase_seven(torch, np, card, phase5_first):
+    """Phase 7, its scratch directory under ``chiprun_out/`` removed at the
+    end (checkpoints that ``fit`` ends with, the trace)."""
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="phase7_", dir=OUT_DIR))
+    out = {}
+    try:
+        for name, fn, args in (("data_parallel", phase_data_parallel, (work,)),
+                               ("regularizers", phase_regularizers, (phase5_first, work)),
+                               ("device_cache", phase_device_cache, ()),
+                               ("profiler", phase_profile, (work,))):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, np, card, *args)
+            log(f"phase 7 {name}: ok ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     if not (ROOT / "sast_tpu_torch" / "csrc").is_dir():
         fail("sast_tpu_torch/ not found beside chip_smoke.py: run it from a checkout")
@@ -2089,14 +2745,24 @@ def main() -> None:
             k["launches_fit_validate"] = fit_validate["launches"][k["name"]]
     log(f"phase 6: train, validate, checkpoint and resume ok ({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    seven = phase_seven(torch, np, smi, training["sparse"]["first_step"])
+    # Launches on this slice's path: the two-rank world's fit (A, E, G, H)
+    # and validation (C), counted from 0 on rank 0 over each.
+    for k in kernels:
+        if seven["data_parallel"]["launches"].get(k["name"]):
+            k["launches_data_parallel"] = seven["data_parallel"]["launches"][k["name"]]
+    log(f"phase 7: data parallel, regularizers, device cache and profiler ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
-                  training=training, fit_validate=fit_validate,
+                  training=training, fit_validate=fit_validate, phase7=seven,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels redesigned since their first port; launches on phase 6's path.
-    extra = ("redesigned", "launches_fit_validate")
+    # Kernels redesigned since their first port; launches on phases 6 and 7.
+    extra = ("redesigned", "launches_fit_validate", "launches_data_parallel")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(smi)

@@ -120,8 +120,13 @@ def split_device_batch(batch: Dict[str, np.ndarray]) -> Tuple[dict, dict]:
 
 
 def to_device(device_batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """The numpy arrays of a device batch as tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in device_batch.items()}
+    """The numpy arrays of a device batch as contiguous tensors on
+    ``device`` (the stem kernel reads its input contiguous); a tensor, e.g.
+    the card-resident cache's ``ev_repr``, moves only if it lies
+    elsewhere."""
+    return {k: (v if torch.is_tensor(v)
+                else torch.as_tensor(np.ascontiguousarray(v))).to(device)
+            for k, v in device_batch.items()}
 
 
 class Prefetcher:

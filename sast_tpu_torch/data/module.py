@@ -161,12 +161,21 @@ class MixedSampler:
 
 
 class DataModule:
-    def __init__(self, cfg: ExperimentConfig, rank: int = 0, world_size: int = 1):
+    """Batches of the configured dataset for process ``rank`` of
+    ``world_size``. ``readers`` (split name -> readers with
+    ``SequenceReader``'s methods, e.g. ``MemorySequenceReader``s) replaces
+    the dataset's directory."""
+
+    def __init__(self, cfg: ExperimentConfig, rank: int = 0, world_size: int = 1,
+                 readers: Optional[Dict[str, List[SequenceReader]]] = None):
         self.cfg = cfg
         self.rank = rank
         self.world_size = world_size
+        self.readers = readers
 
     def _readers(self, split: str) -> List[SequenceReader]:
+        if self.readers is not None:
+            return self.readers[split]
         ds = self.cfg.dataset
         return [
             SequenceReader(

@@ -23,6 +23,7 @@ reading a dataset needs it. blosc-compressed HDF5 also needs the optional
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
@@ -233,6 +234,46 @@ class SequenceReader:
             np.asarray(self.labels[o].class_id, np.int64) for o in objframes
         ]
         return np.concatenate(ids) if ids else np.zeros((0,), np.int64)
+
+
+class MemorySequenceReader(SequenceReader):
+    """A sequence held in memory, with ``SequenceReader``'s methods: the
+    event representations as a (N, H, W, C) uint8 array and the labels as
+    ``labels.npz`` holds them. For a machine without ``h5py`` (the data
+    pipeline and the card-resident cache read it as they read a file)."""
+
+    def __init__(self, name: str, ev_repr: np.ndarray, labels: np.ndarray,
+                 objframe_idx_2_label_idx: np.ndarray, objframe_idx_2_repr_idx: np.ndarray,
+                 dataset_name: str, downsample_by_factor_2: bool = False):
+        self.path = Path(name)
+        self.name = name
+        self._ev = np.asarray(ev_repr, np.uint8)
+        self.labels = LabelStore(
+            labels=labels,
+            objframe_idx_2_label_idx=objframe_idx_2_label_idx,
+            input_size_hw=DATASET_RES_HW[dataset_name],
+            downsample_factor=2 if downsample_by_factor_2 else None,
+        )
+        self.objframe_idx_2_repr_idx = np.asarray(objframe_idx_2_repr_idx, np.int64)
+        self._repr_idx_2_objframe_idx = {
+            int(r): int(i) for i, r in enumerate(self.objframe_idx_2_repr_idx)
+        }
+        self.num_ev_repr = self._ev.shape[0]
+        n, h, w, c = self._ev.shape
+        self.ev_repr_shape = (c, h, w)
+        self._disk_layout = "THWC"
+        self._h5 = None
+        self._lock = threading.Lock()
+
+    def get_ev_repr(self, start: int, end: int, file=None) -> np.ndarray:
+        assert 0 <= start < end <= self.num_ev_repr
+        return self._ev[start:end].copy()
+
+    def open_handle(self):
+        return contextlib.nullcontext()
+
+    def close(self) -> None:
+        pass
 
 
 class ClipIterator:

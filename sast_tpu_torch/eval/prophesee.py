@@ -168,18 +168,12 @@ class PropheseeEvaluator:
         evaluating the union of all ranks' clips equals the single-process
         metric, where averaging per-rank APs only approximates it.
 
-        ``allgather_fn`` maps ``buffer -> [buffer_rank0, buffer_rank1, ...]``.
-        Without it a single process keeps its own buffer; the port has no
-        multi-process gather yet (``torch.distributed`` is not ported), so
-        more than one process raises.
+        ``allgather_fn`` maps ``buffer -> [buffer_rank0, buffer_rank1, ...]``;
+        the default is ``parallel.mesh.allgather_host_objects`` over the
+        default process group (a single process keeps its own buffer).
         """
         if allgather_fn is None:
-            import torch.distributed as dist
-
-            if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-                raise NotImplementedError(
-                    "gathering evaluation buffers across processes is not ported yet")
-            allgather_fn = lambda buffer: [buffer]  # noqa: E731
+            from sast_tpu_torch.parallel.mesh import allgather_host_objects as allgather_fn
         buffers = allgather_fn(self._buffer)
         self._buffer = {
             k: [item for b in buffers for item in b[k]]

@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 
 from sast_tpu_torch.config import BackboneConfig
-from sast_tpu_torch.models.layers import ConvDownsample, DWSConvLSTM2d
+from sast_tpu_torch.models.layers import ConvDownsample, Dropout, DropoutKey, DWSConvLSTM2d
 from sast_tpu_torch.models.sast import SASTBlock
 from sast_tpu_torch.ops.posemb import position_embedding_sine
 from sast_tpu_torch.ops.sparse import non_zero_ratio
@@ -83,6 +83,7 @@ class SASTStage(nn.Module):
         token_mask: Optional[torch.Tensor],
         r: Optional[torch.Tensor],
         deterministic: bool = True,
+        dropout: Optional[DropoutKey] = None,
     ):
         """``r=None`` asks the stem kernel for the density ratio; the stage
         then returns the full (B, 4, C_in) ratio as its last output."""
@@ -99,9 +100,10 @@ class SASTStage(nn.Module):
         p_total = torch.zeros((), dtype=torch.float32, device=x.device)
         masks = None
         for i in range(self.num_blocks):
-            x, p_count, masks = getattr(self, f"block{i}")(x, pos, r, masks, deterministic)
+            x, p_count, masks = getattr(self, f"block{i}")(x, pos, r, masks, deterministic,
+                                                           dropout)
             p_total = p_total + p_count
-        h, c = self.lstm(x, lstm_state, deterministic)
+        h, c = self.lstm(x, lstm_state, deterministic, dropout)
         return h, (h, c), p_total, ratio
 
 
@@ -111,8 +113,9 @@ class SASTBackbone(nn.Module):
     x is NHWC (B, H, W, input_channels), uint8 or float. ``sparse_kernel``
     (the JAX package's ``use_pallas``) sends every attention layer through
     the window-skipping block kernel. ``deterministic=False`` is training:
-    it changes nothing while every stochastic rate is 0 and raises otherwise
-    (the regularizers are not ported)."""
+    it changes nothing while every stochastic rate is 0; otherwise the
+    regularizers draw their masks from ``dropout`` (a ``DropoutKey``), each
+    layer by its own ``layer_id``, numbered here in module order."""
 
     def __init__(self, cfg: BackboneConfig, dtype: torch.dtype = torch.float32,
                  sparse_kernel: bool = False):
@@ -120,6 +123,8 @@ class SASTBackbone(nn.Module):
         self.cfg, self.dtype = cfg, dtype
         for idx in range(cfg.num_stages):
             self.add_module(f"stage{idx}", SASTStage(cfg, idx, dtype, sparse_kernel))
+        for i, m in enumerate(m for m in self.modules() if isinstance(m, Dropout)):
+            m.layer_id = i
 
     def forward(
         self,
@@ -127,6 +132,7 @@ class SASTBackbone(nn.Module):
         prev_states: Optional[List[Optional[LstmState]]] = None,
         token_mask: Optional[torch.Tensor] = None,
         deterministic: bool = True,
+        dropout: Optional[DropoutKey] = None,
     ) -> Tuple[Dict[int, torch.Tensor], List[LstmState], torch.Tensor]:
         cfg = self.cfg
         n = cfg.num_stages
@@ -145,7 +151,8 @@ class SASTBackbone(nn.Module):
         for idx in range(n):
             stage_r = None if fused and idx == 0 else r[:, idx].to(self.dtype)
             x, state, p, ratio = getattr(self, f"stage{idx}")(
-                x, prev_states[idx], token_mask if idx == 0 else None, stage_r, deterministic
+                x, prev_states[idx], token_mask if idx == 0 else None, stage_r, deterministic,
+                dropout,
             )
             if ratio is not None:
                 r = ratio

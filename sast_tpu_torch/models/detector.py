@@ -16,9 +16,10 @@ import torch.nn as nn
 from sast_tpu_torch.config import ModelConfig
 from sast_tpu_torch.models.backbone import LstmState, SASTBackbone
 from sast_tpu_torch.models.head import YoloXHead
-from sast_tpu_torch.models.layers import BatchNorm, Conv, Dense, lecun_normal_
+from sast_tpu_torch.models.layers import BatchNorm, Conv, Dense, DropoutKey, lecun_normal_
 from sast_tpu_torch.models.pafpn import YoloPAFPN
 from sast_tpu_torch.models.sast import MaskedSparseAttention
+from sast_tpu_torch.parallel.mesh import Mesh
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -58,25 +59,29 @@ class YoloXDetector(nn.Module):
         previous_states: Optional[List[Optional[LstmState]]] = None,
         token_mask: Optional[torch.Tensor] = None,
         deterministic: bool = True,
+        dropout: Optional[DropoutKey] = None,
     ) -> Tuple[Dict[int, torch.Tensor], List[LstmState], torch.Tensor]:
-        """x: (B, H, W, C_in) NHWC event representation."""
-        return self.backbone(x, previous_states, token_mask, deterministic)
+        """x: (B, H, W, C_in) NHWC event representation. Under training
+        (``deterministic=False``) with a non-zero stochastic rate,
+        ``dropout`` gives the masks (``models/layers.DropoutKey``)."""
+        return self.backbone(x, previous_states, token_mask, deterministic, dropout)
 
     def forward_detect(self, backbone_features: Dict[int, torch.Tensor],
-                       train: bool = False) -> Dict[str, torch.Tensor]:
+                       train: bool = False, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """Neck and head. With ``train`` every BatchNorm of both normalises
         with the batch's statistics and updates its running ones in place
-        (flax's ``mutable=["batch_stats"]``)."""
+        (flax's ``mutable=["batch_stats"]``); with ``mesh`` too, the
+        statistics are those of the global batch."""
         feats = tuple(backbone_features[s] for s in self.config.fpn.in_stages)
         norms = [m for part in (self.fpn, self.head) for m in part.modules()
                  if isinstance(m, BatchNorm)]
         for m in norms:
-            m.use_batch_stats = train
+            m.use_batch_stats, m.mesh = train, mesh if train else None
         try:
             return self.head(self.fpn(feats))
         finally:
             for m in norms:
-                m.use_batch_stats = False
+                m.use_batch_stats, m.mesh = False, None
 
     def forward(self, x, previous_states=None, token_mask=None):
         features, states, p = self.forward_backbone(x, previous_states, token_mask)

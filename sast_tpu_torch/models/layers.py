@@ -13,19 +13,27 @@ to its compute ``dtype`` at use, as flax's ``dtype=`` does.
 - ``ConvDownsample``: overlapping strided conv + LayerNorm; the 7x7/stride-4
   stem goes through the stem kernel (ops/stem_conv.py).
 - ``DWSConvLSTM2d``: ConvLSTM cell, gates and cell state in fp32.
+- ``Dropout`` / ``DropPath`` with ``DropoutKey``: the stochastic
+  regularizers, their masks drawn from a generator seeded from (seed,
+  optimizer step, timestep, layer) for the global batch, this rank's rows
+  kept. They cannot draw JAX's threefry bits: the port's masks follow the
+  same distribution, not the same values.
 - ``BaseConv`` / ``DWConv`` / ``Bottleneck`` / ``CSPLayer``: YOLOX blocks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from sast_tpu_torch.ops.stem_conv import stem_conv7x4, stem_conv7x4_plain, stem_supported
+from sast_tpu_torch.parallel.mesh import Mesh
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -119,7 +127,14 @@ class BatchNorm(nn.Module):
     (``E[x^2] - E[x]^2`` clamped at 0, the *biased* variance), and moves the
     running statistics towards them in place: ``ra = 0.9 * ra + 0.1 * batch``.
     flax stores the biased batch variance there, ``torch.nn.BatchNorm2d`` the
-    unbiased one."""
+    unbiased one.
+
+    With ``mesh`` set to a world of more than one process (training under
+    data parallelism) the batch is the global one: the per-channel sum, sum
+    of squares and count are all-reduced, differentiably, before the
+    moments are taken, so the running statistics move alike on every rank
+    and the backward carries the cross-rank terms (the reference's
+    sync-BN, GSPMD's global reduction in the JAX package)."""
 
     momentum = 0.9
 
@@ -127,6 +142,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps, self.dtype = eps, dtype
         self.use_batch_stats = False
+        self.mesh: Optional[Mesh] = None
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
@@ -136,8 +152,20 @@ class BatchNorm(nn.Module):
         x32 = x.to(torch.float32)
         if self.use_batch_stats:
             axes = tuple(range(x32.dim() - 1))
-            mean = x32.mean(dim=axes)
-            var = ((x32 * x32).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            if self.mesh is None or self.mesh.size == 1:
+                mean = x32.mean(dim=axes)
+                var = ((x32 * x32).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            else:
+                # Differentiable: the backward sums the incoming gradients
+                # over the ranks, so each rank's input gradient carries every
+                # rank's use of the global statistics.
+                from torch.distributed.nn.functional import all_reduce
+
+                C = x32.shape[-1]
+                count = x32.new_full((1,), x32.numel() // C)
+                sums = all_reduce(torch.cat((x32.sum(dim=axes), (x32 * x32).sum(dim=axes), count)))
+                mean = sums[:C] / sums[2 * C]
+                var = (sums[C:2 * C] / sums[2 * C] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
                 self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
@@ -145,6 +173,63 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((x32 - mean) * mul + self.bias).to(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutKey:
+    """Where one timestep's dropout masks come from in a training step: the
+    run's seed, the optimizer step and the timestep (JAX folds the step into
+    ``PRNGKey(seed)`` and splits one key per timestep), and this process's
+    place in the data-parallel world. Each layer seeds its own generator from
+    (seed, step, t, layer), draws the mask of the global batch and keeps its
+    rank's rows: a world of two draws what a world of one draws on the same
+    global batch, and a recomputation (``checkpoint``) draws the same masks
+    again."""
+
+    seed: int
+    step: int
+    t: int
+    rank: int = 0
+    world: int = 1
+
+    def keep_mask(self, layer: int, shape, keep: float, device) -> torch.Tensor:
+        """Bool mask of ``shape`` (this rank's rows), True with probability
+        ``keep``."""
+        words = np.random.SeedSequence([self.seed, self.step, self.t, layer]).generate_state(2)
+        g = torch.Generator(device=device)
+        g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+        rows = shape[0]
+        u = torch.rand((rows * self.world, *shape[1:]), generator=g, device=device)
+        return u[self.rank * rows:(self.rank + 1) * rows] < keep
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: with a ``DropoutKey`` and a non-zero rate, keep
+    each element with probability ``1 - rate`` and scale it by
+    ``1 / (1 - rate)``; without a key (deterministic) the identity.
+    ``layer_id`` (set by the backbone) tells its masks from the other
+    layers'."""
+
+    per_sample = False
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.layer_id = 0
+
+    def forward(self, x: torch.Tensor, key: Optional[DropoutKey]) -> torch.Tensor:
+        if self.rate == 0.0 or key is None:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1) if self.per_sample else x.shape
+        mask = key.keep_mask(self.layer_id, shape, keep, x.device)
+        return torch.where(mask, x / keep, 0.0)
+
+
+class DropPath(Dropout):
+    """Stochastic depth: one keep draw per sample of the leading axis."""
+
+    per_sample = True
 
 
 def replicate_pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -208,8 +293,9 @@ class ConvDownsample(nn.Module):
 class DWSConvLSTM2d(nn.Module):
     """Convolutional LSTM cell with optional depthwise conv on the hidden
     state. NHWC. Gates and the cell state are fp32; ``h`` is cast back to
-    the input dtype. A non-zero ``cell_update_dropout`` raises under
-    training (``deterministic=False``) rather than being ignored."""
+    the input dtype. Under training (``deterministic=False``) a non-zero
+    ``cell_update_dropout`` drops elements of the cell input with the
+    masks of ``dropout`` (a ``DropoutKey``)."""
 
     def __init__(self, dim: int, dws_conv: bool = False, dws_conv_only_hidden: bool = True,
                  dws_conv_kernel_size: int = 3, dtype: torch.dtype = torch.float32,
@@ -217,6 +303,7 @@ class DWSConvLSTM2d(nn.Module):
         super().__init__()
         self.dim = dim
         self.cell_update_dropout = cell_update_dropout
+        self.drop_cell = Dropout(cell_update_dropout)
         self.dws_conv, self.only_hidden = dws_conv, dws_conv_only_hidden
         k = dws_conv_kernel_size
         mix = 0
@@ -228,12 +315,10 @@ class DWSConvLSTM2d(nn.Module):
         self.add_module(self.mix_name, Conv(2 * dim, 4 * dim, 1, dtype=dtype))
 
     def forward(self, x: torch.Tensor, h_and_c: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                deterministic: bool = True):
-        if not deterministic and self.cell_update_dropout > 0.0:
-            raise NotImplementedError(
-                f"lstm.drop_cell_update = {self.cell_update_dropout}: the cell-update dropout "
-                "is not ported yet; train with a rate of 0"
-            )
+                deterministic: bool = True, dropout: Optional[DropoutKey] = None):
+        if not deterministic and self.cell_update_dropout > 0.0 and dropout is None:
+            raise ValueError(f"lstm.drop_cell_update = {self.cell_update_dropout} under "
+                             "training needs a DropoutKey")
         if h_and_c is None:
             h_tm1 = torch.zeros_like(x)
             c_tm1 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
@@ -249,6 +334,8 @@ class DWSConvLSTM2d(nn.Module):
         gates = torch.sigmoid(mix[..., : 3 * self.dim].to(torch.float32))
         forget_gate, input_gate, output_gate = gates.chunk(3, dim=-1)
         cell_input = torch.tanh(mix[..., 3 * self.dim :].to(torch.float32))
+        if not deterministic:
+            cell_input = self.drop_cell(cell_input, dropout)
         c_t = forget_gate * c_tm1.to(torch.float32) + input_gate * cell_input
         h_t = output_gate * torch.tanh(c_t)
         return h_t.to(x.dtype), c_t

@@ -21,10 +21,13 @@ no gradient.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from sast_tpu_torch.parallel.mesh import Mesh
 
 
 def bboxes_iou_cxcywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -165,8 +168,15 @@ def yolox_loss(
     frame_valid: torch.Tensor,  # (F,) bool: padding frames contribute nothing
     num_classes: int,
     topk: int = 10,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Batched YOLOX detection loss over F frames with padded GT/frames."""
+    """Batched YOLOX detection loss over F frames with padded GT/frames.
+
+    With ``mesh`` (a world of more than one process) the normalisers are
+    global: the foreground and GT counts are summed over the ranks before
+    the division, so each rank's loss is its own sum over the global
+    ``num_fg``, and the ranks' losses and gradients sum to the global
+    batch's (JAX's GSPMD sums)."""
     preds = preds.to(torch.float32)
     bbox_preds = preds[..., :4]
     obj_logits = preds[..., 4]
@@ -181,8 +191,13 @@ def yolox_loss(
     fg = assign["fg_mask"] & frame_valid[:, None]  # (F, A)
     fg_f = fg.to(torch.float32)
     num_fg_sum = (assign["num_fg"] * fv).sum()
+    num_gt_sum = assign["num_gt"].sum()
+    if mesh is not None and mesh.size > 1:
+        counts = torch.stack((num_fg_sum, num_gt_sum))
+        dist.all_reduce(counts)
+        num_fg_sum, num_gt_sum = counts[0], counts[1]
     num_fg = num_fg_sum.clamp_min(1.0)
-    num_gts = assign["num_gt"].sum().clamp_min(1.0)
+    num_gts = num_gt_sum.clamp_min(1.0)
 
     loss_iou = (iou_loss(bbox_preds, assign["reg_target"]) * fg_f).sum() / num_fg
     loss_obj = (bce_with_logits(obj_logits, fg_f) * fv[:, None]).sum() / num_fg

@@ -27,9 +27,13 @@ one of four execution paths of that same function, as the JAX module does:
 Under grad mode the sparse and the fused path go through their
 ``torch.autograd.Function``s and land the gradients on this module's own
 parameters (``ops/block.kernel_leaves``); the gather and masked paths are
-plain autograd. The stochastic regularizers (``drop_path``, ``drop_mlp``)
-are not ported: with ``deterministic=False`` a non-zero rate raises, naming
-the rate, where the JAX module would apply it and turn the sparse paths off.
+plain autograd. The stochastic regularizers, as in the JAX module:
+``DropPath`` per sample on ``ls1 * attention`` and on ``ls2 * mlp``
+(``drop_path``), and dropout between the gated activation and the MLP's
+output projection (``drop_mlp``). The kernels implement neither, so under
+training (``deterministic=False``) with a non-zero rate every layer runs the
+masked torch-op path, whatever the switches say (JAX's ``stochastic_off``
+rule); their masks come from the step's ``DropoutKey``.
 
 Both data-dependent choices (``n_win <= K`` when ``K < M``, the density test
 when the threshold is below 1) read one number back from the device: a host
@@ -45,7 +49,14 @@ import torch
 import torch.nn as nn
 
 from sast_tpu_torch.config import AttentionConfig
-from sast_tpu_torch.models.layers import Dense, LayerNorm, get_activation
+from sast_tpu_torch.models.layers import (
+    Dense,
+    DropoutKey,
+    DropPath,
+    Dropout,
+    LayerNorm,
+    get_activation,
+)
 from sast_tpu_torch.ops import sparse_block
 from sast_tpu_torch.ops.block import kernel_leaves, kernel_params
 from sast_tpu_torch.ops.fused_block import fused_window_block
@@ -139,10 +150,15 @@ class MaskedSparseAttention(nn.Module):
         self.ls1 = Gamma(dim, cfg.ls_init_value)
         self.ls2 = Gamma(dim, cfg.ls_init_value)
         self.mlp = GatedMlpParams(dim, inner, cfg.mlp_bias, dtype)
+        self.drop_path1 = DropPath(cfg.drop_path)
+        self.drop_path2 = DropPath(cfg.drop_path)
+        self.mlp_drop = Dropout(cfg.drop_mlp)
 
-    def block_math(self, y: torch.Tensor, token_keep: torch.Tensor) -> torch.Tensor:
+    def block_math(self, y: torch.Tensor, token_keep: torch.Tensor,
+                   dropout: Optional[DropoutKey] = None) -> torch.Tensor:
         """The masked block in torch ops on any (B', N', hw, C) layout of
-        norm1-ed tokens; equals ``y`` at unselected tokens."""
+        norm1-ed tokens; equals ``y`` at unselected tokens. With ``dropout``
+        the regularizers apply (the leading axis is then the batch)."""
         B, N, hw, C = y.shape
         heads, dh = self.num_heads, self.dim_head
         k4 = token_keep[..., None]
@@ -160,29 +176,28 @@ class MaskedSparseAttention(nn.Module):
         attn = torch.softmax(logits, dim=-1)
         out = (attn @ v).permute(0, 1, 3, 2, 4).reshape(B, N, hw, C)
         out = self.proj(out)
-        h = z + self.ls1.gamma.to(z.dtype) * out
+        h = z + self.drop_path1(self.ls1.gamma.to(z.dtype) * out, dropout)
 
         val, gate = self.mlp.GLU_0.Dense_0(h).chunk(2, dim=-1)
-        mlp_out = self.mlp.Dense_0(val * self.act(gate))
+        mlp_out = self.mlp.Dense_0(self.mlp_drop(val * self.act(gate), dropout))
         if self.enable_cb:
             # Context Broadcasting: mix each selected token's MLP output with
             # the mean over all token slots (unselected ones count as zero).
             masked = torch.where(k4, mlp_out, 0.0)
             mlp_out = 0.5 * masked + 0.5 * masked.mean(dim=(1, 2), keepdim=True)
-        h2 = h + self.ls2.gamma.to(h.dtype) * mlp_out
+        h2 = h + self.drop_path2(self.ls2.gamma.to(h.dtype) * mlp_out, dropout)
         return torch.where(k4, h2, y)
 
     def forward(self, x: torch.Tensor, token_keep: torch.Tensor,
                 win_keep: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
-        if not deterministic:
-            for name in ("drop_path", "drop_mlp"):
-                if getattr(self, name) > 0.0:
-                    raise NotImplementedError(
-                        f"attention.{name} = {getattr(self, name)}: the stochastic "
-                        "regularizers are not ported yet; train with a rate of 0"
-                    )
+                deterministic: bool = True,
+                dropout: Optional[DropoutKey] = None) -> torch.Tensor:
         y = _layernorm(x, self.norm1.scale, self.norm1.bias, self.eps)
+        if not deterministic and (self.drop_path > 0.0 or self.drop_mlp > 0.0):
+            if dropout is None:
+                raise ValueError(f"attention.drop_path = {self.drop_path}, drop_mlp = "
+                                 f"{self.drop_mlp} under training need a DropoutKey")
+            return self.block_math(y, token_keep, dropout)
         return self.run_block(y, token_keep, win_keep)
 
     def run_block(self, y: torch.Tensor, token_keep: torch.Tensor,
@@ -254,6 +269,7 @@ class SASTBlock(nn.Module):
         r: Optional[torch.Tensor],
         masks: Optional[Masks] = None,
         deterministic: bool = True,
+        dropout: Optional[DropoutKey] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, Masks]:
         cfg = self.cfg
         B, H, W, C = x.shape
@@ -279,8 +295,9 @@ class SASTBlock(nn.Module):
             raise ValueError("non-first blocks must reuse the selection masks")
         win_keep_w, tok_keep_w, win_keep_g, tok_keep_g = masks
 
-        x = window_reverse(self.win_attn(xw, tok_keep_w, win_keep_w, deterministic), p, (H, W))
-        xg = self.grid_attn(grid_partition(x, p), tok_keep_g, win_keep_g, deterministic)
+        x = window_reverse(self.win_attn(xw, tok_keep_w, win_keep_w, deterministic, dropout),
+                           p, (H, W))
+        xg = self.grid_attn(grid_partition(x, p), tok_keep_g, win_keep_g, deterministic, dropout)
         x = grid_reverse(xg, p, (H, W))
 
         p_count = (

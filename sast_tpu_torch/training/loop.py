@@ -9,8 +9,14 @@ keeps the best checkpoint by val/AP, saves every ``ckpt_every`` steps
 otherwise, and always ends with a save. ``validate`` streams evaluation
 clips with the LSTM state carried across them and scores the labeled frames
 with the Prophesee protocol, on the EMA copy of the parameters when there is
-one. Not ported, and refused rather than ignored: the device mesh, Weights &
-Biases, profiler traces, rendered panels and the gradient-flow figure.
+one. ``mesh`` (``parallel/mesh.make_mesh()``) trains data-parallel: each
+process feeds its ``B / world`` lanes, the parameters and optimizer state
+start as rank 0's, the step reduces over the world (``training/steps.py``),
+only rank 0 logs and saves, every rank restores, and ``validate`` gathers the
+evaluation buffers of all ranks. ``fit(profile_steps=(first, last))``
+records a ``torch.profiler`` trace of those steps into ``<workdir>/trace``.
+Not ported, and refused rather than ignored: Weights & Biases, rendered
+panels and the gradient-flow figure.
 
     import numpy as np
     from sast_tpu_torch.config import get_config
@@ -32,6 +38,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sast_tpu_torch.checkpoint.io import CheckpointManager
 from sast_tpu_torch.config import ExperimentConfig
@@ -39,13 +46,31 @@ from sast_tpu_torch.data.batch import split_device_batch, to_device
 from sast_tpu_torch.eval.prophesee import PropheseeEvaluator, detections_to_prophesee
 from sast_tpu_torch.models.backbone import zero_states
 from sast_tpu_torch.models.detector import DTYPES, resolve_device, set_sparse_kernel
-from sast_tpu_torch.training.steps import create_train_state, make_eval_step, make_train_step
+from sast_tpu_torch.parallel.mesh import Mesh
+from sast_tpu_torch.training.steps import (
+    TrainState,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
 from sast_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
 _NOT_PORTED = {
     "use_wandb": "Weights & Biases logging",
-    "mesh": "the data-parallel mesh",
 }
+
+
+def state_tensors(state: TrainState):
+    """Every tensor of a ``TrainState`` on its device, in one fixed order:
+    parameters and BatchNorm statistics, the EMA copy, the AdamW moments
+    (AdamW's step counts live on the host and follow ``optimizer.count``)."""
+    out = list(state.model.state_dict().values())
+    if state.ema_params is not None:
+        out += list(state.ema_params.values())
+    adam = state.optimizer.adamw.state
+    for p in state.optimizer.params:
+        out += [adam[p][k] for k in ("exp_avg", "exp_avg_sq") if k in adam.get(p, {})]
+    return out
 
 
 class Trainer:
@@ -60,6 +85,7 @@ class Trainer:
     it (same parameters). ``learning_rate`` overrides the config's peak
     rate. ``device`` is the card unless the caller passes ``"cpu"``, which
     runs the kernels' plain versions; without a card the default raises.
+    With ``mesh`` the trainer runs on ``mesh.device``.
     """
 
     def __init__(
@@ -73,6 +99,7 @@ class Trainer:
         sparse_kernel_eval: bool = False,
         learning_rate: Optional[float] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -80,11 +107,15 @@ class Trainer:
                 raise TypeError(f"Trainer got an unexpected argument {name!r}")
             if value:
                 raise NotImplementedError(f"{_NOT_PORTED[name]} ({name}) is not ported yet")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
         self.cfg = cfg
         self.workdir = workdir
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rank = mesh.rank if mesh is not None else 0
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         os.makedirs(workdir, exist_ok=True)
-        self.logger = MetricLogger(workdir)
+        self.logger = MetricLogger(workdir) if self.rank == 0 else None
         self.log_every = log_every
         self.val_every = val_every
         self.ckpt_every = ckpt_every
@@ -94,11 +125,31 @@ class Trainer:
         )
         self.sparse_kernel_train = sparse_kernel_train
         self.sparse_kernel_eval = sparse_kernel_eval
-        self.train_step = make_train_step(self.model, cfg)
+        self.train_step = make_train_step(self.model, cfg, mesh)
         self._eval_step = make_eval_step(self.model, cfg)
         self.p_smooth = SmoothedValue()
         self.best_val_ap = -1.0
         self._ckpt = None
+        self._sync_state()
+
+    def _sync_state(self) -> None:
+        """Under a mesh, every rank takes rank 0's state (the GSPMD step's
+        replicated state)."""
+        if self.mesh is not None:
+            for t in state_tensors(self.state):
+                dist.broadcast(t, 0)
+
+    def _print(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg, file=sys.stderr)
+
+    def _log(self, metrics: Dict[str, float], step: int) -> None:
+        if self.logger is not None:
+            self.logger.log(metrics, step)
+
+    def _save(self, step: int, metrics: Optional[dict] = None) -> None:
+        if self.rank == 0:
+            self.ckpt.save(step, self.state, metrics=metrics)
 
     def _zero_states(self, B: int):
         return zero_states(self.cfg.model.backbone, B, DTYPES[self.cfg.model.compute_dtype],
@@ -124,7 +175,7 @@ class Trainer:
         if not resume:
             return
         if self.ckpt.latest_step() is None:
-            print("no checkpoint found; starting fresh", file=sys.stderr)
+            self._print("no checkpoint found; starting fresh")
             return
         if weights_only:
             # A fresh run starting from old weights (fine-tune): its own best
@@ -135,7 +186,8 @@ class Trainer:
             # best so that a worse checkpoint after it cannot become 'best'.
             self.ckpt.restore(self.state)
             self.best_val_ap = max(self.best_val_ap, self.ckpt.best_val_ap())
-        print(f"resumed from step {self.state.step}", file=sys.stderr)
+        self._sync_state()
+        self._print(f"resumed from step {self.state.step}")
 
     # -- validation ------------------------------------------------------------
     @contextlib.contextmanager
@@ -168,7 +220,9 @@ class Trainer:
     ) -> Dict[str, float]:
         """Streaming evaluation over ``eval_batches`` (at most
         ``max_batches``): ``val/<metric>`` of the Prophesee protocol, or
-        ``{}`` when no labeled frame was seen."""
+        ``{}`` when no labeled frame was seen. Under a mesh each rank streams
+        its own lanes and the metrics are those of all ranks' frames, the
+        same on every rank."""
         if save_viz:
             raise NotImplementedError("rendered prediction panels (utils/viz.py) are not ported yet")
         cfg = self.cfg
@@ -231,10 +285,14 @@ class Trainer:
         the batches run out, validating on ``eval_loader_fn()`` every
         ``val_every`` steps. The arguments are the JAX trainer's, in its
         order; every call starts from zero LSTM states, as JAX's ``fit`` does.
-        Returns the last logged metrics."""
-        if profile_steps is not None:
-            raise NotImplementedError("profiler traces are not ported yet")
+        ``profile_steps=(first, last)`` records a ``torch.profiler`` trace of
+        training steps ``first`` to ``last`` (inclusive, counted from 1 over
+        the run, so a resumed run inside the window records its rest) into
+        ``<workdir>/trace``, one file per rank, each step a
+        ``train_step <n>`` range. Returns the last logged metrics."""
         max_steps = max_steps or self.cfg.training.max_steps
+        prof_first, prof_last = profile_steps or (None, None)
+        profiler = None
         last_metrics: Dict[str, float] = {}
         t_last = time.time()
         step = self.state.step
@@ -248,8 +306,19 @@ class Trainer:
                 device_batch = to_device(device_batch, self.device)
                 if lstm is None:
                     lstm = self._zero_states(device_batch["ev_repr"].shape[1])
-                self.state, lstm, metrics = self.train_step(self.state, device_batch, lstm)
+                # <= so that a resumed run whose step already sits inside the
+                # window records its rest; prof_last keeps a finished window
+                # from starting again.
+                if prof_first is not None and profiler is None and (
+                        prof_first <= step + 1 <= prof_last):
+                    profiler = self._start_trace()
+                with (torch.profiler.record_function(f"train_step {step + 1}")
+                      if profiler is not None else contextlib.nullcontext()):
+                    self.state, lstm, metrics = self.train_step(self.state, device_batch, lstm)
                 step += 1
+                if profiler is not None and step >= prof_last:
+                    self._stop_trace(profiler)
+                    profiler = None
                 if step % self.log_every == 0 or step == 1:
                     metrics = {k: float(v) for k, v in metrics.items()}  # waits for the card
                     sn = self.p_smooth.update(metrics.pop("P"))
@@ -259,27 +328,28 @@ class Trainer:
                     # The update that produced this step used schedule(step - 1).
                     lr = self.state.optimizer.schedule(step - 1)
                     log.update({"train/SN": sn, "train/step_time_s": dt, "train/lr": lr})
-                    self.logger.log(log, step)
-                    print(f"step {step}  loss {metrics['loss']:.3f}  SN {sn:.0f}  "
-                          f"{dt * 1000:.0f} ms/step  lr {lr:.3e}", file=sys.stderr)
+                    self._log(log, step)
+                    self._print(f"step {step}  loss {metrics['loss']:.3f}  SN {sn:.0f}  "
+                                f"{dt * 1000:.0f} ms/step  lr {lr:.3e}")
                     last_metrics = log
 
                 if (eval_loader_fn is not None and self.val_every is not None
                         and step % self.val_every == 0):
                     val_metrics = self.validate(eval_loader_fn(), max_batches=eval_max_batches)
                     if val_metrics:
-                        self.logger.log(val_metrics, step)
-                        print("  ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()),
-                              file=sys.stderr)
+                        self._log(val_metrics, step)
+                        self._print("  ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()))
                         last_metrics.update(val_metrics)
                     val_ap = val_metrics.get("val/AP", -1.0)
                     self.best_val_ap = max(self.best_val_ap, val_ap)
-                    self.ckpt.save(step, self.state, metrics={"val_AP": val_ap})
+                    self._save(step, {"val_AP": val_ap})
                     last_ckpt_step = step
                 elif self.ckpt_every is not None and step % self.ckpt_every == 0:
-                    self.ckpt.save(step, self.state)
+                    self._save(step)
                     last_ckpt_step = step
         finally:
+            if profiler is not None:  # the loop ended inside the window
+                self._stop_trace(profiler)
             # Breaking at max_steps leaves an endless prefetcher's producer
             # blocked mid-put; release it and its buffers.
             if hasattr(train_batches, "close"):
@@ -288,5 +358,23 @@ class Trainer:
         # A run never ends without its last state, whatever max_steps is
         # against val_every and ckpt_every.
         if step > 0 and last_ckpt_step != step:
-            self.ckpt.save(step, self.state)
+            self._save(step)
         return last_metrics
+
+    def _start_trace(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                os.path.join(self.workdir, "trace"), worker_name=f"rank{self.rank}"))
+        profiler.start()
+        return profiler
+
+    def _stop_trace(self, profiler) -> None:
+        """Wait for the card, so that the trace holds the steps' work and not
+        only their launches, then write it."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()

@@ -11,6 +11,15 @@ sast_tpu/training/steps.py).
   ``frame_tidx (B, L)`` and ``frame_valid (B, L)``, L a fixed budget.
 - Truncated BPTT: the returned LSTM states are detached.
 - Per-lane state reset through the ``is_first`` mask.
+- Stochastic regularizers (any rate above 0): the masks of timestep ``t``
+  come from ``DropoutKey(seed, optimizer step, t, rank, world)``, drawn
+  inside the checkpointed timestep, so the recomputation draws them again
+  (JAX folds the step into ``PRNGKey(seed)`` and splits a key per timestep).
+- Data parallelism (``mesh``, a world of processes each on its ``B / world``
+  lanes): BatchNorm and the loss take global statistics, the gradients are
+  summed over the ranks in flat buckets before the norms, the clipping and
+  AdamW, and the metrics are reduced to the global batch's, as the psums
+  XLA inserts into the JAX package's GSPMD step.
 
 Batch layout (``data/synthetic.py`` makes such batches):
   ev_repr      (T, B, H, W*C) uint8, W and C merged; split and padded per step
@@ -33,6 +42,7 @@ import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -43,8 +53,10 @@ from sast_tpu_torch.config import ExperimentConfig
 from sast_tpu_torch.models.backbone import LstmState
 from sast_tpu_torch.models.detector import YoloXDetector, build_detector
 from sast_tpu_torch.models.head import inference_outputs
+from sast_tpu_torch.models.layers import DropoutKey
 from sast_tpu_torch.models.losses import yolox_loss
 from sast_tpu_torch.ops.nms import postprocess
+from sast_tpu_torch.parallel import mesh as dp
 from sast_tpu_torch.training.optimizer import OptaxAdamW, build_optimizer
 from sast_tpu_torch.utils.padding import InputPadder, padding_token_mask
 
@@ -126,10 +138,13 @@ def _backbone_scan(
     num_channels: Optional[int] = None,
     token_mask: Optional[torch.Tensor] = None,
     remat_policy: str = "dots",
+    dropout: Optional[DropoutKey] = None,
 ):
     """Run the recurrent backbone over time; returns ``(final_states,
     feats_seq, p_seq)``: per FPN input stage the features stacked over time
     ``(T, B, h, w, c)``, and the ``(T, num_stages)`` selected-token counts.
+    ``dropout`` (its ``t`` ignored) gives timestep ``t`` the key with that
+    ``t``.
 
     ev_repr: (T, B, H, W*C) uint8 when ``padder`` is given, else
     (T, B, H, W, C). The split and the pad happen per timestep, in uint8, so
@@ -140,11 +155,11 @@ def _backbone_scan(
             f"remat_policy must be one of 'dots' | 'none' | 'full', got {remat_policy!r}"
         )
 
-    def step(x_t, states):
+    def step(x_t, states, key):
         if padder is not None:
             Bq, Hq, WC = x_t.shape
             x_t = padder.pad_tensor_ev_repr(x_t.reshape(Bq, Hq, WC // num_channels, num_channels))
-        feats, new_states, p = model.forward_backbone(x_t, states, token_mask, deterministic)
+        feats, new_states, p = model.forward_backbone(x_t, states, token_mask, deterministic, key)
         return tuple(feats[s] for s in in_stages), new_states, p
 
     remat = remat_policy != "none" and torch.is_grad_enabled()
@@ -154,11 +169,12 @@ def _backbone_scan(
     states = lstm_states
     outs, ps = [], []
     for t in range(ev_repr.shape[0]):
+        key = None if dropout is None else dataclasses.replace(dropout, t=t)
         if remat:
-            out, states, p = checkpoint(step, ev_repr[t], states, use_reentrant=False,
+            out, states, p = checkpoint(step, ev_repr[t], states, key, use_reentrant=False,
                                         preserve_rng_state=False, **extra)
         else:
-            out, states, p = step(ev_repr[t], states)
+            out, states, p = step(ev_repr[t], states, key)
         outs.append(out)
         ps.append(p)
     feats_seq = tuple(torch.stack([o[i] for o in outs]) for i in range(len(in_stages)))
@@ -188,12 +204,15 @@ def _step_constants(cfg: ExperimentConfig, device):
     return tuple(cfg.model.fpn.in_stages), padder, token_mask
 
 
-def make_train_step(model: YoloXDetector, cfg: ExperimentConfig) -> Callable:
+def make_train_step(model: YoloXDetector, cfg: ExperimentConfig,
+                    mesh: Optional[dp.Mesh] = None) -> Callable:
     """Returns ``train_step(state, batch, lstm_states) -> (state, lstm_states,
-    metrics)``. ``batch`` holds tensors on the model's device; ``metrics``
-    holds 0-d tensors there (losses, ``num_fg``, ``P``, ``grad_norm`` and
-    ``grad_norm/<component>``), left on the device so that the step does not
-    wait for the card."""
+    metrics)``. ``batch`` holds tensors on the model's device (with ``mesh``:
+    this rank's lanes of the global batch, rank r holding rows
+    ``[r * B, (r + 1) * B)``); ``metrics`` holds 0-d tensors there (losses,
+    ``num_fg``, ``P``, ``grad_norm`` and ``grad_norm/<component>``, those of
+    the global batch), left on the device so that the step does not wait for
+    the card."""
     num_classes = cfg.model.head.num_classes
     topk = cfg.model.head.simota_topk
     att = cfg.model.backbone.attention
@@ -202,6 +221,8 @@ def make_train_step(model: YoloXDetector, cfg: ExperimentConfig) -> Callable:
         or att.drop_mlp > 0.0
         or cfg.model.backbone.lstm.drop_cell_update > 0.0
     )
+    seed = cfg.training.seed if cfg.training.seed is not None else 0
+    rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     constants = {}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lstm_states):
@@ -219,9 +240,10 @@ def make_train_step(model: YoloXDetector, cfg: ExperimentConfig) -> Callable:
             deterministic=not stochastic, padder=padder,
             num_channels=cfg.model.backbone.input_channels,
             token_mask=token_mask, remat_policy=cfg.training.remat_policy,
+            dropout=DropoutKey(seed, state.step, 0, rank, world) if stochastic else None,
         )
         sel = _select_labeled(feats_seq, in_stages, batch["frame_tidx"])
-        outputs = model.forward_detect(sel, train=True)
+        outputs = model.forward_detect(sel, train=True, mesh=mesh)
         losses = yolox_loss(
             preds=outputs["preds"],
             grids=outputs["grids"],
@@ -232,6 +254,7 @@ def make_train_step(model: YoloXDetector, cfg: ExperimentConfig) -> Callable:
             frame_valid=batch["frame_valid"].reshape(B * L),
             num_classes=num_classes,
             topk=topk,
+            mesh=mesh,
         )
         losses["loss"].backward()
 
@@ -245,6 +268,15 @@ def make_train_step(model: YoloXDetector, cfg: ExperimentConfig) -> Callable:
             by_component.setdefault(name.split(".")[0], []).append(p.grad)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["P"] = p_seq.sum() / T
+        if mesh is not None:
+            dp.reduce_gradients(model.parameters())
+            # The losses are this rank's shares of the global ones; P is a
+            # mean per lane, equal lanes on every rank; num_fg is global.
+            keys = ("loss", "iou_loss", "conf_loss", "cls_loss", "P")
+            summed = torch.stack([metrics[k] for k in keys])
+            dist.all_reduce(summed)
+            metrics.update(zip(keys, summed.unbind()))
+            metrics["P"] = metrics["P"] / world
         for k, grads in by_component.items():
             metrics[f"grad_norm/{k}"] = _global_norm(grads)
         metrics["grad_norm"] = _global_norm([g for gs in by_component.values() for g in gs])

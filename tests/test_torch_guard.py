@@ -74,11 +74,20 @@ def test_guard_covers_the_training_modules():
                 "training/loop.py", "data/synthetic.py", "data/batch.py", "utils/logging.py",
                 "data/sequence.py", "data/module.py", "data/streaming.py", "data/augment.py",
                 "data/labels.py", "eval/coco.py", "eval/prophesee.py", "checkpoint/io.py",
-                "checkpoint/torch_convert.py", "registry.py"):
+                "checkpoint/torch_convert.py", "registry.py", "parallel/mesh.py",
+                "data/device_cache.py"):
         assert f"sast_tpu_torch/{mod}" in names
     assert {"train_torch.py", "validation_torch.py", "chip_smoke.py"} <= names
     assert any(mod == "h5py" and inside for _, mod, inside in
                _imports(ROOT / "sast_tpu_torch" / "data" / "sequence.py"))
+
+
+def test_cli_refuses_only_the_weights_and_biases_options():
+    """``train_torch.py`` refuses by name only what has no counterpart in
+    the port: the Weights & Biases options."""
+    import train_torch
+
+    assert set(train_torch._REFUSED) == {"wandb", "wandb_runpath", "resume_wandb_artifact"}
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

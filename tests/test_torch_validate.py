@@ -232,17 +232,32 @@ def test_train_and_validation_clis_on_the_cpu(dataset_root, tmp_path, capsys):
                                   ["--profile-steps", "1:2"], ["WORLD_SIZE=2"]],
                          ids=["wandb", "wandb-runpath", "artifact", "device-cache", "profile",
                               "world"])
-def test_clis_refuse_what_is_not_ported(argv, monkeypatch, capsys):
+def test_clis_refuse_what_is_not_ported(argv, monkeypatch, capsys, tmp_path):
+    """Only the Weights & Biases options are refused, by name. The card
+    cache and profiler traces are accepted and the run goes on to read the
+    (missing) dataset; a torchrun world with half its variables set stops
+    before any rendezvous, naming what is missing."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    cpu = ["--size", "tiny", "--device", "cpu", "--workdir", str(tmp_path / "run")]
     if argv == ["WORLD_SIZE=2"]:
         monkeypatch.setenv("WORLD_SIZE", "2")
-        argv = []
-    with pytest.raises(SystemExit) as err:
-        train_torch.main(["--data", "unused", *argv])
-    assert err.value.code == 2 and "not ported" in capsys.readouterr().err
-    if not argv or argv == ["--device-cache"]:
-        with pytest.raises(SystemExit):
-            validation_torch.main(["--data", "unused", "--ckpt", "unused", *argv])
-        assert "not ported" in capsys.readouterr().err
+        with pytest.raises(RuntimeError, match="RANK, MASTER_ADDR, MASTER_PORT missing"):
+            train_torch.main(["--data", "unused", *cpu])
+        return
+    if argv[0] in ("--wandb", "--wandb-runpath", "--resume-wandb-artifact"):
+        with pytest.raises(SystemExit) as err:
+            train_torch.main(["--data", "unused", *argv])
+        assert err.value.code == 2 and "not ported" in capsys.readouterr().err
+        return
+    with pytest.raises(AssertionError, match="missing dataset split dir"):
+        train_torch.main(["--data", str(tmp_path / "unused"), *cpu, *argv])
+    assert "not ported" not in capsys.readouterr().err
+    if argv == ["--device-cache"]:
+        # Parsed: validation goes on to read the (missing) checkpoint.
+        with pytest.raises(FileNotFoundError):
+            validation_torch.main(["--data", "unused", "--ckpt", str(tmp_path / "none.ckpt"),
+                                   *cpu, *argv])
 
 
 def test_reference_state_dict_inverts_the_converter_as_the_convert_test_does():

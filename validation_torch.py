@@ -18,7 +18,7 @@ import argparse
 import json
 import sys
 
-from train_torch import parse_overrides, refuse_unported
+from train_torch import parse_overrides
 
 
 def main(argv=None, eval_batches=None):
@@ -40,10 +40,10 @@ def main(argv=None, eval_batches=None):
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     ap.add_argument("--workdir", default="runs/validation",
                     help="where the trainer that evaluates keeps its log")
-    # validation.py's option that the port does not have yet: refused.
-    ap.add_argument("--device-cache", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--device-cache", action="store_true",
+                    help="keep the split's event representations on the card and gather "
+                    "clips there (sast_tpu_torch/data/device_cache.py)")
     args = ap.parse_args(argv)
-    refuse_unported(ap, args)
 
     from sast_tpu_torch.checkpoint.io import CheckpointManager
     from sast_tpu_torch.checkpoint.torch_convert import load_torch_checkpoint
@@ -66,7 +66,11 @@ def main(argv=None, eval_batches=None):
     else:
         CheckpointManager(args.ckpt).restore_weights(trainer.state)
 
-    if eval_batches is None:
+    if eval_batches is None and args.device_cache:
+        from sast_tpu_torch.data.device_cache import DeviceCachedEvalStream
+
+        eval_batches = DeviceCachedEvalStream(cfg, args.split, device=trainer.device)
+    elif eval_batches is None:
         eval_batches = DataModule(cfg).eval_batches(args.split)
     metrics = trainer.validate(eval_batches, max_batches=args.max_batches)
     for k, v in metrics.items():
