@@ -97,10 +97,28 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    resident, ms per gathered batch and per host assembly plus upload. (d)
    ``fit(profile_steps=(2, 3))`` writes a trace that holds those steps and
    names kernel E's launches; it is removed afterwards.
+8. Serve as a deployment serves, at gen4-base full width, 4 lanes,
+   confidence threshold 0 and stand-in trained weights (phase 4's spread
+   logits and LayerScale), 8 frames with lane 2 reset at frame 4. (a)
+   ``export.export_streaming_detector`` on four configurations (the default
+   path: kernels A and C; the density fusion off on the sparse-kernel path:
+   A, B, E, C; the fused path: A, D, C; the looped path: A, F, C): the live
+   detector the same bits after its export as before; a fresh process that
+   imports ``sast_tpu_torch.export`` alone (and no model, training or data
+   module) loads each artifact and runs the frames, the same bits as the
+   live detector (detections, telemetry, carried states), with its launch
+   counters showing each kernel inside the artifact; export seconds,
+   artifact bytes, and ms/step of artifact and live in turns. The artifacts
+   live in a temporary directory under ``chiprun_out/``, removed afterwards.
+   (b) ``StreamingDetector(mesh=("cuda:0", "cuda:0"), num_streams=4)``: the
+   same bits as two 2-lane detectors; against one 4-lane detector, the
+   largest differences and any mismatch of valid or classes; ms/step of both
+   in turns.
 
 Prints the kernel table as one JSON line (the rows of kernels redesigned
 since their first port carry ``redesigned``, what the redesign made of
-them; the first versions' times are in PERF.md), then the nvidia-smi line, then
+them; the first versions' times are in PERF.md; ``launches_artifact`` counts
+phase 8's launches inside the artifacts), then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Longer output (build
 logs, profiler table, all measurements) goes to ``chiprun_out/``.
 Exits non-zero, printing no result, without a card or outside a checkout.
@@ -112,6 +130,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1696,6 +1715,25 @@ def training_cpu_parity(torch, np):
     return out
 
 
+def stand_in_trained(torch, model):
+    """``model`` with its prediction logits spread and its LayerScale raised,
+    in place: a stand-in for trained weights. At random init every score
+    sits at the prior (1e-4) within about 0.3%, closer together than two
+    computations can agree on, so the order of candidates would be noise;
+    and LayerScale starts at 1e-5, where the attention block barely moves
+    its input and every attention path would agree trivially (0.05 here)."""
+    with torch.no_grad():
+        for k in range(len(model.head.strides)):
+            for name, gain in (("cls_pred", 1000.0), ("obj_pred", 1000.0), ("reg_pred", 100.0)):
+                conv = getattr(model.head, f"{name}{k}")
+                conv.kernel.mul_(gain)
+                conv.bias.zero_()
+        for name, p in model.named_parameters():
+            if name.endswith(("ls1.gamma", "ls2.gamma")):
+                p.fill_(LAYER_SCALE)
+    return model
+
+
 def phase_cpu_parity(torch, np):
     from sast_tpu_torch.config import get_config
     from sast_tpu_torch.data.representations import stacked_histogram
@@ -1710,23 +1748,7 @@ def phase_cpu_parity(torch, np):
     h, w = cfg.dataset.resolution_hw
     rng = np.random.RandomState(11)
     frames = [synthetic_events(rng, 100_000, h, w, f) for f in range(2)]
-    model_cpu = build_detector(cfg.model, seed=3, device="cpu")
-    # At random init every score sits at the prior (1e-4) within about
-    # 0.3%, closer together than the card and the CPU can agree on, so the
-    # order of candidates would be noise. Spread the prediction logits (a
-    # stand-in for trained weights) so that the comparison means something.
-    with torch.no_grad():
-        for k in range(len(model_cpu.head.strides)):
-            for name, gain in (("cls_pred", 1000.0), ("obj_pred", 1000.0), ("reg_pred", 100.0)):
-                conv = getattr(model_cpu.head, f"{name}{k}")
-                conv.kernel.mul_(gain)
-                conv.bias.zero_()
-        # LayerScale starts at 1e-5, where the attention block barely moves
-        # its input and every attention path would agree trivially; 0.05
-        # stands in for trained values.
-        for name, p in model_cpu.named_parameters():
-            if name.endswith(("ls1.gamma", "ls2.gamma")):
-                p.fill_(LAYER_SCALE)
+    model_cpu = stand_in_trained(torch, build_detector(cfg.model, seed=3, device="cpu"))
     model_gpu = copy.deepcopy(model_cpu).to(DEVICE)
 
     # A confidence threshold in the widest score gap around rank 100 of the
@@ -2661,6 +2683,345 @@ def phase_seven(torch, np, card, phase5_first):
     return out
 
 
+# Phase 8: the serving deployment. Artifacts of the serving step on four
+# configurations, which between them launch kernels A-F from inside a loaded
+# program: name -> (backbone switches, attention switches, sparse_kernel,
+# looped kernel, the kernels whose counters must show launches in the
+# artifact, with the launches each must show per frame).
+EXPORT_PATHS = {
+    "default": (dict(), dict(), False, False, dict(stem_conv7x4=1, greedy_keep=1)),
+    "fusion_off_sparse": (dict(fuse_stem_density=False), dict(), True, False,
+                          dict(stem_conv7x4=1, density_ratio=1, sparse_window_block=8,
+                               greedy_keep=1)),
+    "fused": (dict(), dict(fused_block=True), False, False,
+              dict(stem_conv7x4=1, fused_window_block=8, greedy_keep=1)),
+    "looped": (dict(), dict(), True, True,
+               dict(stem_conv7x4=1, sparse_window_block_looped=8, greedy_keep=1)),
+}
+EXPORT_FRAMES = 8
+MESH = ("cuda:0", "cuda:0")  # two replicas on the one card of the machine
+# Mesh against one 4-lane detector in fp32 (TF32 off): largest box
+# difference (px), relative score difference, telemetry (tokens per lane)
+# and carried state, about 15 times what two half batches against one batch
+# measured on the H100 (6.1e-5 px, 8.7e-7, 0, 3.0e-6 over 8 frames); the
+# telemetry exact (no token selection moved).
+MESH_TOL = dict(box_px=1e-3, score_rel=1e-5, tokens=0.0, state=5e-5)
+
+# Run in a fresh process: load each artifact with ``sast_tpu_torch.export``
+# alone, step it over the parent's frames, and save its outputs, carried
+# states and launch counts beside the artifact.
+ARTIFACT_RUNNER = r"""
+import json, sys
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from sast_tpu_torch.export import ExportedStreamingDetector
+work, names = sys.argv[1], sys.argv[2:]
+ops = {k: sys.modules["sast_tpu_torch.ops." + m] for k, m in (
+    ("stem_conv7x4", "stem_conv"), ("density_ratio", "density"), ("greedy_keep", "nms_keep"),
+    ("fused_window_block", "fused_block"), ("sparse_window_block", "sparse_block"),
+    ("sparse_window_block_looped", "sparse_block"))}
+report = {}
+for name in names:
+    inputs = torch.load(f"{work}/{name}/inputs.pt", weights_only=True)
+    det = ExportedStreamingDetector(f"{work}/{name}")
+    for k, m in ops.items():
+        getattr(m, k).launches = 0
+    outs = [det.step(*(t.to(det.device) for t in frame)) for frame in inputs]
+    if det.device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = {k: getattr(m, k).launches for k, m in ops.items()}
+    torch.save(dict(outs=[({k: v.cpu() for k, v in d.items()}, p.cpu()) for d, p in outs],
+                    states=[t.cpu() for hc in det.states for t in hc]),
+               f"{work}/{name}/artifact_outputs.pt")
+    report[name] = dict(counts=counts, device=str(det.device), num_streams=det.num_streams,
+                        max_events=det.max_events)
+report["model_modules"] = sorted(m for m in sys.modules if m.startswith(
+    ("sast_tpu_torch.models", "sast_tpu_torch.training", "sast_tpu_torch.data",
+     "sast_tpu_torch.serving")))
+print(json.dumps(report))
+"""
+
+
+def export_config(cfg, backbone, attention):
+    """``cfg`` with switches of ``model.backbone`` and of its attention
+    replaced."""
+    bb = cfg.model.backbone
+    bb = dataclasses.replace(bb, attention=dataclasses.replace(bb.attention, **attention),
+                             **backbone)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb))
+
+
+def serving_inputs(torch, np, cfg, frames, resets):
+    """The step's device inputs of each frame: packed events, counts, resets."""
+    from sast_tpu_torch.packing import pack_event_batch
+
+    out = []
+    for fr, reset in zip(frames, resets):
+        packed, n = pack_event_batch(fr, STREAMS, EVENTS_PER_FRAME)
+        out.append(tuple(torch.from_numpy(a).to(DEVICE) for a in (packed, n, reset)))
+    return out
+
+
+def run_steps(torch, det, inputs):
+    """``det.step`` over the frames from zero states: per frame the slate
+    and telemetry on the host, then the carried states' leaves."""
+    det.reset()
+    outs = [det.step(*frame) for frame in inputs]
+    torch.cuda.synchronize()
+    states = det.states if det.mesh is None else [hc for replica in det.states for hc in replica]
+    return ([({k: v.cpu() for k, v in d.items()}, p.cpu()) for d, p in outs],
+            [t.cpu() for hc in states for t in hc])
+
+
+def same_bits(torch, a, b):
+    """Where two ``run_steps`` results differ, by frame and key (or state
+    leaf); empty when they are the same bits."""
+    (outs_a, states_a), (outs_b, states_b) = a, b
+    bad = [f"frame {f} {k}" for f, ((da, pa), (db, pb)) in enumerate(zip(outs_a, outs_b))
+           for k in list(da) + ["selected_tokens"]
+           if not torch.equal(da.get(k, pa), db.get(k, pb))]
+    bad += [f"state leaf {i}" for i, (x, y) in enumerate(zip(states_a, states_b))
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+    return bad if len(outs_a) == len(outs_b) and len(states_a) == len(states_b) else ["length"]
+
+
+def phase_export(torch, np, cfg, model, inputs, work):
+    """(a) of phase 8: per configuration of ``EXPORT_PATHS``, the live
+    detector's run, its export (seconds, bytes), its run again, the
+    artifacts run by a fresh process that imports ``sast_tpu_torch.export``
+    alone, and the artifact and the live step timed in turns here."""
+    from sast_tpu_torch.export import ExportedStreamingDetector, export_streaming_detector
+    from sast_tpu_torch.models.detector import YoloXDetector
+    from sast_tpu_torch.ops import sparse_block
+    from sast_tpu_torch.serving import StreamingDetector
+
+    results, live_runs, dets = {}, {}, {}
+    for name, (backbone, attention, sparse_kernel, looped, _) in EXPORT_PATHS.items():
+        cfg_p = export_config(cfg, backbone, attention)
+        model_p = YoloXDetector(cfg_p.model)
+        model_p.load_state_dict(model.state_dict())
+        det = dets[name] = StreamingDetector(cfg_p, model_p, max_events=EVENTS_PER_FRAME,
+                                             num_streams=STREAMS, device=DEVICE,
+                                             sparse_kernel=sparse_kernel)
+        sparse_block.MODEL_USES_LOOPED, default = looped, sparse_block.MODEL_USES_LOOPED
+        try:
+            live_runs[name] = run_steps(torch, det, inputs)
+            t0 = time.perf_counter()
+            blob = export_streaming_detector(det, path=str(work / name))
+            export_s = time.perf_counter() - t0
+            after = run_steps(torch, det, inputs)
+        finally:
+            sparse_block.MODEL_USES_LOOPED = default
+        bad = same_bits(torch, after, live_runs[name])
+        if bad:
+            fail(f"export {name}: the live detector steps differently after the export: {bad[:4]}")
+        torch.save(list(inputs), work / name / "inputs.pt")
+        results[name] = dict(export_s=export_s, artifact_bytes=len(blob))
+        log(f"export {name}: {export_s:.1f} s, {len(blob)} bytes; the live detector after the "
+            f"export is the same bits over {EXPORT_FRAMES} frames")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_RUNNER, str(work), *EXPORT_PATHS],
+                          capture_output=True, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        fail(f"export: the artifact process failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"export: a fresh process ran the {len(EXPORT_PATHS)} artifacts in "
+        f"{time.perf_counter() - t0:.1f} s; model modules it imported: {report['model_modules']}")
+    if report["model_modules"]:
+        fail(f"export: the artifact process imported {report['model_modules']}")
+    for name, (_, _, _, _, want) in EXPORT_PATHS.items():
+        got = torch.load(work / name / "artifact_outputs.pt", weights_only=True)
+        bad = same_bits(torch, (got["outs"], got["states"]), live_runs[name])
+        if bad:
+            fail(f"export {name}: the artifact differs from the live detector: {bad[:4]}")
+        counts, seen = report[name]["counts"], report[name]
+        short = {k: n * EXPORT_FRAMES for k, n in want.items() if counts[k] < n * EXPORT_FRAMES}
+        described = (seen["device"], seen["num_streams"], seen["max_events"])
+        if short or described != ("cuda:0", STREAMS, EVENTS_PER_FRAME):
+            fail(f"export {name}: launches inside the artifact {counts}, expected at least "
+                 f"{short}; device, lanes and event budget read from it {described}")
+        results[name]["launches_artifact"] = counts
+        log(f"export {name}: the artifact equals the live detector bit for bit over "
+            f"{EXPORT_FRAMES} frames (detections, telemetry, states); launches inside it "
+            f"{ {k: v for k, v in counts.items() if v} }")
+
+    # The artifact and the live step in turns (live, artifact, artifact,
+    # live), CUDA events over 20 steps each, on the first frame's inputs.
+    no_reset = torch.zeros(STREAMS, dtype=torch.bool, device=DEVICE)
+    pk, nk, _ = inputs[0]
+    for name, (_, _, _, looped, _) in EXPORT_PATHS.items():
+        art = ExportedStreamingDetector(str(work / name))
+        live = dets[name]
+        sparse_block.MODEL_USES_LOOPED, default = looped, sparse_block.MODEL_USES_LOOPED
+        try:
+            turns = [cuda_ms(torch, lambda d=d: d.step(pk, nk, no_reset), iters=20, warmup=3)
+                     for d in (live, art, art, live)]
+        finally:
+            sparse_block.MODEL_USES_LOOPED = default
+        results[name].update(live_ms_turns=[turns[0], turns[3]], artifact_ms_turns=turns[1:3],
+                             live_ms=(turns[0] + turns[3]) / 2, artifact_ms=(turns[1] + turns[2]) / 2)
+        log(f"export {name}: ms/step live {results[name]['live_ms']:.3f} "
+            f"(turns {turns[0]:.3f}, {turns[3]:.3f}), artifact {results[name]['artifact_ms']:.3f} "
+            f"(turns {turns[1]:.3f}, {turns[2]:.3f})")
+        del art
+    return results
+
+
+def slate_match(np, got, ref):
+    """Two slates of one lane: None unless they hold the same number of
+    valid detections with the same classes (as multisets); else the largest
+    box difference (px) and relative score difference, each of ``ref``'s
+    detections matched to ``got``'s nearest box of its class (near-equal
+    scores may come in either order)."""
+    vg, vr = got["valid"], ref["valid"]
+    bg, cg, sg = (got[k][vg] for k in ("boxes", "classes", "scores"))
+    br, cr, sr = (ref[k][vr] for k in ("boxes", "classes", "scores"))
+    if len(cg) != len(cr) or sorted(cg.tolist()) != sorted(cr.tolist()):
+        return None
+    box = score = 0.0
+    for i in range(len(cr)):
+        same = np.flatnonzero(cg == cr[i])
+        d = np.abs(bg[same] - br[i]).max(axis=1)
+        j = same[d.argmin()]
+        box, score = max(box, float(d.min())), max(score, abs(float(sg[j] - sr[i])) / float(sr[i]))
+    return box, score
+
+
+def phase_mesh(torch, np, cfg, model, inputs):
+    """(b) of phase 8: ``StreamingDetector(mesh=MESH, num_streams=4)`` (two
+    replicas of 2 lanes on the one card). In bf16 (the phase's config): the
+    same bits as two 2-lane detectors; against one 4-lane detector the
+    differences are logged (two half batches let cuDNN block its sums
+    otherwise, and in bf16 that moves token selections and the order of the
+    slates). In fp32 with a confidence threshold in a wide score gap (phase
+    4's method): against one 4-lane detector, the same valid counts and
+    classes, boxes, scores, states and telemetry within ``MESH_TOL``. ms/step
+    of the bf16 mesh and 4-lane detector in turns."""
+    from sast_tpu_torch.models.detector import YoloXDetector
+    from sast_tpu_torch.serving import StreamingDetector
+
+    def detector(cfg_d, lanes, **kw):
+        """A detector of ``lanes`` lanes with ``model``'s weights, built for
+        ``cfg_d``'s compute dtype."""
+        m = YoloXDetector(cfg_d.model)
+        m.load_state_dict(model.state_dict())
+        return StreamingDetector(cfg_d, m, max_events=EVENTS_PER_FRAME, num_streams=lanes, **kw)
+
+    half = STREAMS // 2
+    mesh = detector(cfg, STREAMS, mesh=MESH)
+    pairs = [detector(cfg, half, device=DEVICE) for _ in range(2)]
+    got = run_steps(torch, mesh, inputs)
+    halves = [run_steps(torch, p, [tuple(t[r * half:(r + 1) * half] for t in frame)
+                                   for frame in inputs]) for r, p in enumerate(pairs)]
+    # The two detectors' runs as one: slates joined in lane order, the
+    # telemetry the mean of their aggregates, the states replica by replica.
+    joined = ([({k: torch.cat([h[0][f][0][k] for h in halves]) for k in halves[0][0][f][0]},
+                torch.stack([h[0][f][1] for h in halves]).mean(dim=0))
+               for f in range(len(inputs))], [t for h in halves for t in h[1]])
+    bad = same_bits(torch, got, joined)
+    if bad:
+        fail(f"mesh: two replicas differ from two 2-lane detectors: {bad[:4]}")
+    log(f"mesh {MESH}: two replicas of {half} lanes equal two {half}-lane detectors bit for bit "
+        f"over {len(inputs)} frames (slates, telemetry, states)")
+    del pairs
+
+    def against_single(got, ref):
+        """Differences of a mesh run against a 4-lane run: elementwise slots
+        whose class differs, matched slates, telemetry and states."""
+        out = dict(class_slots=0, unmatched=0, box_px=0.0, score_rel=0.0, tokens=0.0, state=0.0)
+        for (dg, pg), (dr, pr) in zip(got[0], ref[0]):
+            out["class_slots"] += int((dg["classes"] != dr["classes"]).sum())
+            out["tokens"] = max(out["tokens"], float((pg - pr).abs().max()))
+            for lane in range(STREAMS):
+                m = slate_match(np, {k: v[lane].numpy() for k, v in dg.items()},
+                                {k: v[lane].numpy() for k, v in dr.items()})
+                if m is None:
+                    out["unmatched"] += 1
+                else:
+                    out["box_px"], out["score_rel"] = (max(out["box_px"], m[0]),
+                                                       max(out["score_rel"], m[1]))
+        # Leaf i of replica r is got[1][r * n + i]; the 4-lane run's leaves
+        # hold all lanes.
+        n = len(ref[1])
+        for i in range(n):
+            both = torch.cat([got[1][i], got[1][n + i]]).float()
+            out["state"] = max(out["state"], float((both - ref[1][i].float()).abs().max()))
+        return out
+
+    single = detector(cfg, STREAMS, device=DEVICE)
+    bf16 = against_single(got, run_steps(torch, single, inputs))
+    log(f"mesh vs one {STREAMS}-lane detector, bf16, threshold 0, {len(inputs)} frames "
+        f"(logged): {bf16}")
+
+    # fp32, with a threshold in the widest relative score gap of the first
+    # frame's pooled slates between ranks 100 and 900 (of 4 x 300 at gen4).
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                               compute_dtype="float32"))
+    probe = detector(cfg32, STREAMS, device=DEVICE)
+    dets, _ = probe.step(*inputs[0])
+    sc = dets["scores"][dets["valid"]].sort(descending=True).values
+    top = min(900, len(sc) - 1)
+    gaps = sc[100:top] / sc[101:top + 1]
+    r = 100 + int(gaps.argmax())
+    thr = float((sc[r] * sc[r + 1]).sqrt())
+    del probe
+    cfg32 = dataclasses.replace(cfg32, model=dataclasses.replace(cfg32.model, postprocess=(
+        dataclasses.replace(cfg32.model.postprocess, confidence_threshold=thr))))
+    fp32 = against_single(run_steps(torch, detector(cfg32, STREAMS, mesh=MESH), inputs),
+                          run_steps(torch, detector(cfg32, STREAMS, device=DEVICE), inputs))
+    fp32["threshold"], fp32["gap"] = thr, float(gaps.max())
+    log(f"mesh vs one {STREAMS}-lane detector, fp32, threshold {thr:.6e} (relative gap "
+        f"{float(gaps.max()):.6f} between pooled ranks {r + 1} and {r + 2}), {len(inputs)} "
+        f"frames: {fp32} (tolerances {MESH_TOL})")
+    if fp32["unmatched"] or any(fp32[k] > MESH_TOL[k] for k in MESH_TOL):
+        fail(f"mesh vs one {STREAMS}-lane detector in fp32 outside {MESH_TOL}: {fp32}")
+
+    no_reset = torch.zeros(STREAMS, dtype=torch.bool, device=DEVICE)
+    pk, nk, _ = inputs[0]
+    turns = [cuda_ms(torch, lambda d=d: d.step(pk, nk, no_reset), iters=20, warmup=3)
+             for d in (single, mesh, mesh, single)]
+    log(f"mesh ms/step {(turns[1] + turns[2]) / 2:.3f} (turns {turns[1]:.3f}, {turns[2]:.3f}); "
+        f"one {STREAMS}-lane detector {(turns[0] + turns[3]) / 2:.3f} "
+        f"(turns {turns[0]:.3f}, {turns[3]:.3f})")
+    return dict(bit_equal_to_pairs=True, vs_single_bf16=bf16, vs_single_fp32=fp32,
+                mesh_ms=(turns[1] + turns[2]) / 2, single_ms=(turns[0] + turns[3]) / 2,
+                turns_ms=turns)
+
+
+def phase_eight(torch, np):
+    """Phase 8: the serving deployment at gen4-base, 4 lanes, confidence
+    threshold 0 (NMS sees full candidate sets), stand-in trained weights:
+    (a) exported artifacts, (b) the lanes over two replicas."""
+    import tempfile
+
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.models.detector import build_detector
+
+    cfg = get_config("gen4", "base", **{"model.postprocess.confidence_threshold": 0.0})
+    model = stand_in_trained(torch, build_detector(cfg.model, seed=0, device="cpu"))
+    h, w = cfg.dataset.resolution_hw
+    rng = np.random.RandomState(8)
+    frames = [[clustered_events(np, rng, EVENTS_PER_FRAME - 1000 * s, h, w, f, s)
+               for s in range(STREAMS)] for f in range(EXPORT_FRAMES)]
+    resets = [np.array([f == EXPORT_FRAMES // 2 and s == 2 for s in range(STREAMS)])
+              for f in range(EXPORT_FRAMES)]
+    inputs = serving_inputs(torch, np, cfg, frames, resets)
+    work = Path(tempfile.mkdtemp(prefix="export_", dir=OUT_DIR))
+    try:
+        t0 = time.perf_counter()
+        exports = phase_export(torch, np, cfg, model, inputs, work)
+        log(f"phase 8a: export ok ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    mesh = phase_mesh(torch, np, cfg, model, inputs)
+    log(f"phase 8b: mesh ok ({time.perf_counter() - t0:.1f} s)")
+    return dict(exports=exports, mesh=mesh)
+
+
 def main() -> None:
     if not (ROOT / "sast_tpu_torch" / "csrc").is_dir():
         fail("sast_tpu_torch/ not found beside chip_smoke.py: run it from a checkout")
@@ -2755,14 +3116,30 @@ def main() -> None:
     log(f"phase 7: data parallel, regularizers, device cache and profiler ok "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    eight = phase_eight(torch, np)
+    # Launches on this slice's path: inside the loaded artifacts, counted
+    # from 0 per artifact over its frames, summed over the four artifacts.
+    for k in kernels:
+        n = sum(e["launches_artifact"].get(k["name"], 0) for e in eight["exports"].values())
+        if n:
+            k["launches_artifact"] = n
+    for name in ("stem_conv7x4", "density_ratio", "greedy_keep", "fused_window_block",
+                 "sparse_window_block", "sparse_window_block_looped"):
+        if not any(k["name"] == name and k.get("launches_artifact") for k in kernels):
+            fail(f"kernel {name} was not launched from inside an artifact")
+    eight["seconds"] = time.perf_counter() - t0
+    log(f"phase 8: export and serving lanes ok ({eight['seconds']:.1f} s)")
+
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
-                  training=training, fit_validate=fit_validate, phase7=seven,
+                  training=training, fit_validate=fit_validate, phase7=seven, phase8=eight,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels redesigned since their first port; launches on phases 6 and 7.
-    extra = ("redesigned", "launches_fit_validate", "launches_data_parallel")
+    # Kernels redesigned since their first port; launches on phases 6, 7 and 8.
+    extra = ("redesigned", "launches_fit_validate", "launches_data_parallel",
+             "launches_artifact")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(smi)

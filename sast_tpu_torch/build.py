@@ -99,13 +99,48 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it first if needed."""
+def load(name: str, card: int = 0) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` for card ``card``, building it
+    first if needed. Each card past the first loads a copy of its own (a file
+    beside the library): the C entries keep static state, such as whether
+    they have raised a kernel's shared-memory limit, that the CUDA runtime
+    holds per device, so one process serving several cards needs one copy of
+    that state per card."""
     build([name])
-    return ctypes.CDLL(str(_library(name)))
+    path = _library(name)
+    if card:
+        copy = path.with_name(f"{path.stem}.card{card}{path.suffix}")
+        if not copy.exists():
+            tmp = copy.with_suffix(f".{os.getpid()}.tmp")
+            shutil.copyfile(path, tmp)
+            os.replace(tmp, copy)
+        path = copy
+    return ctypes.CDLL(str(path))
+
+
+def on_its_card(launch):
+    """Run ``launch`` (a wrapper's CUDA path, whose first argument is a CUDA
+    tensor) with that tensor's card as the current device: a C entry
+    launches in the current device's context."""
+    import torch
+
+    @functools.wraps(launch)
+    def wrapper(t, *args, **kwargs):
+        with torch.cuda.device(t.device):
+            return launch(t, *args, **kwargs)
+
+    return wrapper
 
 
 def check(rc: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def check_device(t, what: str) -> None:
+    """Raise unless ``t`` lies on the CPU (the plain version) or a card (the
+    kernel): an operator has no other implementation but its shape-only one,
+    which must not answer for a meta tensor outside a trace."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")

@@ -1,0 +1,186 @@
+"""Deployment artifacts of the streaming detector (``torch.export``): port of
+sast_tpu/export.py.
+
+The deployable unit is the serving step (``serving.StreamingStep``:
+tensorize, recurrent backbone, head, NMS) traced by ``torch.export`` into
+one ``ExportedProgram`` and saved with ``torch.export.save``:
+
+- the **weights are baked** into the artifact (they are the program's
+  parameters and buffers, saved beside its graph);
+- the carried LSTM state, the packed events, the valid counts and the reset
+  mask stay **runtime inputs**;
+- the hand-written kernels stand in the graph as the operators
+  ``torch.ops.sast_tpu_torch.*`` (``ops/stem_conv.py``, ``ops/density.py``,
+  ``ops/nms_keep.py``, ``ops/sparse_block.py``, ``ops/fused_block.py``): a loaded program launches
+  them on CUDA tensors and runs their plain versions on CPU tensors;
+- the artifact is **self-describing**: its input signature gives the zero
+  state, the lane count and the event budget, so loading it needs no model
+  config and no model code, only torch, this module and the operators.
+
+Portability: an artifact runs on the device it was exported on (the
+device of the detector's first replica; its kernels where that is a card),
+and on the torch version that wrote it, since ``torch.export``'s format
+has no promise across versions. The JAX export's ``platforms`` and
+``allow_tpu_kernels`` have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import io
+import math
+import os
+from typing import Dict, Union
+
+import numpy as np
+import torch
+import torch.utils._pytree as pytree
+
+# Deliberately no model imports at module level: a serving host loads an
+# artifact with torch, numpy, the event packing and the operator
+# registrations alone (the model stack is imported lazily by the export
+# function).
+import sast_tpu_torch.ops.density  # noqa: F401  (registers sast_tpu_torch::density_ratio)
+import sast_tpu_torch.ops.fused_block  # noqa: F401  (fused_block_fwd)
+import sast_tpu_torch.ops.nms_keep  # noqa: F401  (sast_tpu_torch::greedy_keep)
+import sast_tpu_torch.ops.sparse_block  # noqa: F401  (sparse_block_fwd, sparse_block_looped)
+import sast_tpu_torch.ops.stem_conv  # noqa: F401  (stem_conv7x4, stem_conv_density7x4)
+from sast_tpu_torch.packing import pack_event_batch
+
+ARTIFACT_NAME = "streaming_step.pt2"
+
+
+def _refuse_host_reads(det) -> None:
+    """Raise if an attention layer of ``det`` reads a number back from the
+    card inside the step, which a trace cannot follow: the budget-gather
+    path whenever its budget K is below a layer's M windows (the test of
+    ``n_win <= K``), and the sparse kernel below a density threshold of 1."""
+    from sast_tpu_torch.models.sast import MaskedSparseAttention
+
+    bb = det.cfg.model.backbone
+    ph, pw = bb.attention.partition_size
+    lanes = det.num_streams
+    for m in det.model.modules():
+        if not isinstance(m, MaskedSparseAttention) or m.enable_cb:
+            continue
+        if m.gather_budget > 0.0:
+            for stride in bb.stage_strides:
+                M = lanes * (bb.in_res_hw[0] // stride // ph) * (bb.in_res_hw[1] // stride // pw)
+                if max(1, min(M, math.ceil(m.gather_budget * M))) < M:
+                    raise ValueError(
+                        f"attention.gather_budget={m.gather_budget} keeps fewer than the {M} "
+                        "windows of a layer: the gather path then reads the kept-window "
+                        "count on the host (models/sast.py, MaskedSparseAttention.run_block, "
+                        "int(wk.sum())), which torch.export cannot trace"
+                    )
+        elif m.sparse_kernel and m.density_threshold < 1.0:
+            raise ValueError(
+                f"attention.pallas_density_threshold={m.density_threshold} < 1 reads the "
+                "window density on the host (models/sast.py, MaskedSparseAttention."
+                "run_block), which torch.export cannot trace"
+            )
+
+
+def export_streaming_detector(det, path=None) -> bytes:
+    """Trace ``det``'s serving step (a ``serving.StreamingDetector``) into an
+    artifact and return its bytes; when ``path`` is given also write them to
+    ``<path>/streaming_step.pt2`` (creating the directory).
+
+    The program takes ``(states, packed, n_events, reset)`` for all
+    ``det.num_streams`` lanes on the device of ``det``'s first replica and
+    returns ``(dets, new_states, selected_tokens)``. Raises ``ValueError``
+    for a configuration whose step reads the host (the gather path with a
+    budget below 1). Tracing leaves ``det`` as it was: its caches fill only
+    outside a trace."""
+    from sast_tpu_torch.models.backbone import zero_states
+
+    _refuse_host_reads(det)
+    step, device = det.replicas[0], det.devices[0]
+    S = det.num_streams
+    args = (
+        zero_states(det.cfg.model.backbone, S, det.dtype, device),
+        torch.zeros((S, det.max_events, 4), dtype=torch.int32, device=device),
+        torch.zeros((S,), dtype=torch.int32, device=device),
+        torch.zeros((S,), dtype=torch.bool, device=device),
+    )
+    with torch.no_grad():
+        program = torch.export.export(step, args, strict=False)
+    program.example_inputs = None  # zeros of the signature's shapes; not saved
+    # The trace checks the input of every dtype cast (about 470 a step, the
+    # weights' casts among them) with an assertion node of its own: a host
+    # dispatch each time the program runs, on shapes and dtypes that are
+    # static. The program runs without them.
+    for node in list(program.graph.nodes):
+        if node.target is torch.ops.aten._assert_tensor_metadata.default:
+            program.graph.erase_node(node)
+    program.graph_module.recompile()
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    blob = buf.getvalue()
+    if path is not None:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, ARTIFACT_NAME), "wb") as f:
+            f.write(blob)
+    return blob
+
+
+class ExportedStreamingDetector:
+    """Run an exported streaming-detector artifact.
+
+    The API of ``StreamingDetector`` (``reset``, ``process_batch``,
+    ``process_events``) without the model code or config: the zero state,
+    ``num_streams`` and ``max_events`` come from the program's own input
+    signature, and it runs on the device it was exported on."""
+
+    def __init__(self, blob_or_path: Union[bytes, str]):
+        if isinstance(blob_or_path, (bytes, bytearray)):
+            source = io.BytesIO(bytes(blob_or_path))
+        else:
+            source = blob_or_path
+            if os.path.isdir(source):
+                source = os.path.join(source, ARTIFACT_NAME)
+        self.program = torch.export.load(source)
+        self._fn = self.program.module()
+        # The user inputs' placeholders, in the order of the flattened
+        # ((states, packed, n_events, reset), {}) tree.
+        names = set(self.program.graph_signature.user_inputs)
+        specs = [n.meta["val"] for n in self.program.graph.nodes
+                 if n.op == "placeholder" and n.name in names]
+        self.device = specs[0].device
+        leaves = [torch.zeros(v.shape, dtype=v.dtype, device=self.device) for v in specs]
+        (states, packed, _, _), _ = pytree.tree_unflatten(leaves, self.program.call_spec.in_spec)
+        self._states_zero = states
+        self.num_streams, self.max_events = int(packed.shape[0]), int(packed.shape[1])
+        self.reset()
+
+    def reset(self) -> None:
+        """Zero the carried recurrent state of every lane (per-lane resets
+        go through ``process_batch``'s ``reset`` mask)."""
+        self.states = pytree.tree_map(torch.clone, self._states_zero)
+
+    @torch.no_grad()
+    def step(self, packed: torch.Tensor, n_events: torch.Tensor, reset: torch.Tensor):
+        """``StreamingDetector.step`` through the program: (S, E, 4) int32
+        events, (S,) counts and (S,) resets on the artifact's device ->
+        (detections, selected-token telemetry); carries the state."""
+        dets, self.states, p_tel = self._fn(self.states, packed, n_events, reset)
+        return dets, p_tel
+
+    def process_batch(self, frames, reset: "np.ndarray | None" = None) -> Dict[str, np.ndarray]:
+        """One frame window per lane -> batched detections (the contract of
+        ``StreamingDetector.process_batch``; both pack with
+        ``packing.pack_event_batch``)."""
+        S = self.num_streams
+        packed, n = pack_event_batch(frames, S, self.max_events)
+        reset = np.zeros((S,), bool) if reset is None else np.asarray(reset, bool)
+        dets, p_tel = self.step(*(torch.from_numpy(a).to(self.device) for a in (packed, n, reset)))
+        out = {k: v.cpu().numpy() for k, v in dets.items()}
+        return out | {"selected_tokens": p_tel.cpu().numpy()}
+
+    def process_events(self, x: np.ndarray, y: np.ndarray, p: np.ndarray,
+                       t: np.ndarray) -> Dict[str, np.ndarray]:
+        """One frame window of raw (time-sorted) events -> detections."""
+        if self.num_streams != 1:
+            raise ValueError("use process_batch with num_streams > 1")
+        out = self.process_batch([dict(x=x, y=y, p=p, t=t)])
+        tel = out.pop("selected_tokens")
+        return {k: v[0] for k, v in out.items()} | {"selected_tokens": tel}

@@ -69,12 +69,18 @@ class SASTStage(nn.Module):
         self._pos: Dict[tuple, torch.Tensor] = {}
 
     def pos_emb(self, H: int, W: int, device) -> torch.Tensor:
+        """The (H, W) sine embedding on ``device``, kept per shape and device;
+        under a trace (``torch.export``) made afresh and not kept, so that no
+        traced value is left behind in the live module."""
         key = (H, W, str(device))
-        if key not in self._pos:
-            self._pos[key] = torch.from_numpy(
+        pos = self._pos.get(key)
+        if pos is None:
+            pos = torch.from_numpy(
                 position_embedding_sine(H, W, num_pos_feats=self.dim // 2)
             ).to(device)
-        return self._pos[key]
+            if not torch.compiler.is_compiling():
+                self._pos[key] = pos
+        return pos
 
     def forward(
         self,

@@ -61,11 +61,16 @@ class YoloXHead(nn.Module):
                 getattr(self, f"obj_pred{k}").bias.fill_(self.prior_bias)
 
     def grids(self, hw_per_level, device):
+        """Anchor cells and strides on ``device``, kept per shape and device;
+        under a trace (``torch.export``) made afresh and not kept."""
         key = (tuple(hw_per_level), str(device))
-        if key not in self._grids:
+        grids = self._grids.get(key)
+        if grids is None:
             g, s = build_grids(hw_per_level, self.strides)
-            self._grids[key] = (torch.from_numpy(g).to(device), torch.from_numpy(s).to(device))
-        return self._grids[key]
+            grids = (torch.from_numpy(g).to(device), torch.from_numpy(s).to(device))
+            if not torch.compiler.is_compiling():
+                self._grids[key] = grids
+        return grids
 
     def forward(self, features) -> Dict[str, torch.Tensor]:
         outputs, hw_per_level = [], []

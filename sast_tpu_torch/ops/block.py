@@ -96,15 +96,19 @@ def kernel_params(attn) -> Dict[str, torch.Tensor]:
     contiguous ``(out, in)`` tensor in the compute dtype: the plain version
     multiplies by the view, the launcher takes the tensor under it without a
     copy. The dict is cached on the module and rebuilt when a parameter is
-    written, moved or cast."""
+    written, moved or cast. Under a trace (``torch.export``, whose
+    parameters have no storage) it is built from the traced parameters and
+    neither read from nor written to the cache."""
     dense = (attn.qkv, attn.proj, attn.mlp.GLU_0.Dense_0, attn.mlp.Dense_0)
-    vectors = (attn.norm2.scale, attn.norm2.bias, attn.ls1.gamma, attn.ls2.gamma)
-    source = [d.kernel for d in dense] + [d.bias for d in dense if d.bias is not None]
-    source += list(vectors)
-    stamp = (attn.qkv.dtype,) + tuple((t.data_ptr(), t._version) for t in source)
-    cached = getattr(attn, "_kernel_params", None)
-    if cached is not None and cached[0] == stamp:
-        return cached[1]
+    tracing = torch.compiler.is_compiling()
+    if not tracing:
+        vectors = (attn.norm2.scale, attn.norm2.bias, attn.ls1.gamma, attn.ls2.gamma)
+        source = [d.kernel for d in dense] + [d.bias for d in dense if d.bias is not None]
+        source += list(vectors)
+        stamp = (attn.qkv.dtype,) + tuple((t.data_ptr(), t._version) for t in source)
+        cached = getattr(attn, "_kernel_params", None)
+        if cached is not None and cached[0] == stamp:
+            return cached[1]
     dt = attn.qkv.dtype
 
     def bias(d):
@@ -121,7 +125,8 @@ def kernel_params(attn) -> Dict[str, torch.Tensor]:
     for key, bkey, d in zip(MATRICES, ("bqkv", "bproj", "bglu", "bout"), dense):
         params[key] = d.kernel.detach().to(dt).contiguous().t()
         params[bkey] = bias(d)
-    attn._kernel_params = (stamp, params)
+    if not tracing:
+        attn._kernel_params = (stamp, params)
     return params
 
 

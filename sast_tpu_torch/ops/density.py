@@ -7,8 +7,10 @@ non-zero cells of the input max-pooled by 4, 8, 16 and 32, normalised by
 launch from the input to the ratio; its note says what bounds it on the H100
 and how it is laid out.
 
-``density_ratio`` dispatches on the tensor's device: a CPU tensor goes to
-``density_ratio_plain``, a CUDA tensor launches the kernel or raises. The
+``density_ratio`` calls the operator ``sast_tpu_torch::density_ratio``,
+which dispatches on the tensor's device: a CPU tensor goes to
+``density_ratio_plain``, a CUDA tensor launches the kernel or raises; under
+``torch.export`` the operator stands in the graph by its shape. The
 ratio carries no gradient (the reference computes it under no_grad).
 """
 
@@ -71,8 +73,8 @@ def non_zero_ratio_plain(x: torch.Tensor, num_stages: int = 4) -> torch.Tensor:
 
 
 @functools.cache
-def _kernel():
-    lib = build.load("density")
+def _kernel(card: int):
+    lib = build.load("density", card)
     fn = lib.sast_density_ratio
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -96,21 +98,29 @@ def density_ratio_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def density_ratio(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) uint8 -> (B, 4, C) fp32 density ratio.
+    """(B, H, W, C) uint8 -> (B, 4, C) fp32 density ratio, through the
+    operator ``sast_tpu_torch::density_ratio``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel: one
     allocation (the ratio and the kernel's per-block counts behind it) and
     one launch, bit-equal to the plain version."""
     if not density_supported(x.shape, x.dtype):
         raise ValueError(f"density kernel gate fails for {tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        return density_ratio_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"density_ratio: unsupported device {x.device}")
+    build.check_device(x, "density_ratio")
+    return torch.ops.sast_tpu_torch.density_ratio(x)
+
+
+# The operator: the kernel on CUDA tensors, the plain version on CPU
+# tensors, the shape alone under a trace. The tickets are the CUDA
+# implementation's own (``_tickets``), never an input.
+@torch.library.custom_op("sast_tpu_torch::density_ratio", mutates_args=(), device_types="cuda",
+                         schema="(Tensor x) -> Tensor")
+@build.on_its_card
+def _density_op(x):
     B, H, W, C = x.shape
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("density kernel needs a contiguous, 16-byte aligned input")
-    fn, size = _kernel()
+    fn, size = _kernel(x.device.index)
     n_out = B * 4 * C
     buf = torch.empty(n_out + size(B, H, W, C) // 4, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -122,6 +132,14 @@ def density_ratio(x: torch.Tensor) -> torch.Tensor:
     )
     density_ratio.launches += 1
     return buf[:n_out].view(B, 4, C)
+
+
+_density_op.register_kernel("cpu")(density_ratio_plain)
+
+
+@_density_op.register_fake
+def _density_fake(x):
+    return x.new_empty((x.shape[0], 4, x.shape[3]), dtype=torch.float32)
 
 
 density_ratio.launches = 0  # kernel launches, read by chip_smoke.py

@@ -7,14 +7,16 @@ the CUDA kernel is E's sequence of launches (``csrc/sparse_fwd.cu``: prep,
 QKV, a core per window and head, proj, GLU, out; every product a grid of
 tensor-core tiles over all tokens) with the identity work list: ``ids =
 arange(M)`` and ``n_win = M``, both kept on the card per (M, device), so a
-call sorts nothing and reads nothing back. A window without a kept token
+call sorts nothing and reads nothing back. It is the operator
+``sast_tpu_torch::fused_block_fwd``. A window without a kept token
 runs through the core with every key masked (a uniform softmax, finite)
 and its output is ``y``. Its plain version is ``fused_block_plain``
 (``ops/block.block_window_plain`` on all windows, the counterpart of
 ``fused_block_xla``).
 
 ``fused_window_block`` takes the plain version only for a CPU tensor; on a
-CUDA tensor it launches the kernel or raises. Under grad mode it is a
+CUDA tensor it launches the kernel or raises; under ``torch.export`` the
+operator stands in the graph by its shape. Under grad mode it is a
 ``torch.autograd.Function``: the kernel forward, and as backward
 ``torch.autograd`` of the plain block on the saved inputs, as the TPU
 package differentiates ``fused_block_xla`` behind its kernel.
@@ -27,6 +29,7 @@ from typing import Dict
 
 import torch
 
+from sast_tpu_torch import build
 from sast_tpu_torch.ops import block, sparse_block
 
 
@@ -45,22 +48,45 @@ def fused_block_plain(
 @functools.cache
 def _every_window(M: int, device: torch.device):
     """The identity work list of M windows and ``n_win = M``, int32 on
-    ``device``."""
+    ``device`` (made by the CUDA implementation, never under a trace)."""
     return (torch.arange(M, dtype=torch.int32, device=device),
             torch.full((1,), M, dtype=torch.int32, device=device))
 
 
 def _forward(y, token_keep, params, num_heads, dim_head, norm_eps):
-    if y.device.type == "cpu":
-        return fused_block_plain(y, token_keep, params, num_heads, dim_head, norm_eps)
-    y = y.contiguous()
+    build.check_device(y, "fused_window_block")
+    return torch.ops.sast_tpu_torch.fused_block_fwd(
+        y.contiguous(), token_keep, [params[k] for k in block.PARAM_KEYS], num_heads, dim_head,
+        float(norm_eps))
+
+
+# The operator: kernel D on CUDA tensors (E's launches over the identity
+# work list), the plain version on CPU tensors, the shape alone under a
+# trace. ``params`` as for ``sast_tpu_torch::sparse_block_fwd``.
+@torch.library.custom_op(
+    "sast_tpu_torch::fused_block_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor y, Tensor token_keep, Tensor[] params, int num_heads, int dim_head, "
+           "float norm_eps) -> Tensor")
+def _fused_op(y, token_keep, params, num_heads, dim_head, norm_eps):
     if not y.shape[0]:
         return torch.empty_like(y)
     ids, n_win = _every_window(y.shape[0], y.device)
-    out, _ = sparse_block._sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head,
+    out, _ = sparse_block._sparse_fwd(y, token_keep, ids, n_win,
+                                      dict(zip(block.PARAM_KEYS, params)), num_heads, dim_head,
                                       norm_eps, False)
     fused_window_block.launches += 1
     return out
+
+
+@_fused_op.register_kernel("cpu")
+def _fused_cpu(y, token_keep, params, num_heads, dim_head, norm_eps):
+    return fused_block_plain(y, token_keep, dict(zip(block.PARAM_KEYS, params)), num_heads,
+                             dim_head, norm_eps)
+
+
+@_fused_op.register_fake
+def _fused_fake(y, token_keep, params, num_heads, dim_head, norm_eps):
+    return torch.empty_like(y)
 
 
 class _FusedBlockFn(torch.autograd.Function):

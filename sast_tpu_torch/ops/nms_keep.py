@@ -9,8 +9,10 @@ max/min/clip intersection, the same ``inter / (area_i + area_j - inter +
 1e-12) > thr`` test in fp32 with every operation rounded on its own, the
 same ``score > 0`` validity.
 
-``greedy_keep`` dispatches on the tensor's device: a CPU tensor goes to
-``greedy_keep_plain``, a CUDA tensor launches the kernel or raises.
+``greedy_keep`` calls the operator ``sast_tpu_torch::greedy_keep``, which
+dispatches on the tensor's device: a CPU tensor goes to
+``greedy_keep_plain``, a CUDA tensor launches the kernel or raises; under
+``torch.export`` the operator stands in the graph by its shape.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ def greedy_keep_plain(
 
 
 @functools.cache
-def _kernel():
-    lib = build.load("nms_keep")
+def _kernel(card: int):
+    lib = build.load("nms_keep", card)
     fn = lib.sast_greedy_keep
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [
         ctypes.c_float, ctypes.c_void_p
@@ -74,7 +76,8 @@ def _kernel():
 def greedy_keep(
     boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
 ) -> torch.Tensor:
-    """Batched greedy keep mask.
+    """Batched greedy keep mask, through the operator
+    ``sast_tpu_torch::greedy_keep``.
 
     Args:
       boxes: (N, K, 4) fp32 xyxy, sorted by descending score per row
@@ -84,21 +87,27 @@ def greedy_keep(
 
     Returns (N, K) bool, True where the candidate survives.
     """
+    build.check_device(boxes, "greedy_keep")
     N, K, _ = boxes.shape
-    if boxes.device.type == "cpu":
-        return greedy_keep_plain(boxes, scores, iou_threshold)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"greedy_keep: unsupported device {boxes.device}")
-    if K > MAX_K or N > 65535:
+    if boxes.device.type == "cuda" and (K > MAX_K or N > 65535):
         raise ValueError(f"greedy keep kernel takes K <= {MAX_K} and N <= 65535, got {N}, {K}")
-    boxes = boxes.float().contiguous()
-    scores = scores.float().contiguous()
+    return torch.ops.sast_tpu_torch.greedy_keep(
+        boxes.float().contiguous(), scores.float().contiguous(), float(iou_threshold))
+
+
+# The operator: the kernel on CUDA tensors, the plain version on CPU
+# tensors, the shape alone under a trace.
+@torch.library.custom_op("sast_tpu_torch::greedy_keep", mutates_args=(), device_types="cuda",
+                         schema="(Tensor boxes, Tensor scores, float iou_threshold) -> Tensor")
+@build.on_its_card
+def _greedy_keep_op(boxes, scores, iou_threshold):
+    N, K, _ = boxes.shape
     if boxes.data_ptr() % 16:
         raise ValueError("greedy keep kernel needs 16-byte aligned boxes")
     keep = torch.empty((N, K), dtype=torch.bool, device=boxes.device)
     if N == 0 or K == 0:
         return keep
-    fn, size = _kernel()
+    fn, size = _kernel(boxes.device.index)
     n_work = size(N, K)
     mask = torch.empty(n_work, dtype=torch.uint8, device=boxes.device)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
@@ -111,6 +120,14 @@ def greedy_keep(
     )
     greedy_keep.launches += 1
     return keep
+
+
+_greedy_keep_op.register_kernel("cpu")(greedy_keep_plain)
+
+
+@_greedy_keep_op.register_fake
+def _greedy_keep_fake(boxes, scores, iou_threshold):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
 
 
 greedy_keep.launches = 0  # kernel launches, read by chip_smoke.py

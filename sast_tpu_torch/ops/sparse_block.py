@@ -29,10 +29,13 @@ and ``sparse_window_block_looped`` / ``_looped_kernel``
   refuses the cooperative launch, the wrapper raises.
 
 The work list and ``n_win`` stay on the device (the kernels read ``n_win``
-from memory), so neither wrapper synchronises with the host. Each wrapper
-takes its plain version only for a CPU tensor; on a CUDA tensor it launches
-or raises. The looped wrapper is forward only (the TPU package gives it no
-VJP either): under grad mode with a tensor that requires grad it raises.
+from memory), so neither wrapper synchronises with the host. Each forward
+wrapper calls its operator (``sast_tpu_torch::sparse_block_fwd``,
+``sast_tpu_torch::sparse_block_looped``), which takes the plain version
+only for a CPU tensor, launches or raises on a CUDA tensor, and stands in
+a ``torch.export`` graph by its shapes. The looped wrapper is forward only
+(the TPU package gives it no VJP either): under grad mode with a tensor that
+requires grad it raises.
 
 Arithmetic of the backward. The recomputation rounds exactly as the forward
 routine does. Every product of the backward whose second operand is a weight
@@ -114,8 +117,8 @@ LOOPED_STAMPS = None
 
 
 @functools.cache
-def _fwd_entry():
-    lib = build.load("sparse_fwd")
+def _fwd_entry(card: int):
+    lib = build.load("sparse_fwd", card)
     fn = lib.sast_sparse_fwd
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
@@ -135,8 +138,8 @@ def _aligned(table, what):
 
 
 @functools.cache
-def _looped_entry():
-    lib = build.load("sparse_fwd")
+def _looped_entry(card: int):
+    lib = build.load("sparse_fwd", card)
     fn = lib.sast_looped_fwd
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
@@ -147,6 +150,7 @@ def _looped_entry():
     return fn, size
 
 
+@build.on_its_card
 def _looped_fwd(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
     """Kernel F (one ``ctypes`` call, one cooperative launch) on a CUDA
     tensor: the work list of ``win_keep``, built on the card, and the block
@@ -160,7 +164,7 @@ def _looped_fwd(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
     table = [y, keep, out, win_keep.contiguous()] + [ops[k] for k in block.PARAM_KEYS]
     table.append(LOOPED_STAMPS)
     _aligned(table, what)
-    fn, size = _looped_entry()
+    fn, size = _looped_entry(y.device.index)
     n_work = size(M, hw, C, inner, dim_head, flags[1])
     if n_work < 0:
         raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} is not "
@@ -173,6 +177,7 @@ def _looped_fwd(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
     return out
 
 
+@build.on_its_card
 def _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps, save_h1):
     """Kernel E's launches (one ``ctypes`` call) on a CUDA tensor over the
     work list ``ids`` / ``n_win`` (kernel D passes the identity): their
@@ -185,7 +190,7 @@ def _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps
     h1 = torch.empty(y.shape, dtype=torch.float32, device=y.device) if save_h1 else None
     table = [y, keep, out, h1, ids, n_win] + [ops[k] for k in block.PARAM_KEYS]
     _aligned(table, what)
-    fn, size = _fwd_entry()
+    fn, size = _fwd_entry(y.device.index)
     n_work = size(M, hw, C, inner, dim_head, flags[1])
     if n_work < 0:
         raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} is not "
@@ -199,26 +204,77 @@ def _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps
 
 
 def _run(wrapper, y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1):
-    if y.device.type == "cpu":
-        return sparse_window_block_plain(
-            y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1
-        )
     M = y.shape[0]
     if win_keep.shape != (M,) or win_keep.dtype != torch.bool:
         raise ValueError(f"{wrapper.__name__}: win_keep must be (M,) bool")
+    build.check_device(y, wrapper.__name__)
     y = y.contiguous()
-    if not M:
-        h1 = torch.empty(y.shape, dtype=torch.float32, device=y.device) if save_h1 else None
-        return (torch.empty_like(y), h1) if save_h1 else torch.empty_like(y)
+    plist = [params[k] for k in block.PARAM_KEYS]
     if wrapper is sparse_window_block_looped:
-        out, h1 = _looped_fwd(y, token_keep, win_keep, params, num_heads, dim_head,
-                              norm_eps), None
-    else:
-        ids, n_win = block.work_list(win_keep)
-        out, h1 = _sparse_fwd(y, token_keep, ids, n_win, params, num_heads, dim_head, norm_eps,
-                              save_h1)
-    wrapper.launches += 1
+        return torch.ops.sast_tpu_torch.sparse_block_looped(
+            y, token_keep, win_keep, plist, num_heads, dim_head, float(norm_eps))
+    out, h1 = torch.ops.sast_tpu_torch.sparse_block_fwd(
+        y, token_keep, win_keep, plist, num_heads, dim_head, float(norm_eps), save_h1)
     return (out, h1) if save_h1 else out
+
+
+# The operators: ``sparse_block_fwd`` is kernel E's launches over the work
+# list of ``win_keep`` (kernel D's, over every window, is
+# ``ops/fused_block.py``'s operator), ``sparse_block_looped`` is kernel F.
+# On CUDA tensors each launches or raises and counts its launch; on CPU
+# tensors each runs the plain version; under a trace (``torch.export``) each
+# stands in the graph by its shapes. ``params`` is ``ops/block.kernel_params``'
+# dict as a list in ``PARAM_KEYS`` order; the h1 of a call without
+# ``save_h1`` is empty.
+@torch.library.custom_op(
+    "sast_tpu_torch::sparse_block_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor y, Tensor token_keep, Tensor win_keep, Tensor[] params, int num_heads, "
+           "int dim_head, float norm_eps, bool save_h1) -> (Tensor, Tensor)")
+def _sparse_fwd_op(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1):
+    if not y.shape[0]:
+        return _sparse_fwd_fake(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps,
+                                save_h1)
+    ids, n_win = block.work_list(win_keep)
+    out, h1 = _sparse_fwd(y, token_keep, ids, n_win, dict(zip(block.PARAM_KEYS, params)),
+                          num_heads, dim_head, norm_eps, save_h1)
+    sparse_window_block.launches += 1
+    return out, h1 if save_h1 else y.new_empty((0,), dtype=torch.float32)
+
+
+@_sparse_fwd_op.register_kernel("cpu")
+def _sparse_fwd_cpu(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1):
+    out = sparse_window_block_plain(y, token_keep, win_keep, dict(zip(block.PARAM_KEYS, params)),
+                                    num_heads, dim_head, norm_eps, save_h1)
+    return out if save_h1 else (out, y.new_empty((0,), dtype=torch.float32))
+
+
+@_sparse_fwd_op.register_fake
+def _sparse_fwd_fake(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps, save_h1):
+    return torch.empty_like(y), y.new_empty(y.shape if save_h1 else (0,), dtype=torch.float32)
+
+
+@torch.library.custom_op(
+    "sast_tpu_torch::sparse_block_looped", mutates_args=(), device_types="cuda",
+    schema="(Tensor y, Tensor token_keep, Tensor win_keep, Tensor[] params, int num_heads, "
+           "int dim_head, float norm_eps) -> Tensor")
+def _looped_op(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
+    if not y.shape[0]:
+        return torch.empty_like(y)
+    out = _looped_fwd(y, token_keep, win_keep, dict(zip(block.PARAM_KEYS, params)), num_heads,
+                      dim_head, norm_eps)
+    sparse_window_block_looped.launches += 1
+    return out
+
+
+@_looped_op.register_kernel("cpu")
+def _looped_cpu(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
+    return sparse_window_block_plain(y, token_keep, win_keep, dict(zip(block.PARAM_KEYS, params)),
+                                     num_heads, dim_head, norm_eps)
+
+
+@_looped_op.register_fake
+def _looped_fake(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
+    return torch.empty_like(y)
 
 
 def sparse_window_block(
@@ -410,8 +466,8 @@ def sparse_block_attn_bwd_plain(y, token_keep, work: Work, params, gh1, num_head
 
 
 @functools.cache
-def _mlp_entry():
-    lib = build.load("mlp_bwd")
+def _mlp_entry(card: int):
+    lib = build.load("mlp_bwd", card)
     fn = lib.sast_mlp_bwd
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -447,7 +503,7 @@ def sparse_block_mlp_bwd(h1, token_keep, work: Work, params, g, num_heads, dim_h
     table = [h1, keep, g, ids, n_win, gh1, ops["wglu"], ops["bglu"], ops["wout"], ops["bout"],
              ops["ls2"]] + [acc[k] for k in MLP_KEYS]
     _aligned(table, what)
-    fn, size = _mlp_entry()
+    fn, size = _mlp_entry(g.device.index)
     n_work = size(M, hw, C, inner, flags[1])
     if n_work < 0:
         raise ValueError(f"{what}: hw {hw}, C {C}, inner {inner} is not built")
@@ -461,8 +517,8 @@ def sparse_block_mlp_bwd(h1, token_keep, work: Work, params, g, num_heads, dim_h
 
 
 @functools.cache
-def _attn_entry():
-    lib = build.load("attn_bwd")
+def _attn_entry(card: int):
+    lib = build.load("attn_bwd", card)
     fn = lib.sast_attn_bwd
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
@@ -502,7 +558,7 @@ def sparse_block_attn_bwd(y, token_keep, work: Work, params, gh1, num_heads, dim
              params["wqkv"].contiguous(), params["wproj"].contiguous()] \
         + [acc[k] for k in ATTN_KEYS]
     _aligned(table, what)
-    fn, size = _attn_entry()
+    fn, size = _attn_entry(y.device.index)
     n_work = size(M, hw, C, dim_head, flags[1])
     if n_work < 0:
         raise ValueError(f"{what}: a window of hw {hw}, C {C}, dim_head {dim_head} is not "

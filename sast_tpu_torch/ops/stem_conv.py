@@ -13,8 +13,11 @@ its C entry gathers them into it (a small launch) and zeroes the density
 counts, so that one call here issues no tensor operation but the ratio's
 division; with fp32 weights it runs on the fp32 CUDA cores.
 
-``stem_conv7x4`` dispatches on the tensor's device: a CPU tensor goes to
-``stem_conv7x4_plain``, a CUDA tensor launches the kernel or raises. Under
+``stem_conv7x4`` calls the operator ``sast_tpu_torch::stem_conv7x4`` (with
+the density, ``stem_conv_density7x4``), which dispatches on the tensor's
+device: a CPU tensor goes to ``stem_conv7x4_plain``, a CUDA tensor launches
+the kernel or raises; under ``torch.export`` the operator stands in the
+graph by its shapes. Under
 grad mode with a weight that requires grad it is a ``torch.autograd.Function``
 whose backward is the TPU package's ``_bwd``: for the uint8 input only the
 weight gradient, by torch's own convolution ops on the replicate-padded
@@ -82,8 +85,8 @@ def _weight_index(c: int, cout: int, device) -> torch.Tensor:
 
 
 @functools.cache
-def _kernels():
-    lib = build.load("stem_conv")
+def _kernels(card: int):
+    lib = build.load("stem_conv", card)
     fp32, mma, work = (lib.sast_stem_conv7x4, lib.sast_stem_conv7x4_mma,
                        lib.sast_stem_conv7x4_mma_workspace)
     for fn, n_ptr in ((fp32, 4), (mma, 6)):
@@ -124,7 +127,8 @@ def stem_conv7x4(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
-    """7x7/stride-4 replicate-padded conv of a uint8 NHWC input.
+    """7x7/stride-4 replicate-padded conv of a uint8 NHWC input, through the
+    operator ``sast_tpu_torch::stem_conv7x4`` (or ``stem_conv_density7x4``).
 
     Args:
       x: (B, H, W, C) uint8 event histogram.
@@ -141,16 +145,22 @@ def _forward(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
         raise ValueError(
             f"stem kernel gate fails for x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}"
         )
-    if x.device.type == "cpu":
-        return stem_conv7x4_plain(x, w, with_density)
-    if x.device.type != "cuda":
-        raise ValueError(f"stem_conv7x4: unsupported device {x.device}")
+    build.check_device(x, "stem_conv7x4")
     if w.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stem kernel computes in fp32 or bf16, not {w.dtype}")
+    if with_density:
+        return torch.ops.sast_tpu_torch.stem_conv_density7x4(x, w)
+    return torch.ops.sast_tpu_torch.stem_conv7x4(x, w)
+
+
+@build.on_its_card
+def _launch(x: torch.Tensor, w: torch.Tensor, with_density: bool):
+    """The kernel on CUDA tensors (the operators' CUDA implementation)."""
     if not x.is_contiguous() or x.data_ptr() % 4:
         raise ValueError("stem kernel needs a contiguous, 4-byte aligned input")
     B, H, W, C = x.shape
-    fp32, mma, work = _kernels()
+    cout = w.shape[0]
+    fp32, mma, work = _kernels(x.device.index)
     y = torch.empty((B, H // 4, W // 4, cout), dtype=w.dtype, device=x.device)
     # Zeroed by the C entry.
     counts = torch.empty((B, 4, C), dtype=torch.int32, device=x.device) if with_density else None
@@ -169,6 +179,43 @@ def _forward(x: torch.Tensor, w: torch.Tensor, with_density: bool = False):
     if not with_density:
         return y
     return y, counts / cell_counts(H, W, C, x.device)[None, :, None]
+
+
+# The operators: the kernel on CUDA tensors, the plain version on CPU
+# tensors (made contiguous, as the kernel writes), shapes alone under a
+# trace (``torch.export``), where nothing launches and nothing is counted.
+@torch.library.custom_op("sast_tpu_torch::stem_conv7x4", mutates_args=(), device_types="cuda",
+                         schema="(Tensor x, Tensor w) -> Tensor")
+def _stem_op(x, w):
+    return _launch(x, w, False)
+
+
+@torch.library.custom_op("sast_tpu_torch::stem_conv_density7x4", mutates_args=(),
+                         device_types="cuda", schema="(Tensor x, Tensor w) -> (Tensor, Tensor)")
+def _stem_density_op(x, w):
+    return _launch(x, w, True)
+
+
+@_stem_op.register_kernel("cpu")
+def _stem_cpu(x, w):
+    return stem_conv7x4_plain(x, w).contiguous()
+
+
+@_stem_density_op.register_kernel("cpu")
+def _stem_density_cpu(x, w):
+    y, ratio = stem_conv7x4_plain(x, w, with_density=True)
+    return y.contiguous(), ratio
+
+
+@_stem_op.register_fake
+def _stem_fake(x, w):
+    B, H, W, _ = x.shape
+    return x.new_empty((B, H // 4, W // 4, w.shape[0]), dtype=w.dtype)
+
+
+@_stem_density_op.register_fake
+def _stem_density_fake(x, w):
+    return _stem_fake(x, w), x.new_empty((x.shape[0], 4, x.shape[3]), dtype=torch.float32)
 
 
 stem_conv7x4.launches = 0  # kernel launches, read by chip_smoke.py

@@ -4,18 +4,25 @@ sast_tpu/serving.py).
 Per frame, on the device: the stacked-histogram scatter-add of the packed
 events, the bottom/right pad to the model resolution, the recurrent
 backbone with carried LSTM state, PAFPN, head, decode and fixed-budget NMS.
-The host ships one (S, E, 4) int32 upload per batch of frames and fetches
-one fixed-size slate of detections with a validity mask. The recurrent
-state stays on the device between frames; a per-lane ``reset`` mask zeroes
-it inside the step.
+The host ships one (S, E, 4) int32 upload per batch of frames (one per
+device with ``mesh=``) and fetches one fixed-size slate of detections with a
+validity mask. The recurrent state stays on the device between frames; a
+per-lane ``reset`` mask zeroes it inside the step.
+
+``StreamingStep`` is that step as a pure function of ``(states, packed,
+n_events, reset)``, the counterpart of the JAX runtime's ``_step_fn``: the
+detector keeps one per device and carries the state, and
+``export.export_streaming_detector`` traces it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import copy
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from sast_tpu_torch.config import ExperimentConfig
 from sast_tpu_torch.data.representations import stacked_histogram
@@ -30,6 +37,61 @@ from sast_tpu_torch.models.head import inference_outputs
 from sast_tpu_torch.ops.nms import postprocess
 from sast_tpu_torch.packing import pack_event_batch
 from sast_tpu_torch.utils.padding import InputPadder, padding_token_mask
+
+
+class StreamingStep(nn.Module):
+    """One batch of frames, as a pure function of its inputs: ``forward(
+    states, packed, n_events, reset) -> (dets, new_states, p_tel)``.
+
+    ``states``: per stage (hidden, cell), lanes on axis 0; ``packed``: (S, E,
+    4) int32 events ``[x, y, p, t]``; ``n_events``: (S,) int32 valid counts;
+    ``reset``: (S,) bool, lanes whose state is zeroed before the backbone.
+    Returns the slate dict of ``ops/nms.postprocess``, the new states and the
+    (num_stages,) selected-token telemetry (the batch aggregate). The model
+    is a submodule, so its weights are this module's (and an export's)."""
+
+    def __init__(self, cfg: ExperimentConfig, model: YoloXDetector, bins: int,
+                 count_cutoff: int, device: torch.device):
+        super().__init__()
+        bb = cfg.model.backbone
+        self.model = model
+        self.bins, self.count_cutoff = bins, count_cutoff
+        self.native_hw = tuple(cfg.dataset.resolution_hw)
+        self.num_classes = cfg.model.head.num_classes
+        self.pp = cfg.model.postprocess
+        self.padder = InputPadder(bb.in_res_hw)
+        self.register_buffer(
+            "token_mask",
+            padding_token_mask(self.native_hw, bb.in_res_hw, device) if bb.enable_masking
+            else None,
+            persistent=False,
+        )
+
+    def forward(self, states, packed: torch.Tensor, n_events: torch.Tensor,
+                reset: torch.Tensor):
+        lane = reset.view(-1, 1, 1, 1)
+        states = [
+            tuple(torch.where(lane, torch.zeros((), dtype=s.dtype, device=s.device), s)
+                  for s in hc)
+            for hc in states
+        ]
+        h, w = self.native_hw
+        rep = stacked_histogram(
+            packed, n_events, self.bins, h, w, self.count_cutoff
+        )  # (S, H, W, C) uint8
+        ev = self.padder.pad_tensor_ev_repr(rep)
+        feats, new_states, p_tel = self.model.forward_backbone(ev, states, self.token_mask)
+        outputs = self.model.forward_detect(feats)
+        pp = self.pp
+        dets = postprocess(
+            inference_outputs(outputs["preds"]),
+            num_classes=self.num_classes,
+            conf_threshold=pp.confidence_threshold,
+            nms_threshold=pp.nms_threshold,
+            pre_nms_topk=pp.pre_nms_topk,
+            max_detections=pp.max_detections,
+        )
+        return dets, new_states, p_tel
 
 
 class StreamingDetector:
@@ -50,6 +112,18 @@ class StreamingDetector:
     device is CUDA unless the caller passes ``device="cpu"``, which runs the
     kernels' plain versions.
 
+    ``mesh``: a sequence of devices (JAX's ``mesh=``), or None. The lanes
+    are split over them in contiguous blocks, in order (``num_streams`` must
+    tile the mesh, else ``ValueError``); each device holds its own replica
+    of the model, copied once here, and its lanes' carried state. A batch
+    is one upload per device; every device's step is issued before any
+    result is fetched, so the cards' work overlaps (one thread issues the
+    replicas one after another, so a host-paced step gains nothing from a
+    second card until one card is full); the slates come back
+    concatenated in lane order, and ``selected_tokens`` is the mean over the
+    devices of their batch aggregates, which is the aggregate of all lanes.
+    ``device`` is then ignored.
+
     ``sparse_kernel`` (the JAX runtime's ``use_pallas``, ``--sparse_kernel``
     on its validation CLI) decides the attention path as the JAX runtime
     does when it builds its model: True sends every attention layer through
@@ -68,62 +142,75 @@ class StreamingDetector:
         num_streams: int = 1,
         device="cuda",
         sparse_kernel: bool = False,
+        mesh: Optional[Sequence] = None,
     ):
-        self.device = resolve_device(device)
         bb = cfg.model.backbone
         if bb.input_channels != 2 * bins:
             raise ValueError(f"input_channels {bb.input_channels} != 2 * bins {bins}")
+        devices = [resolve_device(d) for d in (mesh if mesh is not None else [device])]
+        if not devices or num_streams % len(devices):
+            raise ValueError(
+                f"num_streams={num_streams} must tile the {len(devices)}-device mesh"
+            )
         self.cfg = cfg
         self.max_events = max_events
         self.num_streams = num_streams
-        self.bins, self.count_cutoff = bins, count_cutoff
-        self.native_hw = cfg.dataset.resolution_hw
-        self.model = model.to(self.device).eval()
-        set_sparse_kernel(self.model, sparse_kernel)
+        self.mesh = None if mesh is None else tuple(devices)
+        self.devices, self.device = devices, devices[0]
         self.dtype = DTYPES[cfg.model.compute_dtype]
-        self.padder = InputPadder(bb.in_res_hw)
-        self.token_mask = (
-            padding_token_mask(self.native_hw, bb.in_res_hw, self.device)
-            if bb.enable_masking
-            else None
-        )
+        set_sparse_kernel(model, sparse_kernel)
+        models = [model] + [copy.deepcopy(model) for _ in devices[1:]]
+        self.replicas = [
+            StreamingStep(cfg, m.to(d).eval(), bins, count_cutoff, d)
+            for m, d in zip(models, devices)
+        ]
+        self.model = model
+        self.lanes_per_replica = num_streams // len(devices)
         self.reset()
 
     def reset(self) -> None:
         """Zero the carried state of every lane (per-lane resets go through
         ``process_batch``'s ``reset`` mask)."""
-        self.states = zero_states(
-            self.cfg.model.backbone, self.num_streams, self.dtype, self.device
-        )
+        self.replica_states = [
+            zero_states(self.cfg.model.backbone, self.lanes_per_replica, self.dtype, d)
+            for d in self.devices
+        ]
+
+    @property
+    def states(self):
+        """The carried state of every lane (a list per stage of (hidden,
+        cell)); with a mesh, one such list per device."""
+        return self.replica_states[0] if self.mesh is None else self.replica_states
+
+    def _lanes(self, i: int) -> slice:
+        return slice(i * self.lanes_per_replica, (i + 1) * self.lanes_per_replica)
+
+    @torch.no_grad()
+    def _issue(self, inputs):
+        """Run every replica's step on its (packed, n_events, reset) and
+        carry its state; returns the per-replica (dets, p_tel)."""
+        out = []
+        for i, (replica, (packed, n, reset)) in enumerate(zip(self.replicas, inputs)):
+            dets, self.replica_states[i], p_tel = replica(self.replica_states[i], packed, n,
+                                                          reset)
+            out.append((dets, p_tel))
+        return out
 
     @torch.no_grad()
     def step(self, packed: torch.Tensor, n_events: torch.Tensor, reset: torch.Tensor):
         """One batch of frames on the device: (S, E, 4) int32 events, (S,)
         valid counts and (S,) bool resets -> (detections, selected-token
-        telemetry). Updates the carried state."""
-        S = self.num_streams
-        lane = reset.view(S, 1, 1, 1)
-        states = [
-            tuple(torch.where(lane, torch.zeros((), dtype=s.dtype, device=s.device), s)
-                  for s in hc)
-            for hc in self.states
-        ]
-        h, w = self.native_hw
-        rep = stacked_histogram(
-            packed, n_events, self.bins, h, w, self.count_cutoff
-        )  # (S, H, W, C) uint8
-        ev = self.padder.pad_tensor_ev_repr(rep)
-        feats, self.states, p_tel = self.model.forward_backbone(ev, states, self.token_mask)
-        outputs = self.model.forward_detect(feats)
-        pp = self.cfg.model.postprocess
-        dets = postprocess(
-            inference_outputs(outputs["preds"]),
-            num_classes=self.cfg.model.head.num_classes,
-            conf_threshold=pp.confidence_threshold,
-            nms_threshold=pp.nms_threshold,
-            pre_nms_topk=pp.pre_nms_topk,
-            max_detections=pp.max_detections,
-        )
+        telemetry). Updates the carried state. With a mesh each device's
+        lanes are sliced out and moved there, and the results come back to
+        the first device."""
+        if self.mesh is None:
+            ((dets, p_tel),) = self._issue([(packed, n_events, reset)])
+            return dets, p_tel
+        inputs = [tuple(t[self._lanes(i)].to(d) for t in (packed, n_events, reset))
+                  for i, d in enumerate(self.devices)]
+        outs = self._issue(inputs)
+        dets = {k: torch.cat([d[k].to(self.device) for d, _ in outs]) for k in outs[0][0]}
+        p_tel = torch.stack([p.to(self.device) for _, p in outs]).mean(dim=0)
         return dets, p_tel
 
     def process_batch(
@@ -141,13 +228,14 @@ class StreamingDetector:
         S = self.num_streams
         packed, n = pack_event_batch(frames, S, self.max_events)
         reset = np.zeros((S,), bool) if reset is None else np.asarray(reset, bool)
-        dets, p_tel = self.step(
-            torch.from_numpy(packed).to(self.device),
-            torch.from_numpy(n).to(self.device),
-            torch.from_numpy(reset).to(self.device),
-        )
-        out = {k: v.cpu().numpy() for k, v in dets.items()}
-        return out | {"selected_tokens": p_tel.cpu().numpy()}
+        inputs = [tuple(torch.from_numpy(a[self._lanes(i)]).to(d) for a in (packed, n, reset))
+                  for i, d in enumerate(self.devices)]
+        outs = self._issue(inputs)
+        host = [({k: v.cpu().numpy() for k, v in d.items()}, p.cpu().numpy()) for d, p in outs]
+        out = {k: np.concatenate([d[k] for d, _ in host]) for k in host[0][0]}
+        tel = host[0][1] if len(host) == 1 else np.mean(np.stack([p for _, p in host]), axis=0,
+                                                        dtype=np.float32)
+        return out | {"selected_tokens": tel}
 
     def process_events(
         self, x: np.ndarray, y: np.ndarray, p: np.ndarray, t: np.ndarray

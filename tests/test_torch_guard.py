@@ -17,7 +17,8 @@ LAZY_ONLY = {"h5py": "sast_tpu_torch/data/sequence.py",
 
 def _port_sources():
     return sorted((ROOT / "sast_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "train_torch.py", ROOT / "validation_torch.py"]
+        ROOT / "chip_smoke.py", ROOT / "train_torch.py", ROOT / "validation_torch.py",
+        ROOT / "scripts" / "export_model_torch.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imports(path: Path):
@@ -80,6 +81,32 @@ def test_guard_covers_the_training_modules():
     assert {"train_torch.py", "validation_torch.py", "chip_smoke.py"} <= names
     assert any(mod == "h5py" and inside for _, mod, inside in
                _imports(ROOT / "sast_tpu_torch" / "data" / "sequence.py"))
+
+
+def test_guard_covers_the_serving_deployment():
+    """The export module, the export CLI and the port's other scripts are
+    among the guarded sources."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"sast_tpu_torch/export.py", "sast_tpu_torch/serving.py",
+            "scripts/export_model_torch.py", "scripts/torch_kernel_turns.py",
+            "scripts/torch_dp_spread.py"} <= names
+
+
+def test_export_module_imports_no_model_code_at_module_level():
+    """``sast_tpu_torch/export.py`` loads an artifact with torch, numpy, the
+    packing and the operators alone: at module level it imports nothing of
+    ``sast_tpu_torch.models``, ``training`` or ``data`` (the export function
+    imports the model stack inside itself)."""
+    imports = list(_imports(ROOT / "sast_tpu_torch" / "export.py"))
+    heavy = ("sast_tpu_torch.models", "sast_tpu_torch.training", "sast_tpu_torch.data",
+             "sast_tpu_torch.serving")
+    bad = [(line, mod) for line, mod, inside in imports if mod.startswith(heavy) and not inside]
+    assert not bad, bad
+    assert {mod for _, mod, inside in imports if not inside} >= {
+        "sast_tpu_torch.ops.stem_conv", "sast_tpu_torch.ops.density",
+        "sast_tpu_torch.ops.nms_keep", "sast_tpu_torch.ops.sparse_block",
+        "sast_tpu_torch.ops.fused_block",
+        "sast_tpu_torch.packing"}
 
 
 def test_cli_refuses_only_the_weights_and_biases_options():
