@@ -74,8 +74,10 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    and one more step on both must too; a weights-only resume keeps count 0
    and best -1; ``validation_torch.main`` on a reference-style ``.ckpt``
    must load what the converter and the weight bridge give on the host,
-   bit for bit. Times: ms per train step and per validation batch,
-   checkpoint save and restore seconds and bytes.
+   bit for bit. ``fit`` must write ``viz/gradflow.png`` at each of its two
+   validations, and ``validate(save_viz=1)`` one panel ``viz/val_0000.png``;
+   both must decode as PNGs. Times: ms per train step and per validation
+   batch, checkpoint save and restore seconds and bytes.
 7. Train as ``train.py`` trains, at gen4-base full width. (a) Data
    parallel: two ranks over gloo on the one card, each on 2 lanes of a
    4-lane batch (fp32, sparse-kernel path, 2 steps), against one process on
@@ -114,12 +116,29 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    same bits as two 2-lane detectors; against one 4-lane detector, the
    largest differences and any mismatch of valid or classes; ms/step of both
    in turns.
+9. Measure and inspect, at gen4-base, B 4, sparsity 0.9, bf16. (a)
+   ``utils/benchmark.compute_fps`` on the default (kernels A, C), sparse
+   (A, E, C), looped (A, F, C) and fused (A, D, C) paths with short chunks
+   (L 10 and 40, 2 blocks): the launch counters must advance by the
+   chunks' frames times each path's launches per frame (8 block-kernel
+   launches a frame), and a 3-frame chunk's carried states must equal the
+   same frames stepped one by one through ``model(...)``, bit for bit;
+   ms/frame and frames/s are logged, not checked. (b) ``compute_flops`` at
+   batch 1 must read one GFLOP/frame on the masked, default, sparse,
+   looped and fused paths. (c) ``utils/timers.DeviceTimer`` around 5 steps
+   must read at least their CUDA-event time; the timer registry is emptied.
+   (d) ``StackedHistogram`` and ``MixedDensityEventStack`` on the card
+   must equal the CPU, bit for bit, at gen4's raw 720x1280 with 2M events
+   and an event at each power-of-two fraction of the window; ms per
+   construct on each.
 
 Prints the kernel table as one JSON line (the rows of kernels redesigned
 since their first port carry ``redesigned``, what the redesign made of
 them; the first versions' times are in PERF.md; ``launches_artifact`` counts
-phase 8's launches inside the artifacts), then the nvidia-smi line, then
-``{"ok": true, "device": {...}}`` as the last line. Longer output (build
+phase 8's launches inside the artifacts, ``launches_benchmark`` phase 9a's
+in the timed chunks), then the nvidia-smi line, then
+``{"ok": true, "device": {...}}`` as the last line; the timer registry is
+emptied before, so that nothing is printed after it. Longer output (build
 logs, profiler table, all measurements) goes to ``chiprun_out/``.
 Exits non-zero, printing no result, without a card or outside a checkout.
 """
@@ -1845,6 +1864,38 @@ FIT_EVAL_BATCHES = 2
 VAL_KEYS = {"val/AP", "val/AP_50", "val/AP_75", "val/AP_S", "val/AP_M", "val/AP_L"}  # JAX's
 
 
+def png_decodes(np, path):
+    """The (H, W, 3) uint8 image of an 8-bit RGB PNG at ``path``, or None
+    where the file is missing or does not decode (signature, chunk CRCs,
+    IHDR, one filter byte per row)."""
+    import struct
+    import zlib
+
+    if not Path(path).is_file():
+        return None
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        return None
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(tag + body):
+            return None
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    if b"IHDR" not in chunks or b"IDAT" not in chunks or b"IEND" not in chunks:
+        return None
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    raw = zlib.decompress(chunks[b"IDAT"])
+    if depth != 8 or color != 2 or len(raw) != h * (1 + 3 * w):
+        return None
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():  # filter type 0 only
+        return None
+    return rows[:, 1:].reshape(h, w, 3)
+
+
 def sync(torch, device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -1894,6 +1945,7 @@ def phase_fit_validate(torch, np, card):
     from sast_tpu_torch.config import get_config
     from sast_tpu_torch.data.batch import Prefetcher, assemble_batch, to_device
     from sast_tpu_torch.models.detector import YoloXDetector, init_weights
+    from sast_tpu_torch.training import loop
     from sast_tpu_torch.training.loop import Trainer
     from sast_tpu_torch.weights import load_jax_variables, to_jax_variables
 
@@ -1925,6 +1977,14 @@ def phase_fit_validate(torch, np, card):
         return batches(eval_clips)
 
     work = Path(tempfile.mkdtemp(prefix="fit_validate_", dir=OUT_DIR))
+    pngs = []  # every file the trainer writes through utils/viz.save_png
+    save_png = loop.save_png
+
+    def recorded_png(path, img):
+        pngs.append(Path(path).name)
+        return save_png(path, img)
+
+    loop.save_png = recorded_png
     try:
         trainer = Trainer(cfg, str(work / "run"), log_every=1, val_every=FIT_VAL_EVERY,
                           sparse_kernel_train=True, sparse_kernel_eval=True, device=DEVICE)
@@ -1969,6 +2029,18 @@ def phase_fit_validate(torch, np, card):
             f"{ {k: round(v, 5) for k, v in sorted(metrics.items()) if k.startswith('val/')} }, "
             f"best val/AP {trainer.best_val_ap}, checkpoints saved at {saved}, retained "
             f"{retained}; launches {counts}")
+        # The figures: the gradient flow at each validation, then one
+        # prediction | label panel.
+        viz = work / "run" / "viz"
+        if pngs != ["gradflow.png"] * n_val or png_decodes(np, viz / "gradflow.png") is None:
+            fail(f"fit/validate: fit wrote {pngs}, expected gradflow.png {n_val} times")
+        trainer.validate(eval_loader(), max_batches=FIT_EVAL_BATCHES, save_viz=1)
+        panel = png_decodes(np, viz / "val_0000.png")
+        if pngs[n_val:] != ["val_0000.png"] or panel is None:
+            fail(f"fit/validate: validate(save_viz=1) wrote {pngs[n_val:]}")
+        log(f"fit/validate: fit wrote viz/gradflow.png at each of its {n_val} validations "
+            f"({png_decodes(np, viz / 'gradflow.png').shape}), validate(save_viz=1) one panel "
+            f"viz/val_0000.png {panel.shape}; both decode")
 
         # Resume: a fresh trainer from the same directory holds the first
         # one's bits; one more step on both from the same batch (cuDNN and
@@ -2040,6 +2112,7 @@ def phase_fit_validate(torch, np, card):
             f"{ {k: round(v, 5) for k, v in sorted(metrics_ref.items())} }")
         del val_trainer
     finally:
+        loop.save_png = save_png
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
 
@@ -3022,6 +3095,153 @@ def phase_eight(torch, np):
     return dict(exports=exports, mesh=mesh)
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 9: the benchmark library on the card, the timers and the
+# preprocessing representations.
+
+BENCH_PATHS = ("default", "sparse", "looped", "fused")  # timed, in this order
+BENCH_ITERS, BENCH_BLOCKS = 40, 2  # compute_fps' chunks: L 10 and 40, 2 blocks
+BENCH_KERNEL = {"default": None, "sparse": "sparse_window_block",
+                "looped": "sparse_window_block_looped", "fused": "fused_window_block"}
+CHUNK_CHECK_FRAMES = 3  # frames of the chunk held against stepping one by one
+FLOP_PATHS = ("masked", "default", "sparse", "looped", "fused")
+REPR_EVENTS = 2_000_000  # events per window at gen4's raw 720x1280
+REPR_HW = (720, 1280)
+
+
+def phase_benchmark(torch, np, cfg):
+    """9a: ``compute_fps`` on the four kernel paths, the launch counters
+    holding the kernels of every timed frame; one chunk's carried states
+    against the same frames stepped through ``model(...)``. 9b:
+    ``compute_flops`` of every path equal."""
+    import torch.utils._pytree as pytree
+
+    from sast_tpu_torch.utils import benchmark as bench
+
+    per_frame_blocks = 2 * sum(cfg.model.backbone.num_blocks)  # window + grid layer
+    out = {}
+    for path in BENCH_PATHS:
+        reset_counters()
+        res = bench.compute_fps(cfg, batch_size=STREAMS, sparsity=0.9, iters=BENCH_ITERS,
+                                path=path, blocks=BENCH_BLOCKS, device=DEVICE)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        n = res["frames"]
+        expect = {k: 0 for k in counts} | dict(stem_conv7x4=n, greedy_keep=n)
+        if BENCH_KERNEL[path]:
+            expect[BENCH_KERNEL[path]] = per_frame_blocks * n
+        if counts != expect:
+            fail(f"benchmark {path}: launches {counts} over {n} frames, expected {expect}")
+        # The chunk against the same frames one by one, outside the count.
+        run_cfg, sparse_kernel, looped = bench.path_config(cfg, path)
+        model, x, states = bench._build_model_and_inputs(run_cfg, STREAMS, 0.9, 0, DEVICE,
+                                                         sparse_kernel)
+        with bench.looped_kernel(looped), torch.inference_mode():
+            chunk_states, _ = bench.streaming_chunk(model, CHUNK_CHECK_FRAMES)(x, states)
+            st = states
+            for _ in range(CHUNK_CHECK_FRAMES):
+                _, st, _ = model(x, st)
+        bad = [i for i, (a, b) in enumerate(zip(pytree.tree_leaves(chunk_states),
+                                                pytree.tree_leaves(st)))
+               if not torch.equal(a, b)]
+        if bad:
+            fail(f"benchmark {path}: the chunk's states differ from stepping at leaves {bad}")
+        del model, x, states, chunk_states, st
+        out[path] = dict(res, launches=counts)
+        log(f"benchmark {path}: {res['step_ms']:.3f} ms/frame (slope of chunks "
+            f"{res['chunk_lengths']}, {BENCH_BLOCKS} blocks; chunk overhead "
+            f"{res['per_dispatch_overhead_ms']:.1f} ms), {res['fps']:.1f} frames/s; launches "
+            f"over its {n} frames {counts}; a {CHUNK_CHECK_FRAMES}-frame chunk's states equal "
+            f"stepping bit for bit")
+    flops = {p: bench.compute_flops(cfg, batch_size=1, sparsity=0.9, path=p, device=DEVICE)
+             for p in FLOP_PATHS}
+    if len({f["gflops_total"] for f in flops.values()}) != 1:
+        fail(f"benchmark: GFLOP/frame differs between paths: {flops}")
+    log(f"benchmark: {flops['default']['gflops_total']:.4f} GFLOP/frame on every path "
+        f"{FLOP_PATHS}; operator bytes (unfused bound) MB/frame "
+        f"{ {p: round(f['bytes_accessed_mb'], 1) for p, f in flops.items()} }")
+    return dict(paths=out, flops=flops)
+
+
+def phase_timers(torch, np, cfg):
+    """9c: ``DeviceTimer`` around 5 steps reads at least the CUDA-event time
+    of those steps; the registry is emptied afterwards."""
+    from sast_tpu_torch.utils import benchmark as bench
+    from sast_tpu_torch.utils import timers
+
+    model, x, states = bench._build_model_and_inputs(cfg, STREAMS, 0.9, 0, DEVICE)
+    run = bench.streaming_chunk(model, 5, detect=True)
+    run(x, states)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    held = {}
+    with timers.DeviceTimer("chip_smoke 5 steps", block_on=held):
+        start.record()
+        held["states"], held["acc"] = run(x, states)
+        end.record()
+    event_ms = start.elapsed_time(end)
+    timer_ms = timers.timer_stats()["chip_smoke 5 steps"]["total_s"] * 1e3
+    if not timer_ms >= event_ms:
+        fail(f"timers: DeviceTimer read {timer_ms:.3f} ms, the events {event_ms:.3f} ms")
+    timers.reset()
+    if timers.timer_stats():
+        fail("timers: the registry is not empty after reset")
+    log(f"timers: DeviceTimer {timer_ms:.3f} ms >= CUDA events {event_ms:.3f} ms over 5 "
+        f"steps; registry emptied")
+    return dict(device_timer_ms=timer_ms, event_ms=event_ms)
+
+
+def repr_events(np, rng):
+    """``REPR_EVENTS`` sorted events at gen4's raw resolution over 50 ms,
+    the first at t 0 and the last at 2^20 us, with one event at each
+    power-of-two fraction 2^-k of the span (k 1..20): the mixed stack's
+    bin boundaries."""
+    n = REPR_EVENTS - 22
+    t = np.concatenate([[0, 1 << 20], [(1 << 20) >> k for k in range(1, 21)],
+                        rng.randint(0, 1 << 20, n)]).astype(np.int64)
+    t.sort(kind="stable")
+    h, w = REPR_HW
+    return (rng.randint(0, w, t.size), rng.randint(0, h, t.size), rng.randint(0, 2, t.size), t)
+
+
+def phase_representations(torch, np):
+    """9d: both preprocessing representations on the card equal the CPU,
+    bit for bit, at gen4's raw resolution; ms per construct on each."""
+    from sast_tpu_torch.data.representations import MixedDensityEventStack, StackedHistogram
+
+    x, y, p, t = repr_events(np, np.random.RandomState(9))
+    h, w = REPR_HW
+    out = {}
+    for cls, cutoff in ((StackedHistogram, 10), (MixedDensityEventStack, None)):
+        got, ms = {}, {}
+        for device in (DEVICE, "cpu"):
+            rep = cls(10, h, w, count_cutoff=cutoff, device=device)
+            rep.construct(x, y, p, t)  # warm-up
+            t0 = time.perf_counter()
+            got[device] = rep.construct(x, y, p, t)
+            ms[device] = (time.perf_counter() - t0) * 1e3
+        if got[DEVICE].dtype != got["cpu"].dtype or not np.array_equal(got[DEVICE], got["cpu"]):
+            fail(f"representations: {cls.__name__} on the card differs from the CPU")
+        out[cls.__name__] = dict(ms=ms, nonzero=int((got["cpu"] != 0).sum()))
+        log(f"representations: {cls.__name__} ({len(t)} events, {h}x{w}, 10 bins) bit-equal on "
+            f"the card and the CPU; ms per construct, host arrays in and out: card "
+            f"{ms[DEVICE]:.1f}, CPU {ms['cpu']:.1f}")
+    return out
+
+
+def phase_nine(torch, np):
+    """Phase 9 at gen4-base, B 4, sparsity 0.9, bf16."""
+    from sast_tpu_torch.config import get_config
+
+    cfg = get_config("gen4", "base")
+    t0 = time.perf_counter()
+    res = dict(benchmark=phase_benchmark(torch, np, cfg))
+    log(f"phase 9ab: benchmark library ok ({time.perf_counter() - t0:.1f} s)")
+    res["timers"] = phase_timers(torch, np, cfg)
+    res["representations"] = phase_representations(torch, np)
+    return res
+
 def main() -> None:
     if not (ROOT / "sast_tpu_torch" / "csrc").is_dir():
         fail("sast_tpu_torch/ not found beside chip_smoke.py: run it from a checkout")
@@ -3131,21 +3351,46 @@ def main() -> None:
     eight["seconds"] = time.perf_counter() - t0
     log(f"phase 8: export and serving lanes ok ({eight['seconds']:.1f} s)")
 
+    t0 = time.perf_counter()
+    nine = phase_nine(torch, np)
+    # Launches on this slice's path: the timed chunks of compute_fps on the
+    # four kernel paths, each counted from 0 over its own run, summed.
+    for k in kernels:
+        n = sum(p["launches"].get(k["name"], 0) for p in nine["benchmark"]["paths"].values())
+        if n:
+            k["launches_benchmark"] = n
+    for name in ("stem_conv7x4", "greedy_keep", "fused_window_block", "sparse_window_block",
+                 "sparse_window_block_looped"):
+        if not any(k["name"] == name and k.get("launches_benchmark") for k in kernels):
+            fail(f"kernel {name} was not launched by the benchmark's timed chunks")
+    nine["seconds"] = time.perf_counter() - t0
+    log(f"phase 9: benchmark library, timers and representations ok ({nine['seconds']:.1f} s)")
+
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
                   training=training, fit_validate=fit_validate, phase7=seven, phase8=eight,
-                  seconds=time.perf_counter() - t_start)
+                  phase9=nine, seconds=time.perf_counter() - t_start)
+    log(f"chip_smoke: all phases ok in {record['seconds']:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print_result(kernels, smi, torch.cuda.get_device_name(0), torch.cuda.device_count())
+
+
+def print_result(kernels, smi: str, kind: str, count: int) -> None:
+    """The kernels line, the card line and, last, the ok line. The timer
+    registry is emptied first: its exit-time table would land after the
+    last line."""
+    from sast_tpu_torch.utils import timers
+
+    timers.reset()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels redesigned since their first port; launches on phases 6, 7 and 8.
+    # Kernels redesigned since their first port; launches on phases 6-9.
     extra = ("redesigned", "launches_fit_validate", "launches_data_parallel",
-             "launches_artifact")
+             "launches_artifact", "launches_benchmark")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -90,9 +90,12 @@ class SASTStage(nn.Module):
         r: Optional[torch.Tensor],
         deterministic: bool = True,
         dropout: Optional[DropoutKey] = None,
+        telemetry: Optional[dict] = None,
     ):
         """``r=None`` asks the stem kernel for the density ratio; the stage
-        then returns the full (B, 4, C_in) ratio as its last output."""
+        then returns the full (B, 4, C_in) ratio as its last output. With
+        ``telemetry`` each block records its selection shapes under
+        ``block{i}``."""
         ratio = None
         if r is None:
             x, ratio = self.downsample(x, with_density=True)
@@ -106,8 +109,9 @@ class SASTStage(nn.Module):
         p_total = torch.zeros((), dtype=torch.float32, device=x.device)
         masks = None
         for i in range(self.num_blocks):
-            x, p_count, masks = getattr(self, f"block{i}")(x, pos, r, masks, deterministic,
-                                                           dropout)
+            x, p_count, masks = getattr(self, f"block{i}")(
+                x, pos, r, masks, deterministic, dropout,
+                None if telemetry is None else telemetry.setdefault(f"block{i}", {}))
             p_total = p_total + p_count
         h, c = self.lstm(x, lstm_state, deterministic, dropout)
         return h, (h, c), p_total, ratio
@@ -121,7 +125,10 @@ class SASTBackbone(nn.Module):
     the window-skipping block kernel. ``deterministic=False`` is training:
     it changes nothing while every stochastic rate is 0; otherwise the
     regularizers draw their masks from ``dropout`` (a ``DropoutKey``), each
-    layer by its own ``layer_id``, numbered here in module order."""
+    layer by its own ``layer_id``, numbered here in module order.
+    ``telemetry``, a dict, opts in to the per-block selection shapes, nested
+    as JAX's ``telemetry`` collection: ``stage{i}/block{j}/sel_win`` and
+    ``sel_grid`` (``models/sast.SASTBlock``)."""
 
     def __init__(self, cfg: BackboneConfig, dtype: torch.dtype = torch.float32,
                  sparse_kernel: bool = False):
@@ -139,6 +146,7 @@ class SASTBackbone(nn.Module):
         token_mask: Optional[torch.Tensor] = None,
         deterministic: bool = True,
         dropout: Optional[DropoutKey] = None,
+        telemetry: Optional[dict] = None,
     ) -> Tuple[Dict[int, torch.Tensor], List[LstmState], torch.Tensor]:
         cfg = self.cfg
         n = cfg.num_stages
@@ -158,7 +166,7 @@ class SASTBackbone(nn.Module):
             stage_r = None if fused and idx == 0 else r[:, idx].to(self.dtype)
             x, state, p, ratio = getattr(self, f"stage{idx}")(
                 x, prev_states[idx], token_mask if idx == 0 else None, stage_r, deterministic,
-                dropout,
+                dropout, None if telemetry is None else telemetry.setdefault(f"stage{idx}", {}),
             )
             if ratio is not None:
                 r = ratio

@@ -60,11 +60,16 @@ class YoloXDetector(nn.Module):
         token_mask: Optional[torch.Tensor] = None,
         deterministic: bool = True,
         dropout: Optional[DropoutKey] = None,
+        telemetry: Optional[dict] = None,
     ) -> Tuple[Dict[int, torch.Tensor], List[LstmState], torch.Tensor]:
         """x: (B, H, W, C_in) NHWC event representation. Under training
         (``deterministic=False``) with a non-zero stochastic rate,
-        ``dropout`` gives the masks (``models/layers.DropoutKey``)."""
-        return self.backbone(x, previous_states, token_mask, deterministic, dropout)
+        ``dropout`` gives the masks (``models/layers.DropoutKey``). Given a
+        dict, ``telemetry`` receives the blocks' selection shapes under
+        ``backbone/stage{i}/block{j}``, as JAX's ``mutable=["telemetry"]``
+        collection of the detector holds them."""
+        return self.backbone(x, previous_states, token_mask, deterministic, dropout,
+                             None if telemetry is None else telemetry.setdefault("backbone", {}))
 
     def forward_detect(self, backbone_features: Dict[int, torch.Tensor],
                        train: bool = False, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
@@ -83,8 +88,9 @@ class YoloXDetector(nn.Module):
             for m in norms:
                 m.use_batch_stats, m.mesh = False, None
 
-    def forward(self, x, previous_states=None, token_mask=None):
-        features, states, p = self.forward_backbone(x, previous_states, token_mask)
+    def forward(self, x, previous_states=None, token_mask=None, telemetry=None):
+        features, states, p = self.forward_backbone(x, previous_states, token_mask,
+                                                     telemetry=telemetry)
         return self.forward_detect(features), states, p
 
 

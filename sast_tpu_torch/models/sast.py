@@ -241,6 +241,15 @@ class MaskedSparseAttention(nn.Module):
         return self.block_math(y, token_keep)
 
 
+def _selection_stats(win_keep: torch.Tensor, tok_keep: torch.Tensor) -> torch.Tensor:
+    """(B, 3) int32 ``[M, Kmax, T_eff]`` of one layer's selection: kept
+    windows, selected tokens of the fullest kept window, selected tokens."""
+    counts = tok_keep.sum(dim=-1, dtype=torch.int32)  # (B, N)
+    m = win_keep.sum(dim=-1, dtype=torch.int32)
+    kmax = torch.where(win_keep, counts, 0).amax(dim=-1)
+    return torch.stack([m, kmax, counts.sum(dim=-1, dtype=torch.int32)], dim=-1)
+
+
 class SASTBlock(nn.Module):
     """One SAST block = window-attention layer + grid-attention layer.
 
@@ -248,7 +257,13 @@ class SASTBlock(nn.Module):
     the window/token selection; later blocks reuse its masks. ``forward``
     returns (x, p_count, masks), where p_count is the number of selected
     tokens per batch element over both layers (the reference's
-    ``index_count`` telemetry).
+    ``index_count`` telemetry). Given a ``telemetry`` dict, ``forward`` also
+    records the selection shapes of each layer in it, as JAX's block sows
+    them into its ``telemetry`` collection: ``sel_win`` and ``sel_grid``,
+    each a one-element tuple of a (B, 3) int32 tensor ``[M kept windows,
+    Kmax tokens of the fullest kept window, T_eff selected tokens]``
+    (``utils/benchmark.transformer_macs_from_telemetry`` reads them).
+    Without it nothing is computed for them.
     """
 
     def __init__(self, dim: int, in_channels: int, cfg: AttentionConfig,
@@ -270,6 +285,7 @@ class SASTBlock(nn.Module):
         masks: Optional[Masks] = None,
         deterministic: bool = True,
         dropout: Optional[DropoutKey] = None,
+        telemetry: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, Masks]:
         cfg = self.cfg
         B, H, W, C = x.shape
@@ -294,6 +310,9 @@ class SASTBlock(nn.Module):
         elif masks is None:
             raise ValueError("non-first blocks must reuse the selection masks")
         win_keep_w, tok_keep_w, win_keep_g, tok_keep_g = masks
+        if telemetry is not None:
+            telemetry["sel_win"] = (_selection_stats(win_keep_w, tok_keep_w),)
+            telemetry["sel_grid"] = (_selection_stats(win_keep_g, tok_keep_g),)
 
         x = window_reverse(self.win_attn(xw, tok_keep_w, win_keep_w, deterministic, dropout),
                            p, (H, W))

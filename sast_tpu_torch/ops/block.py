@@ -85,6 +85,20 @@ def block_window_plain(
     return (out, h1) if return_h1 else out
 
 
+def window_block_flops(y_shape, param_shapes) -> int:
+    """FLOPs of ``block_window_plain`` on every window of a ``y`` of shape
+    (M, hw, C), as ``FlopCounterMode`` counts them (2 per multiply-add of
+    each product): the four weight products of every token, and the logits
+    and weighted values of every window over all heads. ``param_shapes``:
+    the shapes of ``kernel_params``' dict in ``PARAM_KEYS`` order, the
+    matrices ``(in, out)``. The registered formula of the block kernels'
+    operators."""
+    M, hw, C = y_shape
+    weights = sum(param_shapes[PARAM_KEYS.index(k)][0] * param_shapes[PARAM_KEYS.index(k)][1]
+                  for k in MATRICES)
+    return 2 * M * hw * weights + 2 * 2 * M * hw * hw * C
+
+
 def kernel_params(attn) -> Dict[str, torch.Tensor]:
     """The weight dict the block kernels share, from a port
     ``MaskedSparseAttention``: the keys, shapes and dtypes of the JAX

@@ -20,6 +20,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from sast_tpu_torch import build
 
@@ -140,6 +141,13 @@ _density_op.register_kernel("cpu")(density_ratio_plain)
 @_density_op.register_fake
 def _density_fake(x):
     return x.new_empty((x.shape[0], 4, x.shape[3]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.sast_tpu_torch.density_ratio)
+def _density_flops(*args, out_shape=None, **kwargs):
+    """0, as ``FlopCounterMode`` counts the plain version (pools and
+    comparisons: no product)."""
+    return 0
 
 
 density_ratio.launches = 0  # kernel launches, read by chip_smoke.py

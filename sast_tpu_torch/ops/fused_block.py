@@ -28,6 +28,7 @@ import functools
 from typing import Dict
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from sast_tpu_torch import build
 from sast_tpu_torch.ops import block, sparse_block
@@ -87,6 +88,11 @@ def _fused_cpu(y, token_keep, params, num_heads, dim_head, norm_eps):
 @_fused_op.register_fake
 def _fused_fake(y, token_keep, params, num_heads, dim_head, norm_eps):
     return torch.empty_like(y)
+
+
+@register_flop_formula(torch.ops.sast_tpu_torch.fused_block_fwd)
+def _fused_flops(y, token_keep, params, *args, out_shape=None, **kwargs):
+    return block.window_block_flops(y, params)
 
 
 class _FusedBlockFn(torch.autograd.Function):

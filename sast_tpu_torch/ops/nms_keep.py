@@ -21,6 +21,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from sast_tpu_torch import build
 
@@ -128,6 +129,13 @@ _greedy_keep_op.register_kernel("cpu")(greedy_keep_plain)
 @_greedy_keep_op.register_fake
 def _greedy_keep_fake(boxes, scores, iou_threshold):
     return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
+@register_flop_formula(torch.ops.sast_tpu_torch.greedy_keep)
+def _greedy_keep_flops(*args, out_shape=None, **kwargs):
+    """0, as ``FlopCounterMode`` counts the plain version (elementwise IoU
+    and a scan: no product)."""
+    return 0
 
 
 greedy_keep.launches = 0  # kernel launches, read by chip_smoke.py

@@ -64,6 +64,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from sast_tpu_torch import build
 from sast_tpu_torch.ops import block
@@ -275,6 +276,15 @@ def _looped_cpu(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
 @_looped_op.register_fake
 def _looped_fake(y, token_keep, win_keep, params, num_heads, dim_head, norm_eps):
     return torch.empty_like(y)
+
+
+# FLOP counts (``FlopCounterMode``): the plain version's at full window
+# density, whatever the kept share, so that a configuration counts the same
+# on every attention path.
+@register_flop_formula([torch.ops.sast_tpu_torch.sparse_block_fwd,
+                        torch.ops.sast_tpu_torch.sparse_block_looped])
+def _sparse_flops(y, token_keep, win_keep, params, *args, out_shape=None, **kwargs):
+    return block.window_block_flops(y, params)
 
 
 def sparse_window_block(

@@ -31,6 +31,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from sast_tpu_torch import build
 from sast_tpu_torch.ops.density import cell_counts, density_ratio_plain
@@ -216,6 +217,16 @@ def _stem_fake(x, w):
 @_stem_density_op.register_fake
 def _stem_density_fake(x, w):
     return _stem_fake(x, w), x.new_empty((x.shape[0], 4, x.shape[3]), dtype=torch.float32)
+
+
+@register_flop_formula([torch.ops.sast_tpu_torch.stem_conv7x4,
+                        torch.ops.sast_tpu_torch.stem_conv_density7x4])
+def _stem_flops(x, w, *, out_shape=None, **kwargs):
+    """FLOPs of the plain version's convolution, as ``FlopCounterMode``
+    counts ``F.conv2d``: 2 per multiply-add; the density ratio counts 0."""
+    B, H, W, C = x
+    cout, _, kh, kw = w
+    return 2 * B * (H // STRIDE) * (W // STRIDE) * cout * C * kh * kw
 
 
 stem_conv7x4.launches = 0  # kernel launches, read by chip_smoke.py

@@ -15,8 +15,13 @@ start as rank 0's, the step reduces over the world (``training/steps.py``),
 only rank 0 logs and saves, every rank restores, and ``validate`` gathers the
 evaluation buffers of all ranks. ``fit(profile_steps=(first, last))``
 records a ``torch.profiler`` trace of those steps into ``<workdir>/trace``.
-Not ported, and refused rather than ignored: Weights & Biases, rendered
-panels and the gradient-flow figure.
+``validate(save_viz=n)`` writes up to ``n`` prediction | label panels as
+``<workdir>/viz/val_<batch>.png``, and ``fit`` writes the gradient-flow
+figure of the per-component gradient norms logged so far to
+``<workdir>/viz/gradflow.png`` at each validation (``utils/viz.py``). JAX
+also hands both images to Weights & Biases, which does nothing without a
+W&B run; the port has no W&B, so it writes the files and nothing more.
+W&B itself is refused by name.
 
     import numpy as np
     from sast_tpu_torch.config import get_config
@@ -54,6 +59,7 @@ from sast_tpu_torch.training.steps import (
     make_train_step,
 )
 from sast_tpu_torch.utils.logging import MetricLogger, SmoothedValue
+from sast_tpu_torch.utils.viz import render_detection_frame, render_gradflow, save_png
 
 _NOT_PORTED = {
     "use_wandb": "Weights & Biases logging",
@@ -222,13 +228,14 @@ class Trainer:
         ``max_batches``): ``val/<metric>`` of the Prophesee protocol, or
         ``{}`` when no labeled frame was seen. Under a mesh each rank streams
         its own lanes and the metrics are those of all ranks' frames, the
-        same on every rank."""
-        if save_viz:
-            raise NotImplementedError("rendered prediction panels (utils/viz.py) are not ported yet")
+        same on every rank. ``save_viz=n``: the first labeled frame of each
+        of the first ``n`` batches that have one is rendered with its
+        predictions and labels (``utils/viz.render_detection_frame``) to
+        ``<workdir>/viz/val_<batch>.png``, as JAX picks and names them."""
         cfg = self.cfg
         evaluator = PropheseeEvaluator(cfg.dataset.name, cfg.dataset.downsample_by_factor_2)
         lstm = None
-        n = 0
+        n = n_viz = 0
         try:
             with self._eval_parameters():
                 for batch in eval_batches:
@@ -254,8 +261,12 @@ class Trainer:
                         gts.append(fl.to_structured())
                     if sel:
                         sub = {k: v[np.asarray(sel)] for k, v in dets_np.items()}
+                        preds = detections_to_prophesee(sub, times)
                         evaluator.add_labels(gts)
-                        evaluator.add_predictions(detections_to_prophesee(sub, times))
+                        evaluator.add_predictions(preds)
+                        if n_viz < save_viz:
+                            self._save_panel(batch, sel[0], gts[0], preds[0], n)
+                            n_viz += 1
                     n += 1
                     if max_batches is not None and n >= max_batches:
                         break
@@ -270,6 +281,30 @@ class Trainer:
         h, w = cfg.model.backbone.in_res_hw
         metrics = evaluator.evaluate_buffer(h, w) or {}
         return {f"val/{k}": v for k, v in metrics.items()}
+
+    def _save_panel(self, batch: dict, frame: int, gt: np.ndarray, pred: np.ndarray,
+                    n: int) -> None:
+        """Frame ``frame`` (lane-major over the batch's labeled slots) with
+        its labels ``gt`` and predictions ``pred`` (Prophesee boxes) as
+        ``<workdir>/viz/val_<n>.png``."""
+        slots = batch["frame_tidx"].shape[1]
+        lane, slot = frame // slots, frame % slots
+        tidx = int(batch["frame_tidx"][lane, slot])
+        ev = batch["ev_repr"][tidx, lane]  # (H, W * C)
+        ev = ev.cpu().numpy() if isinstance(ev, torch.Tensor) else np.asarray(ev)
+        ch = self.cfg.model.backbone.input_channels
+        ev = ev.reshape(ev.shape[0], ev.shape[1] // ch, ch)
+
+        def xywh(b):
+            return np.stack([b["x"], b["y"], b["w"], b["h"]], -1)
+
+        panel = render_detection_frame(
+            ev, gt_boxes=xywh(gt), gt_classes=gt["class_id"],
+            pred_boxes=xywh(pred) if len(pred) else None,
+            pred_classes=pred["class_id"] if len(pred) else None)
+        viz_dir = os.path.join(self.workdir, "viz")
+        os.makedirs(viz_dir, exist_ok=True)
+        save_png(os.path.join(viz_dir, f"val_{n:04d}.png"), panel)
 
     # -- fit -------------------------------------------------------------------
     def fit(
@@ -289,7 +324,11 @@ class Trainer:
         training steps ``first`` to ``last`` (inclusive, counted from 1 over
         the run, so a resumed run inside the window records its rest) into
         ``<workdir>/trace``, one file per rank, each step a
-        ``train_step <n>`` range. Returns the last logged metrics."""
+        ``train_step <n>`` range. At each log point the gradient norms
+        (``grad_norm/<component>`` and ``grad_norm``, as ``total``) join the
+        gradient-flow history of this call, which each validation draws to
+        ``<workdir>/viz/gradflow.png`` (on rank 0). Returns the last logged
+        metrics."""
         max_steps = max_steps or self.cfg.training.max_steps
         prof_first, prof_last = profile_steps or (None, None)
         profiler = None
@@ -298,6 +337,8 @@ class Trainer:
         step = self.state.step
         last_ckpt_step = step
         lstm = None
+        gf_steps: list = []
+        gf_series: Dict[str, list] = {}
         try:
             for batch in train_batches:
                 if step >= max_steps:
@@ -332,9 +373,18 @@ class Trainer:
                     self._print(f"step {step}  loss {metrics['loss']:.3f}  SN {sn:.0f}  "
                                 f"{dt * 1000:.0f} ms/step  lr {lr:.3e}")
                     last_metrics = log
+                    gf_steps.append(step)
+                    for k, v in metrics.items():
+                        if k.startswith("grad_norm"):
+                            gf_series.setdefault(k.replace("grad_norm/", "").replace(
+                                "grad_norm", "total"), []).append(v)
 
                 if (eval_loader_fn is not None and self.val_every is not None
                         and step % self.val_every == 0):
+                    if gf_steps and self.rank == 0:
+                        os.makedirs(os.path.join(self.workdir, "viz"), exist_ok=True)
+                        save_png(os.path.join(self.workdir, "viz", "gradflow.png"),
+                                 render_gradflow(gf_steps, gf_series))
                     val_metrics = self.validate(eval_loader_fn(), max_batches=eval_max_batches)
                     if val_metrics:
                         self._log(val_metrics, step)

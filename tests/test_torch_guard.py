@@ -10,15 +10,18 @@ ROOT = Path(__file__).resolve().parents[1]
 # card's stated installs lack).
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sast_tpu", "train", "validation",
              "matplotlib")
-# Third-party modules allowed only inside a function of one file each.
-LAZY_ONLY = {"h5py": "sast_tpu_torch/data/sequence.py",
-             "hdf5plugin": "sast_tpu_torch/data/sequence.py"}
+# Third-party modules allowed only inside a function, and only in the files
+# named: the HDF5 dataset reader and the preprocessing CLI, which writes it.
+LAZY_ONLY = {mod: ("sast_tpu_torch/data/sequence.py", "scripts/preprocess_dataset_torch.py")
+             for mod in ("h5py", "hdf5plugin")}
 
 
 def _port_sources():
     return sorted((ROOT / "sast_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "train_torch.py", ROOT / "validation_torch.py",
-        ROOT / "scripts" / "export_model_torch.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
+        ROOT / "bench_torch.py", ROOT / "scripts" / "export_model_torch.py",
+        ROOT / "scripts" / "benchmark_torch.py", ROOT / "scripts" / "preprocess_dataset_torch.py",
+    ] + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imports(path: Path):
@@ -58,12 +61,12 @@ def test_port_imports_no_jax_and_no_jax_package(path):
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_h5py_is_imported_only_inside_the_sequence_reader(path):
     """``h5py`` (and the optional ``hdf5plugin``) only inside a function of
-    ``data/sequence.py``: everything else of the port, and that module
-    itself, imports where ``h5py`` is absent."""
+    ``data/sequence.py`` or of the preprocessing CLI: everything else of the
+    port, and those files themselves, import where ``h5py`` is absent."""
     rel = str(path.relative_to(ROOT))
     bad = [(line, mod) for line, mod, in_function in _imports(path)
            if mod.split(".")[0] in LAZY_ONLY
-           and not (in_function and LAZY_ONLY[mod.split(".")[0]] == rel)]
+           and not (in_function and rel in LAZY_ONLY[mod.split(".")[0]])]
     assert not bad, f"{path}: {bad}"
 
 
@@ -90,6 +93,19 @@ def test_guard_covers_the_serving_deployment():
     assert {"sast_tpu_torch/export.py", "sast_tpu_torch/serving.py",
             "scripts/export_model_torch.py", "scripts/torch_kernel_turns.py",
             "scripts/torch_dp_spread.py"} <= names
+
+
+def test_guard_covers_the_measurement_slice():
+    """The benchmark library, the timers, the figures, the raw readers and
+    the three CLIs of the measurement slice are among the guarded sources;
+    the preprocessing CLI imports ``h5py`` inside a function."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"sast_tpu_torch/utils/benchmark.py", "sast_tpu_torch/utils/timers.py",
+            "sast_tpu_torch/utils/viz.py", "sast_tpu_torch/data/psee_raw.py",
+            "sast_tpu_torch/data/representations.py", "bench_torch.py",
+            "scripts/benchmark_torch.py", "scripts/preprocess_dataset_torch.py"} <= names
+    assert any(mod == "h5py" and inside for _, mod, inside in
+               _imports(ROOT / "scripts" / "preprocess_dataset_torch.py"))
 
 
 def test_export_module_imports_no_model_code_at_module_level():

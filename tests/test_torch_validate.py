@@ -163,8 +163,9 @@ def test_validate_matches_the_jax_evaluator_on_the_ema_copy(dataset_root, tmp_pa
     for k in ref:
         assert abs(got[k] - ref[k]) <= 1e-12, (k, got[k], ref[k])
     assert trainer.validate([]) == {}
-    with pytest.raises(NotImplementedError, match="viz"):
-        trainer.validate([], save_viz=1)
+    # Panels are drawn of labeled frames only: none here, and no file.
+    assert trainer.validate([], save_viz=1) == {}
+    assert not (tmp_path / "run" / "viz" / "val_0000.png").exists()
 
 
 def test_validate_restores_the_parameters_when_it_raises(dataset_root, tmp_path):
