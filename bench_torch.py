@@ -46,6 +46,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from sast_tpu_torch.utils.profiling import CARDS  # noqa: E402
 from sast_tpu_torch.utils.benchmark import (  # noqa: E402
     PATHS,
     _build_model_and_inputs,
@@ -56,8 +57,6 @@ from sast_tpu_torch.utils.benchmark import (  # noqa: E402
     streaming_chunk,
 )
 
-# Dense bf16 peak TFLOP/s by card name (NVIDIA's data sheet, at 700 W).
-PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.4}
 BATCH, SPARSITY, SEED = 4, 0.9, 0
 L_SMALL, L_BIG, BLOCKS = 100, 600, 4
 HOST_WARMUP, HOST_ITERS = 10, 50
@@ -67,7 +66,7 @@ def card_peak_tflops(name: str):
     env = os.environ.get("SAST_TORCH_PEAK_TFLOPS")
     if env:
         return float(env)
-    return PEAK_TFLOPS.get(name)
+    return CARDS[name]["bf16_tflops"] if name in CARDS else None
 
 
 def power_limit_w():

@@ -131,12 +131,27 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    must equal the CPU, bit for bit, at gen4's raw 720x1280 with 2M events
    and an event at each power-of-two fraction of the window; ms per
    construct on each.
+10. Choose the attention branch on the card, and measure with the CLIs. (a)
+   At phase 8's configuration, weights and clustered frames, with empty
+   and uniform scenes between them (8 frames): artifacts of the gather path
+   at ``attention.gather_budget`` 0.5 and of the sparse kernel at
+   ``attention.pallas_density_threshold`` 0.5, whose every attention layer
+   chooses its branch with a ``torch.cond`` in the exported graph (one node
+   per layer). The live detector must take both branches at every layer
+   over the frames (logged per layer); a fresh process loads each artifact
+   and steps it, the same bits as the live detector, with kernel E
+   launched inside the threshold artifact as often as the live detector
+   took the kernel branch. (b) Each measuring CLI but the loader's
+   (``scripts/{bench_serving,bench_sparse_layer,bench_train_sparsity,
+   profile_inference,profile_train,roofline_inference,model_info}_torch.py``)
+   with short arguments on the card; the rows each printed are logged.
 
 Prints the kernel table as one JSON line (the rows of kernels redesigned
 since their first port carry ``redesigned``, what the redesign made of
 them; the first versions' times are in PERF.md; ``launches_artifact`` counts
 phase 8's launches inside the artifacts, ``launches_benchmark`` phase 9a's
-in the timed chunks), then the nvidia-smi line, then
+in the timed chunks, ``launches_cond_artifact`` phase 10a's inside the two
+artifacts, ``launches_cli`` phase 10b's in the CLIs' runs), then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line; the timer registry is
 emptied before, so that nothing is printed after it. Longer output (build
 logs, profiler table, all measurements) goes to ``chiprun_out/``.
@@ -1149,12 +1164,6 @@ ATTENTION_PATHS = {
 }
 
 
-# The serving step's hand-written kernels in a profile, by the name or
-# namespace of their sources.
-SERVING_KERNELS = {"A stem_conv": r"stem_\w*kernel|arrange_kernel", "C nms_keep": r"\bnk::",
-                   "D/E sparse_fwd": r"^(?!.*looped_kernel).*\bsf::", "F looped": r"looped_kernel"}
-
-
 def path_detector(cfg, model, name, max_events, num_streams):
     """A ``StreamingDetector`` on attention path ``name`` with ``model``'s
     weights."""
@@ -1237,8 +1246,9 @@ def phase_attention_paths(torch, np, cfg, model, det_masked, frames, masked_outs
                 sparse_block.MODEL_USES_LOOPED = default
     # Kernel time on the card per step (profiler, 3 steps): unlike the step
     # time it does not depend on how fast the host dispatches.
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from sast_tpu_torch.utils.profiling import kernel_table
 
     for name, det in dets.items():
         looped = name in ATTENTION_PATHS and ATTENTION_PATHS[name][2]
@@ -1250,21 +1260,11 @@ def phase_attention_paths(torch, np, cfg, model, det_masked, frames, masked_outs
                 torch.cuda.synchronize()
         finally:
             sparse_block.MODEL_USES_LOOPED = default
-        # Kernel rows only: an operator's row repeats its kernels' time.
-        busy_us, ours = 0.0, {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-            busy_us += us
-            # The hand-written kernels by source: A, C, D and E, F.
-            for label, pat in SERVING_KERNELS.items():
-                if re.search(pat, e.key):
-                    ours[label] = ours.get(label, 0.0) + us / 3 / 1e3
-        if busy_us <= 0:
+        table = kernel_table(prof, steps=3)
+        if table["kernel_ms"] <= 0:
             fail(f"path {name}: the profiler saw no kernel time on the card")
-        results[name]["card_ms"] = busy_us / 3 / 1e3
-        results[name]["hand_written_kernels_ms"] = ours
+        results[name]["card_ms"] = table["kernel_ms"]
+        results[name]["hand_written_kernels_ms"] = table["hand_written"]
     for name, res in results.items():
         res["step_ms"] = sum(res["step_ms_rounds"]) / 2
     for name, res in results.items():
@@ -1400,7 +1400,6 @@ def clustered_train_batch(torch, np, cfg, rng, step, batch_size=None, seq_len=No
 def phase_training(torch, np, card):
     """``Trainer.fit`` at gen4-base width on the sparse-kernel and the masked
     path, then fp32 steps on the card against the CPU at a cut size."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sast_tpu_torch.config import get_config
@@ -1408,6 +1407,8 @@ def phase_training(torch, np, card):
     from sast_tpu_torch.data.synthetic import synthetic_train_batch
     from sast_tpu_torch.models.sast import MaskedSparseAttention
     from sast_tpu_torch.training.loop import Trainer
+
+    from sast_tpu_torch.utils.profiling import kernel_table
 
     cfg = get_config("gen4", "base")
     tr = cfg.training
@@ -1490,22 +1491,10 @@ def phase_training(torch, np, card):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer.train_step(trainer.state, dev_batches[-1], lstm)
             torch.cuda.synchronize()
-        rows_k = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(getattr(e, "self_device_time_total", 0)
-                      or getattr(e, "self_cuda_time_total", 0) for e in rows_k)
+        table = kernel_table(prof)
+        busy_us, ours = table["kernel_ms"] * 1e3, table["hand_written"]
         if busy_us <= 0:
             fail(f"training {name}: the profiler saw no kernel time on the card")
-        ours = {}
-        launches_of = {"sf": "sparse_fwd (E, all launches)", "mb": "mlp_bwd (G, all launches)",
-                       "ab": "attn_bwd (H, all launches)"}
-        for e in rows_k:
-            # The launches of kernels E, G and H (by their sources'
-            # namespaces) are summed under one name each.
-            ns = re.search(r"\b(sf|mb|ab)::", e.key)
-            key = launches_of[ns.group(1)] if ns else e.key[:60]
-            if ns or "window_block_kernel" in key or "stem" in key:
-                ours[key] = ours.get(key, 0.0) + (getattr(e, "self_device_time_total", 0)
-                                                  or getattr(e, "self_cuda_time_total", 0)) / 1e3
         if name == "sparse":
             table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
             (OUT_DIR / "training_profile.txt").write_text(table)
@@ -1896,21 +1885,18 @@ def png_decodes(np, path):
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def sync(torch, device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def _clock(torch, fn, times, device=None):
     """``fn`` with its host-clock seconds, to the device's end (``DEVICE``
     unless given), appended to ``times``."""
+    from sast_tpu_torch.utils.profiling import sync
+
     device = device or DEVICE
 
     def timed(*args, **kwargs):
-        sync(torch, device)
+        sync(device)
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        sync(torch, device)
+        sync(device)
         times.append(time.perf_counter() - t0)
         return out
     return timed
@@ -2258,6 +2244,7 @@ def dp_run(torch, np, cfg, device, mesh, workdir, order=None, seed=DP_DATA_SEED,
     import torch.distributed as dist
 
     from sast_tpu_torch.training.loop import Trainer
+    from sast_tpu_torch.utils.profiling import sync
 
     rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     trainer = Trainer(cfg, workdir, log_every=1, sparse_kernel_train=True,
@@ -2280,10 +2267,10 @@ def dp_run(torch, np, cfg, device, mesh, workdir, order=None, seed=DP_DATA_SEED,
     all_reduce = dist.all_reduce
 
     def timed_all_reduce(*args, **kwargs):
-        sync(torch, device)
+        sync(device)
         t0 = time.perf_counter()
         out = all_reduce(*args, **kwargs)
-        sync(torch, device)
+        sync(device)
         if reduce_s:
             reduce_s[-1] += time.perf_counter() - t0
         return out
@@ -2807,8 +2794,9 @@ for name in names:
     torch.save(dict(outs=[({k: v.cpu() for k, v in d.items()}, p.cpu()) for d, p in outs],
                     states=[t.cpu() for hc in det.states for t in hc]),
                f"{work}/{name}/artifact_outputs.pt")
+    conds = [n for n in det.program.graph.nodes if n.target is torch.ops.higher_order.cond]
     report[name] = dict(counts=counts, device=str(det.device), num_streams=det.num_streams,
-                        max_events=det.max_events)
+                        max_events=det.max_events, cond_nodes=len(conds))
 report["model_modules"] = sorted(m for m in sys.modules if m.startswith(
     ("sast_tpu_torch.models", "sast_tpu_torch.training", "sast_tpu_torch.data",
      "sast_tpu_torch.serving")))
@@ -3064,12 +3052,10 @@ def phase_mesh(torch, np, cfg, model, inputs):
                 turns_ms=turns)
 
 
-def phase_eight(torch, np):
-    """Phase 8: the serving deployment at gen4-base, 4 lanes, confidence
-    threshold 0 (NMS sees full candidate sets), stand-in trained weights:
-    (a) exported artifacts, (b) the lanes over two replicas."""
-    import tempfile
-
+def deployment_setup(torch, np):
+    """Phase 8's configuration (gen4-base, confidence threshold 0), its
+    stand-in trained weights on the host, and its 8 frames of clustered
+    events per lane with lane 2 reset at frame 4."""
     from sast_tpu_torch.config import get_config
     from sast_tpu_torch.models.detector import build_detector
 
@@ -3081,6 +3067,16 @@ def phase_eight(torch, np):
                for s in range(STREAMS)] for f in range(EXPORT_FRAMES)]
     resets = [np.array([f == EXPORT_FRAMES // 2 and s == 2 for s in range(STREAMS)])
               for f in range(EXPORT_FRAMES)]
+    return cfg, model, frames, resets
+
+
+def phase_eight(torch, np):
+    """Phase 8: the serving deployment at gen4-base, 4 lanes, confidence
+    threshold 0 (NMS sees full candidate sets), stand-in trained weights:
+    (a) exported artifacts, (b) the lanes over two replicas."""
+    import tempfile
+
+    cfg, model, frames, resets = deployment_setup(torch, np)
     inputs = serving_inputs(torch, np, cfg, frames, resets)
     work = Path(tempfile.mkdtemp(prefix="export_", dir=OUT_DIR))
     try:
@@ -3242,6 +3238,199 @@ def phase_nine(torch, np):
     res["representations"] = phase_representations(torch, np)
     return res
 
+# ---------------------------------------------------------------------------
+# Phase 10: the attention branches chosen on the card inside exported
+# artifacts, and the measuring CLIs.
+
+# name -> (attention switches, sparse_kernel, the branch taken at or below
+# the limit); each layer of both chooses with a ``torch.cond`` in the trace.
+COND_EXPORTS = {"gather_0.5": (dict(gather_budget=0.5), False, "gathered"),
+                "threshold_0.5": (dict(pallas_density_threshold=0.5), True, "kernel")}
+# Which of phase 8's frames each of the 8 frames is: an index, or an empty
+# scene (few windows kept: every layer's first branch), or uniform events
+# over the sensor (every window kept: the masked branch).
+COND_FRAMES = ("empty", 0, 1, "uniform", "empty", 2, 3, 4)
+# The measuring CLIs, short: name -> arguments (``--device cuda`` added).
+CLI_RUNS = {
+    "bench_serving": ["--dataset", "gen4", "--size", "base", "--streams", "4", "--events",
+                      "200000", "--clustered", "3", "--path", "sparse", "--L1", "10", "--L2", "40",
+                      "--blocks", "2"],
+    "bench_sparse_layer": ["--iters", "10", "--blocks", "2", "--densities", "0.1,0.6"],
+    "bench_sparse_layer_grad": ["--grad", "--iters", "10", "--blocks", "2", "--densities",
+                                "0.1,0.6"],
+    "bench_train_sparsity": ["--dataset", "gen4", "--size", "base", "--batch", "2", "--seq", "3",
+                             "--iters", "1", "--repeats", "1", "--sparsities", "0.9,0.99"],
+    "profile_inference": ["--length", "10", "--top-k", "15", "--out", "{work}/inference"],
+    "profile_train": ["--dataset", "gen4", "--size", "base", "--batch", "2", "--seq", "3", "--L1",
+                      "1", "--L2", "2", "--repeats", "1", "--policies", "full,dots,none"],
+    "roofline_inference": ["--L1", "10", "--L2", "40", "--blocks", "2"],
+    "model_info": ["--flops"],
+}
+
+
+def cond_frames(np, cfg, frames):
+    """Phase 8's frames with empty and uniform scenes in between
+    (``COND_FRAMES``); phase 8's resets go with them."""
+    h, w = cfg.dataset.resolution_hw
+    rng = np.random.RandomState(10)
+    empty = dict(x=np.zeros(0, np.int64), y=np.zeros(0, np.int64), p=np.zeros(0, np.int64),
+                 t=np.zeros(0, np.int64))
+    out = []
+    for f, which in enumerate(COND_FRAMES):
+        if which == "empty":
+            out.append([empty] * STREAMS)
+        elif which == "uniform":
+            out.append([synthetic_events(rng, EVENTS_PER_FRAME, h, w, f) for _ in range(STREAMS)])
+        else:
+            out.append(frames[which])
+    return out
+
+
+def phase_cond_exports(torch, np, work):
+    """10a: per configuration of ``COND_EXPORTS``, the live detector over
+    the frames with the branch each attention layer took at each frame (a
+    spy on the branch methods, which the layer's predicate picks), its
+    export, and the artifact run by a fresh process (one ``torch.cond``
+    node per layer in the graph it loaded): the same bits as the live
+    detector, and in the threshold artifact kernel E launched as often as
+    the live detector took the kernel branch."""
+    from sast_tpu_torch.export import export_streaming_detector
+    from sast_tpu_torch.models.detector import YoloXDetector
+    from sast_tpu_torch.models.sast import MaskedSparseAttention
+    from sast_tpu_torch.serving import StreamingDetector
+
+    cfg, model, frames, resets = deployment_setup(torch, np)
+    inputs = serving_inputs(torch, np, cfg, cond_frames(np, cfg, frames), resets)
+    results, live_runs = {}, {}
+    for name, (attention, sparse_kernel, first) in COND_EXPORTS.items():
+        cfg_p = export_config(cfg, {}, attention)
+        model_p = YoloXDetector(cfg_p.model)
+        model_p.load_state_dict(model.state_dict())
+        det = StreamingDetector(cfg_p, model_p, max_events=EVENTS_PER_FRAME, num_streams=STREAMS,
+                                device=DEVICE, sparse_kernel=sparse_kernel)
+        names = {m: n.removeprefix("backbone.") for n, m in model_p.named_modules()
+                 if isinstance(m, MaskedSparseAttention)}
+        taken = {n: {} for n in names.values()}
+        originals = {b: getattr(MaskedSparseAttention, b) for b in ("masked", "gathered", "kernel")}
+
+        def spy(branch):
+            def run(self, *args, **kw):
+                taken[names[self]][branch] = taken[names[self]].get(branch, 0) + 1
+                return originals[branch](self, *args, **kw)
+            return run
+
+        for branch in originals:
+            setattr(MaskedSparseAttention, branch, spy(branch))
+        reset_counters()
+        try:
+            live_runs[name] = run_steps(torch, det, inputs)
+        finally:
+            for branch, fn in originals.items():
+                setattr(MaskedSparseAttention, branch, fn)
+        live_counts = read_counters()
+        one_way = {n: t for n, t in taken.items() if set(t) != {first, "masked"}}
+        log(f"cond {name}: branches taken per layer over {len(COND_FRAMES)} frames {taken}")
+        if one_way:
+            fail(f"cond {name}: layers that did not take both branches: {one_way}")
+        t0 = time.perf_counter()
+        blob = export_streaming_detector(det, path=str(work / name))
+        export_s = time.perf_counter() - t0
+        torch.save(list(inputs), work / name / "inputs.pt")
+        results[name] = dict(export_s=export_s, artifact_bytes=len(blob), layers=len(names),
+                             branches=taken, launches_live=live_counts)
+        log(f"cond {name}: exported in {export_s:.1f} s, {len(blob)} bytes")
+        del det, model_p
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_RUNNER, str(work), *COND_EXPORTS],
+                          capture_output=True, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        fail(f"cond: the artifact process failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"cond: a fresh process ran the {len(COND_EXPORTS)} artifacts in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, (_, sparse_kernel, first) in COND_EXPORTS.items():
+        got = torch.load(work / name / "artifact_outputs.pt", weights_only=True)
+        bad = same_bits(torch, (got["outs"], got["states"]), live_runs[name])
+        if bad:
+            fail(f"cond {name}: the artifact differs from the live detector: {bad[:4]}")
+        conds = results[name]["cond_nodes"] = report[name]["cond_nodes"]
+        if conds != results[name]["layers"]:
+            fail(f"cond {name}: {conds} cond nodes in the loaded graph, "
+                 f"{results[name]['layers']} attention layers")
+        counts = report[name]["counts"]
+        kernel_taken = sum(t.get("kernel", 0) for t in results[name]["branches"].values())
+        if counts["stem_conv7x4"] < len(COND_FRAMES) or counts["greedy_keep"] < len(COND_FRAMES) \
+                or counts["sparse_window_block"] != kernel_taken \
+                or results[name]["launches_live"]["sparse_window_block"] != kernel_taken:
+            fail(f"cond {name}: launches inside the artifact {counts}, live "
+                 f"{results[name]['launches_live']}; the kernel branch taken {kernel_taken} times")
+        results[name]["launches_artifact"] = counts
+        log(f"cond {name}: the artifact ({conds} cond nodes) equals the live detector bit for "
+            f"bit over {len(COND_FRAMES)} frames; launches inside it "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    if not results["threshold_0.5"]["launches_artifact"]["sparse_window_block"]:
+        fail("cond: kernel E was not launched inside the threshold artifact")
+    return results
+
+
+def phase_clis(torch, np, work):
+    """10b: each measuring CLI but the loader's (no ``h5py`` here) in this
+    process, short, on the card; its JSON lines logged and kept, and the
+    kernels' launches during each run."""
+    import importlib.util
+    import io
+
+    out = {}
+    for run, argv in CLI_RUNS.items():
+        name = run.removesuffix("_grad")
+        spec = importlib.util.spec_from_file_location(f"_cli_{name}",
+                                                      ROOT / "scripts" / f"{name}_torch.py")
+        cli = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cli)
+        argv = [a.format(work=work) for a in argv] + ["--device", DEVICE]
+        printed = io.StringIO()
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                cli.main(argv)
+        except SystemExit as e:
+            fail(f"cli {run}: stopped: {e}\n{printed.getvalue()[-2000:]}")
+        torch.cuda.synchronize()
+        rows = [json.loads(line) for line in printed.getvalue().splitlines()
+                if line.startswith("{")]
+        if not rows:
+            fail(f"cli {run}: printed no JSON row:\n{printed.getvalue()[-2000:]}")
+        launches = {k: v for k, v in read_counters().items() if v}
+        out[run] = dict(argv=argv, rows=rows, launches=launches,
+                        seconds=time.perf_counter() - t0)
+        log(f"cli {run} ({out[run]['seconds']:.1f} s; launches {launches}):")
+        for line in printed.getvalue().splitlines():
+            if not line.startswith('{"metric": "profile_inference_kernel"'):
+                log("  " + line[:400])
+    return out
+
+
+def phase_ten(torch, np):
+    """Phase 10: (a) artifacts of the gather and the threshold configuration
+    at gen4-base, 4 lanes; (b) the measuring CLIs."""
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="phase10_", dir=OUT_DIR))
+    try:
+        t0 = time.perf_counter()
+        res = dict(cond=phase_cond_exports(torch, np, work))
+        log(f"phase 10a: gather and threshold artifacts ok ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        res["clis"] = phase_clis(torch, np, work)
+        log(f"phase 10b: measuring CLIs ok ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     if not (ROOT / "sast_tpu_torch" / "csrc").is_dir():
         fail("sast_tpu_torch/ not found beside chip_smoke.py: run it from a checkout")
@@ -3366,9 +3555,24 @@ def main() -> None:
     nine["seconds"] = time.perf_counter() - t0
     log(f"phase 9: benchmark library, timers and representations ok ({nine['seconds']:.1f} s)")
 
+    t0 = time.perf_counter()
+    ten = phase_ten(torch, np)
+    # Launches on this slice's path: inside the two artifacts whose layers
+    # choose on the card (each counted from 0 over its frames), and in the
+    # CLIs' runs (each counted from 0), summed.
+    for k in kernels:
+        n = sum(c["launches_artifact"].get(k["name"], 0) for c in ten["cond"].values())
+        if n:
+            k["launches_cond_artifact"] = n
+        n = sum(c["launches"].get(k["name"], 0) for c in ten["clis"].values())
+        if n:
+            k["launches_cli"] = n
+    ten["seconds"] = time.perf_counter() - t0
+    log(f"phase 10: cond artifacts and measuring CLIs ok ({ten['seconds']:.1f} s)")
+
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
                   training=training, fit_validate=fit_validate, phase7=seven, phase8=eight,
-                  phase9=nine, seconds=time.perf_counter() - t_start)
+                  phase9=nine, phase10=ten, seconds=time.perf_counter() - t_start)
     log(f"chip_smoke: all phases ok in {record['seconds']:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print_result(kernels, smi, torch.cuda.get_device_name(0), torch.cuda.device_count())
@@ -3383,9 +3587,9 @@ def print_result(kernels, smi: str, kind: str, count: int) -> None:
     timers.reset()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels redesigned since their first port; launches on phases 6-9.
+    # Kernels redesigned since their first port; launches on phases 6-10.
     extra = ("redesigned", "launches_fit_validate", "launches_data_parallel",
-             "launches_artifact", "launches_benchmark")
+             "launches_artifact", "launches_benchmark", "launches_cond_artifact", "launches_cli")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(smi)

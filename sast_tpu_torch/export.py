@@ -27,7 +27,6 @@ has no promise across versions. The JAX export's ``platforms`` and
 from __future__ import annotations
 
 import io
-import math
 import os
 from typing import Dict, Union
 
@@ -49,37 +48,6 @@ from sast_tpu_torch.packing import pack_event_batch
 ARTIFACT_NAME = "streaming_step.pt2"
 
 
-def _refuse_host_reads(det) -> None:
-    """Raise if an attention layer of ``det`` reads a number back from the
-    card inside the step, which a trace cannot follow: the budget-gather
-    path whenever its budget K is below a layer's M windows (the test of
-    ``n_win <= K``), and the sparse kernel below a density threshold of 1."""
-    from sast_tpu_torch.models.sast import MaskedSparseAttention
-
-    bb = det.cfg.model.backbone
-    ph, pw = bb.attention.partition_size
-    lanes = det.num_streams
-    for m in det.model.modules():
-        if not isinstance(m, MaskedSparseAttention) or m.enable_cb:
-            continue
-        if m.gather_budget > 0.0:
-            for stride in bb.stage_strides:
-                M = lanes * (bb.in_res_hw[0] // stride // ph) * (bb.in_res_hw[1] // stride // pw)
-                if max(1, min(M, math.ceil(m.gather_budget * M))) < M:
-                    raise ValueError(
-                        f"attention.gather_budget={m.gather_budget} keeps fewer than the {M} "
-                        "windows of a layer: the gather path then reads the kept-window "
-                        "count on the host (models/sast.py, MaskedSparseAttention.run_block, "
-                        "int(wk.sum())), which torch.export cannot trace"
-                    )
-        elif m.sparse_kernel and m.density_threshold < 1.0:
-            raise ValueError(
-                f"attention.pallas_density_threshold={m.density_threshold} < 1 reads the "
-                "window density on the host (models/sast.py, MaskedSparseAttention."
-                "run_block), which torch.export cannot trace"
-            )
-
-
 def export_streaming_detector(det, path=None) -> bytes:
     """Trace ``det``'s serving step (a ``serving.StreamingDetector``) into an
     artifact and return its bytes; when ``path`` is given also write them to
@@ -87,13 +55,14 @@ def export_streaming_detector(det, path=None) -> bytes:
 
     The program takes ``(states, packed, n_events, reset)`` for all
     ``det.num_streams`` lanes on the device of ``det``'s first replica and
-    returns ``(dets, new_states, selected_tokens)``. Raises ``ValueError``
-    for a configuration whose step reads the host (the gather path with a
-    budget below 1). Tracing leaves ``det`` as it was: its caches fill only
-    outside a trace."""
+    returns ``(dets, new_states, selected_tokens)``. The attention layers'
+    data-dependent choices (the gather path's ``n_win <= K`` below a budget
+    of 1, the sparse kernel's density test below a threshold of 1) stand in
+    the graph as ``torch.cond`` nodes, which the program decides on its
+    device, as JAX's ``lax.cond``. Tracing leaves ``det`` as it was: its
+    caches fill only outside a trace."""
     from sast_tpu_torch.models.backbone import zero_states
 
-    _refuse_host_reads(det)
     step, device = det.replicas[0], det.devices[0]
     S = det.num_streams
     args = (
@@ -108,11 +77,14 @@ def export_streaming_detector(det, path=None) -> bytes:
     # The trace checks the input of every dtype cast (about 470 a step, the
     # weights' casts among them) with an assertion node of its own: a host
     # dispatch each time the program runs, on shapes and dtypes that are
-    # static. The program runs without them.
-    for node in list(program.graph.nodes):
-        if node.target is torch.ops.aten._assert_tensor_metadata.default:
-            program.graph.erase_node(node)
-    program.graph_module.recompile()
+    # static. The program runs without them, in the graph and in the
+    # branches of its ``torch.cond`` nodes.
+    for gm in program.graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in list(gm.graph.nodes):
+                if node.target is torch.ops.aten._assert_tensor_metadata.default:
+                    gm.graph.erase_node(node)
+            gm.recompile()
     buf = io.BytesIO()
     torch.export.save(program, buf)
     blob = buf.getvalue()

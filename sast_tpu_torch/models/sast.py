@@ -36,15 +36,20 @@ masked torch-op path, whatever the switches say (JAX's ``stochastic_off``
 rule); their masks come from the step's ``DropoutKey``.
 
 Both data-dependent choices (``n_win <= K`` when ``K < M``, the density test
-when the threshold is below 1) read one number back from the device: a host
-synchronisation per attention layer, where JAX has a ``lax.cond``.
+when the threshold is below 1) are a 0-d bool tensor on the layer's device,
+computed as JAX computes them (``branch_predicate``). Under a trace
+(``torch.export``) the layer emits a cond node on it (``choose``), JAX's
+``lax.cond``; the eager step reads it back, one host synchronisation per
+such layer.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -204,41 +209,136 @@ class MaskedSparseAttention(nn.Module):
                   win_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The block on norm1-ed tokens ``y``, on the path the switches and
         the scene pick (module docstring)."""
-        B, N, hw, C = y.shape
-        M = B * N
+        M = y.shape[0] * y.shape[1]
         skipping = win_keep is not None and not self.enable_cb
+        operands = (y, token_keep, win_keep)
 
         if self.gather_budget > 0.0 and skipping:
-            K = max(1, min(M, int(math.ceil(self.gather_budget * M))))
-            wk = win_keep.reshape(M)
-            # One host read where JAX has a lax.cond; none when K == M.
-            if K == M or int(wk.sum()) <= K:
-                order = torch.argsort(~wk, stable=True)[:K]
-                y_flat = y.reshape(M, hw, C)
-                out_g = self.block_math(y_flat[order][None], token_keep.reshape(M, hw)[order][None])
-                return y_flat.index_copy(0, order, out_g[0]).reshape(B, N, hw, C)
-            return self.block_math(y, token_keep)
+            K = gather_size(self.gather_budget, M)
+            gathered = functools.partial(self.gathered, k=K)
+            if K == M:  # static: no predicate, as in JAX
+                return gathered(*operands)
+            return choose(self, branch_predicate(win_keep, K), gathered, self.masked,
+                          operands)
 
         if self.sparse_kernel and skipping:
-            # One host read below a threshold of 1; none at the default 1.0.
-            if self.density_threshold >= 1.0 or (
-                float(win_keep.float().mean()) <= self.density_threshold
-            ):
-                run = (sparse_block.sparse_window_block_looped
-                       if sparse_block.MODEL_USES_LOOPED else sparse_block.sparse_window_block)
-                extra = {} if sparse_block.MODEL_USES_LOOPED else {"leaves": kernel_leaves(self)}
-                out = run(y.reshape(M, hw, C), token_keep.reshape(M, hw), win_keep.reshape(M),
-                          kernel_params(self), self.num_heads, self.dim_head, self.eps, **extra)
-                return out.reshape(B, N, hw, C)
-            return self.block_math(y, token_keep)
+            if self.density_threshold >= 1.0:  # static: no predicate, as in JAX
+                return self.kernel(*operands)
+            limit = density_limit(self.density_threshold, M)
+            return choose(self, branch_predicate(win_keep, limit), self.kernel, self.masked,
+                          operands)
 
         if self.fused and not self.enable_cb:
+            B, N, hw, C = y.shape
             out = fused_window_block(y.reshape(M, hw, C), token_keep.reshape(M, hw),
                                      kernel_params(self), self.num_heads, self.dim_head, self.eps,
                                      leaves=kernel_leaves(self))
             return out.reshape(B, N, hw, C)
 
         return self.block_math(y, token_keep)
+
+    # The branches of the data-dependent choices. Each takes the same three
+    # tensors, mutates none of them and returns a new (B, N, hw, C) tensor in
+    # ``y``'s dtype: the contract of ``torch.cond``'s branches.
+    def masked(self, y: torch.Tensor, token_keep: torch.Tensor,
+               win_keep: torch.Tensor) -> torch.Tensor:
+        """The masked torch-op block on every window."""
+        return self.block_math(y, token_keep)
+
+    def gathered(self, y: torch.Tensor, token_keep: torch.Tensor, win_keep: torch.Tensor,
+                 *, k: int) -> torch.Tensor:
+        """The masked torch-op block on the first ``k`` windows of the
+        kept-first work list, written back out of place; exact while at most
+        ``k`` windows are kept."""
+        B, N, hw, C = y.shape
+        M = B * N
+        order = torch.argsort(~win_keep.reshape(M), stable=True)[:k]
+        y_flat = y.reshape(M, hw, C)
+        out_g = self.block_math(y_flat[order][None], token_keep.reshape(M, hw)[order][None])
+        return y_flat.index_copy(0, order, out_g[0]).reshape(B, N, hw, C)
+
+    def kernel(self, y: torch.Tensor, token_keep: torch.Tensor,
+               win_keep: torch.Tensor) -> torch.Tensor:
+        """The window-skipping block kernel (E, or F under
+        ``sparse_block.MODEL_USES_LOOPED``) on the kept windows."""
+        B, N, hw, C = y.shape
+        M = B * N
+        run = (sparse_block.sparse_window_block_looped
+               if sparse_block.MODEL_USES_LOOPED else sparse_block.sparse_window_block)
+        extra = {} if sparse_block.MODEL_USES_LOOPED else {"leaves": kernel_leaves(self)}
+        out = run(y.reshape(M, hw, C), token_keep.reshape(M, hw), win_keep.reshape(M),
+                  kernel_params(self), self.num_heads, self.dim_head, self.eps, **extra)
+        return out.reshape(B, N, hw, C)
+
+
+def gather_size(budget: float, M: int) -> int:
+    """The gather path's static window budget ``K = ceil(budget * M)`` in
+    ``[1, M]`` (JAX ``sast.py``)."""
+    return max(1, min(M, int(math.ceil(budget * M))))
+
+
+def density_limit(threshold: float, M: int) -> int:
+    """The most kept windows out of ``M`` whose density passes JAX's test
+    ``mean(win_keep.astype(f32)) <= threshold`` as XLA compiles it: the
+    count ``n`` of bools sums exactly, the division by the constant ``M`` is
+    a product with ``f32(1 / M)``, and the threshold is cast to float32.
+    Worked out on the host in numpy float32, so the device only compares two
+    integers (a CPU ``mean`` divides, which lands one ulp away from the
+    product for some ``n / M``). -1 when no count passes."""
+    frac = np.arange(M + 1, dtype=np.float32) * (np.float32(1) / np.float32(M))
+    return int(np.count_nonzero(frac <= np.float32(threshold))) - 1
+
+
+def branch_predicate(win_keep: torch.Tensor, limit: int) -> torch.Tensor:
+    """Whether at most ``limit`` windows are kept: a 0-d bool tensor on
+    ``win_keep``'s device, from an int32 count as JAX's ``n_win <= K``. Both
+    choices use it: the gather path with ``limit = K``, the density threshold
+    with ``limit = density_limit(threshold, M)``."""
+    return win_keep.sum(dtype=torch.int32) <= limit
+
+
+def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
+           operands: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """JAX's ``lax.cond(pred, true_fn, false_fn)`` on ``layer``'s branches:
+    under a trace (the non-strict ``torch.export``) a cond node, so that the
+    program picks the branch on its device; eagerly one host read of
+    ``pred``. (Eager ``torch.cond`` compiles the branches with dynamo and
+    reads the host all the same.)
+
+    The node is made by the cond operator itself, whose branches the export
+    traces once: ``torch.cond`` would first trace them with dynamo as well,
+    which takes most of an export's time. A branch graph may hold no tensor
+    of its own, so the layer's parameters and buffers enter each branch as
+    operands, bound to the layer by ``torch.func.functional_call``: the
+    lifting that dynamo does for ``torch.cond``."""
+    if not torch.compiler.is_compiling():
+        return true_fn(*operands) if bool(pred) else false_fn(*operands)
+    names, tensors = zip(*layer.named_parameters(), *layer.named_buffers())
+
+    def lifted(fn: Callable) -> Callable:
+        call = _Branch(layer, fn)
+
+        def branch(y, token_keep, win_keep, *leaves):
+            return torch.func.functional_call(
+                call, {f"layer.{n}": t for n, t in zip(names, leaves)}, (y, token_keep, win_keep))
+        return branch
+
+    return torch.ops.higher_order.cond(pred, lifted(true_fn), lifted(false_fn),
+                                       (*operands, *tensors))
+
+
+class _Branch(nn.Module):
+    """One branch of ``choose`` as a module whose only child is the layer,
+    so that ``functional_call`` can swap the layer's tensors for a branch's
+    operands."""
+
+    def __init__(self, layer: nn.Module, fn: Callable):
+        super().__init__()
+        self.layer, self.fn = layer, fn
+
+    def forward(self, y: torch.Tensor, token_keep: torch.Tensor,
+                win_keep: torch.Tensor) -> torch.Tensor:
+        return self.fn(y, token_keep, win_keep)
 
 
 def _selection_stats(win_keep: torch.Tensor, tok_keep: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,9 @@ At the tests/test_export.py geometry (gen1 240x304 events, model resolution
 threshold 0 so that the slates are full): the port's artifact against the
 JAX package's artifact on the same weights and frames, against the live
 detector it was traced from, the live detector after the trace, the
-artifact's own signature, a loader that imports no model code, the gather
-path's refusal, and ``torch.library.opcheck`` on each operator.
+artifact's own signature, a loader that imports no model code, and
+``torch.library.opcheck`` on each operator. The configurations whose layers
+choose a branch on the card are in tests/test_torch_export_cond.py.
 """
 
 import dataclasses
@@ -241,26 +242,6 @@ def test_kernel_paths_export_through_their_operators(exported, path, monkeypatch
         for a, b in zip(outs, before):
             for k in b:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=f"{path} {k}")
-
-
-@pytest.mark.parametrize("budget", [0.5, 1.0])
-def test_gather_path_is_refused_by_name_below_a_budget_of_one(budget):
-    """The gather path reads the kept-window count on the host when K < M
-    (models/sast.py): the export refuses it by name, before any trace. At a
-    budget of 1 (K == M) there is no host read, and it is not refused."""
-    from sast_tpu_torch.models.detector import build_detector
-
-    cfg = _serving_config(get_test_config)
-    bb = cfg.model.backbone
-    bb = dataclasses.replace(bb, attention=dataclasses.replace(bb.attention, gather_budget=budget))
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb))
-    det = StreamingDetector(cfg, build_detector(cfg.model, device="cpu"), max_events=64,
-                            device="cpu")
-    if budget < 1.0:
-        with pytest.raises(ValueError, match=r"models/sast\.py.*int\(wk\.sum\(\)\)"):
-            export.export_streaming_detector(det)
-    else:
-        export._refuse_host_reads(det)
 
 
 def _params(C, inner, gen):

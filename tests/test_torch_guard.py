@@ -12,16 +12,20 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sast_tpu", "train", "va
              "matplotlib")
 # Third-party modules allowed only inside a function, and only in the files
 # named: the HDF5 dataset reader and the preprocessing CLI, which writes it.
-LAZY_ONLY = {mod: ("sast_tpu_torch/data/sequence.py", "scripts/preprocess_dataset_torch.py")
+LAZY_ONLY = {mod: ("sast_tpu_torch/data/sequence.py", "scripts/preprocess_dataset_torch.py",
+                   "scripts/bench_loader_torch.py")
              for mod in ("h5py", "hdf5plugin")}
+# The measuring CLIs of the JAX package's scripts/, each with its port.
+MEASURING_CLIS = ("bench_serving", "bench_sparse_layer", "bench_train_sparsity",
+                  "profile_inference", "profile_train", "roofline_inference", "model_info",
+                  "bench_loader")
 
 
 def _port_sources():
     return sorted((ROOT / "sast_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "train_torch.py", ROOT / "validation_torch.py",
-        ROOT / "bench_torch.py", ROOT / "scripts" / "export_model_torch.py",
-        ROOT / "scripts" / "benchmark_torch.py", ROOT / "scripts" / "preprocess_dataset_torch.py",
-    ] + sorted((ROOT / "scripts").glob("torch_*.py"))
+        ROOT / "bench_torch.py",
+    ] + sorted((ROOT / "scripts").glob("*_torch.py")) + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imports(path: Path):
@@ -106,6 +110,18 @@ def test_guard_covers_the_measurement_slice():
             "scripts/benchmark_torch.py", "scripts/preprocess_dataset_torch.py"} <= names
     assert any(mod == "h5py" and inside for _, mod, inside in
                _imports(ROOT / "scripts" / "preprocess_dataset_torch.py"))
+
+
+def test_guard_covers_the_measuring_clis():
+    """The eight measuring CLIs ported from the JAX package's scripts/ and
+    the profiling helpers they share are among the guarded sources; the
+    loader CLI imports ``h5py`` inside a function only."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"scripts/{name}_torch.py" for name in MEASURING_CLIS} <= names
+    assert "sast_tpu_torch/utils/profiling.py" in names
+    assert all((ROOT / "scripts" / f"{name}.py").is_file() for name in MEASURING_CLIS)
+    assert any(mod == "h5py" and inside for _, mod, inside in
+               _imports(ROOT / "scripts" / "bench_loader_torch.py"))
 
 
 def test_export_module_imports_no_model_code_at_module_level():
