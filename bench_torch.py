@@ -7,16 +7,21 @@ channels, bf16), a (4, 384, 640, 20) uint8 input at sparsity 0.9 from
 ``data/synthetic.sparse_event_input`` (seed 0), weights from a seeded
 ``torch.Generator``, the recurrent state carried from frame to frame. The
 timed frame is the serving frame: backbone, PAFPN, head, decode and
-fixed-budget NMS (``utils/benchmark.streaming_chunk(detect=True)``).
+fixed-budget NMS (``utils/benchmark.streaming_chunk(detect=True)``), as the
+serving step runs by default on a card: captured once as CUDA graphs and
+replayed frame after frame, the state and the feedback carried in place
+(``graph=True``; JAX times one jitted ``lax.scan`` over the chunk).
 
 Protocol (``utils/benchmark.chunk_times``): chunks of L 100 and L 600
 chained frames, each run once untimed, then 4 timed blocks of both in turns,
 each ended by ``torch.cuda.synchronize``. The slope ``(best L600 - best
-L100) / 500`` cancels what a chunk pays once; on the port's eager step it
-is the per-frame time the host's dispatch allows, which is what a frame
-costs today. ``value_second_best`` and ``slope_spread_pct`` come from the
-second-best times. ``fps_host_dispatch`` is the plain loop of 50 frames
-after 10 of warm-up, with one synchronise at its end.
+L100) / 500`` cancels what a chunk pays once. ``value`` and the keys beside
+it are the captured frame's; the same protocol on the eager frame (one op
+at a time from Python, which the host's dispatch paces) gives
+``eager_value``, ``eager_latency_per_frame_ms`` and
+``eager_slope_spread_pct``. ``value_second_best`` and ``slope_spread_pct``
+come from the second-best times. ``fps_host_dispatch`` is the plain eager
+loop of 50 frames after 10 of warm-up, with one synchronise at its end.
 
 MFU: ``compute_flops``' GFLOP/frame (``FlopCounterMode``, batch 1, the same
 path; the kernels count as their plain versions at full window density)
@@ -95,25 +100,30 @@ def main(argv=None) -> None:
                                                sparse_kernel)
     carried = [states]
 
-    def make_fn(length):
-        run = streaming_chunk(model, length, detect=True)
+    def chunks(graph):
+        def make_fn(length):
+            run = streaming_chunk(model, length, detect=True, graph=graph)
 
-        def chunk():
-            carried[0], _ = run(x, carried[0])
-        return chunk
+            def chunk():
+                carried[0], _ = run(x, carried[0])
+            return chunk
+        return make_fn
 
     with looped_kernel(looped):
         # The plain host loop: frames issued one after another, one wait.
-        make_fn(HOST_WARMUP)()
+        chunks(False)(HOST_WARMUP)()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        make_fn(HOST_ITERS)()
+        chunks(False)(HOST_ITERS)()
         torch.cuda.synchronize()
         dt_host = (time.perf_counter() - t0) / HOST_ITERS
-        t_small, t_big = chunk_times(make_fn, L_SMALL, L_BIG, BLOCKS)
+        e_small, e_big = chunk_times(chunks(False), L_SMALL, L_BIG, BLOCKS)
+        t_small, t_big = chunk_times(chunks(True), L_SMALL, L_BIG, BLOCKS)
 
     dt = (min(t_big) - min(t_small)) / (L_BIG - L_SMALL)
     dt_2 = (sorted(t_big)[1] - sorted(t_small)[1]) / (L_BIG - L_SMALL)
+    dt_eager = (min(e_big) - min(e_small)) / (L_BIG - L_SMALL)
+    dt_eager_2 = (sorted(e_big)[1] - sorted(e_small)[1]) / (L_BIG - L_SMALL)
     overhead_ms = 1e3 * (min(t_small) - L_SMALL * dt)
     fps = BATCH / dt
     gflops = compute_flops(cfg, batch_size=1, sparsity=SPARSITY, seed=SEED, path=args.path)[
@@ -122,9 +132,10 @@ def main(argv=None) -> None:
     peak = card_peak_tflops(kind)
     achieved = gflops * fps / 1e3
     mfu = achieved / peak if peak else None
-    print(f"path {args.path}: per-frame {dt * 1e3:.3f} ms (slope of L={L_SMALL}/{L_BIG} "
+    print(f"path {args.path}: per-frame {dt * 1e3:.3f} ms captured (slope of L={L_SMALL}/{L_BIG} "
           f"chunks over {BLOCKS} blocks; second-best {dt_2 * 1e3:.3f} ms, per-chunk overhead "
-          f"{overhead_ms:.1f} ms), host loop {dt_host * 1e3:.3f} ms; {gflops:.2f} GFLOP/frame "
+          f"{overhead_ms:.1f} ms), eager {dt_eager * 1e3:.3f} ms, eager host loop "
+          f"{dt_host * 1e3:.3f} ms; {gflops:.2f} GFLOP/frame "
           f"x {fps:.1f} frames/s = {achieved:.2f} TFLOP/s"
           + (f" = {100 * mfu:.2f}% of {peak} TFLOP/s ({kind})" if mfu is not None
              else f" (no peak known for {kind!r}; set SAST_TORCH_PEAK_TFLOPS)"),
@@ -138,6 +149,10 @@ def main(argv=None) -> None:
         "slope_spread_pct": round(100.0 * abs(dt_2 - dt) / dt, 2),
         "per_dispatch_overhead_ms": round(overhead_ms, 3),
         "fps_host_dispatch": round(BATCH / dt_host, 3),
+        "graph": True,
+        "eager_value": round(BATCH / dt_eager, 3),
+        "eager_latency_per_frame_ms": round(dt_eager * 1e3, 4),
+        "eager_slope_spread_pct": round(100.0 * abs(dt_eager_2 - dt_eager) / dt_eager, 2),
         "gflop_per_frame": round(gflops, 4),
         "achieved_tflops": round(achieved, 4),
         "peak_tflops": peak,

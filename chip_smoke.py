@@ -33,11 +33,15 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
 3. Drive the port's main path: ``StreamingDetector`` at gen4-base width
    (384x640 model resolution, 20 channels, dims 64/128/256/512, bf16),
    ``num_streams=4``, seeded random weights, 8 frames of seeded synthetic
-   events with one lane reset midway; the launch counters must show the
-   stem and NMS kernels on every frame. Then the same weights with the
+   events with one lane reset midway, the step captured as CUDA graphs at
+   the first frame and replayed (the detector's default on a card); the
+   launches the card ran (the wrappers' counts less those recorded into
+   the graphs, plus the replays') must show the stem and NMS kernels on
+   every frame. Then the same weights with the
    stem/density fusion off, which puts the density kernel on the path and
    must give the same detections. Steady-state ms/step with CUDA events.
-   Then the same weights and frames on the sparse-kernel, looped-kernel,
+   Then the same weights and frames, on eager detectors (``graph=False``),
+   on the sparse-kernel, looped-kernel,
    fused-kernel and budget-gather attention paths: 8 block-kernel launches
    per step, the kept-window share per stage, ms/step of each, and the card
    time per step of each path and of its hand-written kernels.
@@ -146,12 +150,30 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    profile_inference,profile_train,roofline_inference,model_info}_torch.py``)
    with short arguments on the card; the rows each printed are logged.
 
+11. Serve as JAX's jitted step serves, at phase 8's configuration, weights
+   and 8 frames (lane 2 reset at frame 4). (a) On seven paths (default,
+   fusion off, sparse, looped, fused, masked, and the two that choose on
+   the card: gather 0.5 and the sparse kernel below a density threshold of
+   0.5), in fp32 (TF32 off) and bf16: the captured step (``graphs.py``)
+   against the eager step, bit for bit (slates, telemetry, carried states);
+   no parameter cast recorded into the graphs; in bf16 the profiler rows of
+   one replay must name the hand-written kernels that the replay ran, and
+   the step times eager and captured in turns, each one's card time and
+   idle share, and ``process_batch`` on the host clock are logged. (b) The
+   captured mesh of two replicas on the one card against the eager mesh;
+   artifacts of the default and the threshold configuration, loaded and
+   captured, against the captured live detector (the default artifact with
+   no parameter cast left in its graph), and timed in turns with it; new
+   weights loaded into a captured detector that has stepped, against a
+   fresh detector on them.
+
 Prints the kernel table as one JSON line (the rows of kernels redesigned
 since their first port carry ``redesigned``, what the redesign made of
 them; the first versions' times are in PERF.md; ``launches_artifact`` counts
 phase 8's launches inside the artifacts, ``launches_benchmark`` phase 9a's
 in the timed chunks, ``launches_cond_artifact`` phase 10a's inside the two
-artifacts, ``launches_cli`` phase 10b's in the CLIs' runs), then the nvidia-smi line, then
+artifacts, ``launches_cli`` phase 10b's in the CLIs' runs, ``launches_captured``
+phase 11a's by the captured steps, the warm-ups' and the replays'), then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line; the timer registry is
 emptied before, so that nothing is printed after it. Longer output (build
 logs, profiler table, all measurements) goes to ``chiprun_out/``.
@@ -1034,16 +1056,9 @@ def reset_counters():
 
 
 def read_counters():
-    from sast_tpu_torch.ops import density, fused_block, nms_keep, sparse_block, stem_conv
+    from sast_tpu_torch.graphs import launch_counts
 
-    return dict(stem_conv7x4=stem_conv.stem_conv7x4.launches,
-                density_ratio=density.density_ratio.launches,
-                greedy_keep=nms_keep.greedy_keep.launches,
-                fused_window_block=fused_block.fused_window_block.launches,
-                sparse_window_block=sparse_block.sparse_window_block.launches,
-                sparse_window_block_looped=sparse_block.sparse_window_block_looped.launches,
-                sparse_block_mlp_bwd=sparse_block.sparse_block_mlp_bwd.launches,
-                sparse_block_attn_bwd=sparse_block.sparse_block_attn_bwd.launches)
+    return launch_counts()
 
 
 def phase_serving(torch, np, card):
@@ -1070,8 +1085,10 @@ def phase_serving(torch, np, card):
     reset_counters()
     outs = [det.process_batch(frames[f], reset=resets[f]) for f in range(FRAMES)]
     torch.cuda.synchronize()
-    counts = read_counters()
-    log(f"main path launches over {FRAMES} frames: {counts}")
+    wrappers = read_counters()
+    counts = executed_launches(wrappers, [det])
+    log(f"main path (captured) launches run over {FRAMES} frames: {counts} (the wrappers' "
+        f"counts {wrappers}, {det.steps[0].run.replays} replays)")
     if counts["stem_conv7x4"] < FRAMES or counts["greedy_keep"] < FRAMES:
         fail(f"main path did not launch the stem and NMS kernels on every frame: {counts}")
     for f, out in enumerate(outs):
@@ -1099,7 +1116,7 @@ def phase_serving(torch, np, card):
     reset_counters()
     outs_nf = [det_nf.process_batch(frames[f]) for f in range(2)]
     torch.cuda.synchronize()
-    counts_nf = read_counters()
+    counts_nf = executed_launches(read_counters(), [det_nf])
     log(f"fusion-off launches over 2 frames: {counts_nf}")
     if counts_nf["density_ratio"] < 2 or counts_nf["stem_conv7x4"] < 2:
         fail(f"fusion-off path did not launch the density and stem kernels: {counts_nf}")
@@ -1127,8 +1144,11 @@ def phase_serving(torch, np, card):
         f"({STREAMS * 1e3 / e2e_ms:.1f} frames/s)")
 
     # Every timing comes before the first profiler trace, so that no
-    # tracing overhead can leak into a step time.
-    paths = phase_attention_paths(torch, np, cfg, model, det, frames, outs, pk, nk)
+    # tracing overhead can leak into a step time. The attention paths run
+    # eagerly here, as in earlier PRs (phase 11 runs them captured).
+    det_eager = StreamingDetector(cfg, model, max_events=EVENTS_PER_FRAME, num_streams=STREAMS,
+                                  device=DEVICE, graph=False)
+    paths = phase_attention_paths(torch, np, cfg, model, det_eager, frames, outs, pk, nk)
 
     # Where the device time goes (torch.profiler over a short window).
     from torch.profiler import ProfilerActivity, profile
@@ -1175,7 +1195,7 @@ def path_detector(cfg, model, name, max_events, num_streams):
     model_p = YoloXDetector(cfg_p.model)
     model_p.load_state_dict(model.state_dict())
     return StreamingDetector(cfg_p, model_p, max_events=max_events, num_streams=num_streams,
-                             device=DEVICE, sparse_kernel=sparse_kernel)
+                             device=DEVICE, sparse_kernel=sparse_kernel, graph=False)
 
 
 def phase_attention_paths(torch, np, cfg, model, det_masked, frames, masked_outs, pk, nk):
@@ -1778,7 +1798,8 @@ def phase_cpu_parity(torch, np):
         f"(relative gap {float(gaps.max()):.6f})")
 
     det_cpu = StreamingDetector(cfg, model_cpu, max_events=100_000, device="cpu")
-    dets_gpu = {"masked": StreamingDetector(cfg, model_gpu, max_events=100_000, device=DEVICE)}
+    dets_gpu = {"masked": StreamingDetector(cfg, model_gpu, max_events=100_000, device=DEVICE,
+                                            graph=False)}
     for name in ("sparse", "fused", "gather"):
         dets_gpu[name] = path_detector(cfg, model_gpu, name, 100_000, 1)
     worst = {name: [0.0, 0.0] for name in dets_gpu}  # box px, score relative
@@ -2784,7 +2805,7 @@ ops = {k: sys.modules["sast_tpu_torch.ops." + m] for k, m in (
 report = {}
 for name in names:
     inputs = torch.load(f"{work}/{name}/inputs.pt", weights_only=True)
-    det = ExportedStreamingDetector(f"{work}/{name}")
+    det = ExportedStreamingDetector(f"{work}/{name}", graph=False)
     for k, m in ops.items():
         getattr(m, k).launches = 0
     outs = [det.step(*(t.to(det.device) for t in frame)) for frame in inputs]
@@ -2830,7 +2851,8 @@ def run_steps(torch, det, inputs):
     det.reset()
     outs = [det.step(*frame) for frame in inputs]
     torch.cuda.synchronize()
-    states = det.states if det.mesh is None else [hc for replica in det.states for hc in replica]
+    mesh = getattr(det, "mesh", None)  # an artifact has none
+    states = det.states if mesh is None else [hc for replica in det.states for hc in replica]
     return ([({k: v.cpu() for k, v in d.items()}, p.cpu()) for d, p in outs],
             [t.cpu() for hc in states for t in hc])
 
@@ -2864,7 +2886,7 @@ def phase_export(torch, np, cfg, model, inputs, work):
         model_p.load_state_dict(model.state_dict())
         det = dets[name] = StreamingDetector(cfg_p, model_p, max_events=EVENTS_PER_FRAME,
                                              num_streams=STREAMS, device=DEVICE,
-                                             sparse_kernel=sparse_kernel)
+                                             sparse_kernel=sparse_kernel, graph=False)
         sparse_block.MODEL_USES_LOOPED, default = looped, sparse_block.MODEL_USES_LOOPED
         try:
             live_runs[name] = run_steps(torch, det, inputs)
@@ -2914,7 +2936,7 @@ def phase_export(torch, np, cfg, model, inputs, work):
     no_reset = torch.zeros(STREAMS, dtype=torch.bool, device=DEVICE)
     pk, nk, _ = inputs[0]
     for name, (_, _, _, looped, _) in EXPORT_PATHS.items():
-        art = ExportedStreamingDetector(str(work / name))
+        art = ExportedStreamingDetector(str(work / name), graph=False)
         live = dets[name]
         sparse_block.MODEL_USES_LOOPED, default = looped, sparse_block.MODEL_USES_LOOPED
         try:
@@ -2969,7 +2991,8 @@ def phase_mesh(torch, np, cfg, model, inputs):
         ``cfg_d``'s compute dtype."""
         m = YoloXDetector(cfg_d.model)
         m.load_state_dict(model.state_dict())
-        return StreamingDetector(cfg_d, m, max_events=EVENTS_PER_FRAME, num_streams=lanes, **kw)
+        return StreamingDetector(cfg_d, m, max_events=EVENTS_PER_FRAME, num_streams=lanes,
+                                 graph=False, **kw)
 
     half = STREAMS // 2
     mesh = detector(cfg, STREAMS, mesh=MESH)
@@ -3120,7 +3143,7 @@ def phase_benchmark(torch, np, cfg):
     for path in BENCH_PATHS:
         reset_counters()
         res = bench.compute_fps(cfg, batch_size=STREAMS, sparsity=0.9, iters=BENCH_ITERS,
-                                path=path, blocks=BENCH_BLOCKS, device=DEVICE)
+                                path=path, blocks=BENCH_BLOCKS, device=DEVICE, graph=False)
         torch.cuda.synchronize()
         counts = read_counters()
         n = res["frames"]
@@ -3307,7 +3330,7 @@ def phase_cond_exports(torch, np, work):
         model_p = YoloXDetector(cfg_p.model)
         model_p.load_state_dict(model.state_dict())
         det = StreamingDetector(cfg_p, model_p, max_events=EVENTS_PER_FRAME, num_streams=STREAMS,
-                                device=DEVICE, sparse_kernel=sparse_kernel)
+                                device=DEVICE, sparse_kernel=sparse_kernel, graph=False)
         names = {m: n.removeprefix("backbone.") for n, m in model_p.named_modules()
                  if isinstance(m, MaskedSparseAttention)}
         taken = {n: {} for n in names.values()}
@@ -3428,6 +3451,279 @@ def phase_ten(torch, np):
         log(f"phase 10b: measuring CLIs ok ({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the serving step as captured CUDA graphs.
+
+# name -> (backbone switches, attention switches, sparse_kernel, looped): the
+# seven paths of the captured step; the last is two configurations whose
+# layers choose their branch on the card.
+GRAPH_PATHS = {
+    "default": (dict(), dict(), False, False),
+    "fusion_off": (dict(fuse_stem_density=False), dict(), False, False),
+    "sparse": (dict(), dict(), True, False),
+    "looped": (dict(), dict(), True, True),
+    "fused": (dict(), dict(fused_block=True), False, False),
+    "masked": (dict(stem_pallas=False, ratio_pallas=False, fuse_stem_density=False), dict(),
+               False, False),
+    "gather_0.5": (dict(), dict(gather_budget=0.5), False, False),
+    "threshold_0.5": (dict(), dict(pallas_density_threshold=0.5), True, False),
+}
+# The hand-written kernels (``utils/profiling.HAND_WRITTEN`` labels) that one
+# replay must name, by the launch counter that says the path runs them.
+GRAPH_KERNEL_LABELS = {"stem_conv7x4": "A stem_conv", "density_ratio": "B density",
+                       "greedy_keep": "C nms_keep", "sparse_window_block": "D/E sparse_fwd",
+                       "fused_window_block": "D/E sparse_fwd",
+                       "sparse_window_block_looped": "F looped"}
+GRAPH_ROUNDS = 1  # rounds of eager / captured step times in turns (E C C E each)
+
+
+def executed_launches(counts, dets):
+    """The launches the card ran while the counters in ``counts`` counted:
+    the wrappers' counts, less the launches they recorded into the captured
+    graphs of ``dets`` (detectors or artifacts), plus those that the graphs'
+    replays ran."""
+    out = dict(counts)
+    for det in dets:
+        for step in getattr(det, "steps", None) or [det._step]:
+            for k, v in step.run.recorded.items():
+                out[k] -= v
+            for k, v in step.run.replayed.items():
+                out[k] += v
+    return out
+
+
+def param_cast_counter(torch, params):
+    """A ``TorchDispatchMode`` that counts, while active, the dtype casts
+    whose input lies in the storage of one of ``params`` (its ``n``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    storages = {t.untyped_storage().data_ptr() for t in params}
+
+    class ParamCasts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._to_copy.default and \
+                    args[0].untyped_storage().data_ptr() in storages:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return ParamCasts()
+
+
+def graph_detectors(torch, cfg, model, name, dtype, graphs=(True,)):
+    """A ``StreamingDetector`` per entry of ``graphs`` (its ``graph``) on
+    ``GRAPH_PATHS[name]`` in ``dtype``, all on one model of their own with
+    ``model``'s weights."""
+    from sast_tpu_torch.models.detector import YoloXDetector
+    from sast_tpu_torch.serving import StreamingDetector
+
+    backbone, attention, sparse_kernel, _ = GRAPH_PATHS[name]
+    cfg_p = export_config(cfg, backbone, attention)
+    cfg_p = dataclasses.replace(cfg_p, model=dataclasses.replace(cfg_p.model,
+                                                                 compute_dtype=dtype))
+    model_p = YoloXDetector(cfg_p.model)
+    model_p.load_state_dict(model.state_dict())
+    return [StreamingDetector(cfg_p, model_p, max_events=EVENTS_PER_FRAME, num_streams=STREAMS,
+                              device=DEVICE, sparse_kernel=sparse_kernel, graph=graph)
+            for graph in graphs]
+
+
+def phase_graph_paths(torch, np, cfg, model, frames, inputs):
+    """11a: per path of ``GRAPH_PATHS``, in fp32 (TF32 off) and bf16, the
+    captured step against the eager step over the 8 frames: the same bits
+    (slates, telemetry, carried states). In bf16 also: the launches the
+    card ran (the wrappers' counts less those recorded at capture, plus the
+    replays'), the parameter casts recorded into the graphs, the
+    hand-written kernels that one replay's profiler rows name, the step
+    times eager and captured in turns (CUDA events), each one's card time
+    and idle share, and ``process_batch`` on the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sast_tpu_torch import graphs
+    from sast_tpu_torch.utils.benchmark import looped_kernel
+    from sast_tpu_torch.utils.profiling import kernel_table
+
+    no_reset = torch.zeros(STREAMS, dtype=torch.bool, device=DEVICE)
+    pk, nk, _ = inputs[0]
+    out = {}
+    capture = graphs.Schedule.capture
+    for name, (_, _, _, looped) in GRAPH_PATHS.items():
+        res = out[name] = {}
+        for dtype in ("float32", "bfloat16"):
+            eager, captured = graph_detectors(torch, cfg, model, name, dtype, (False, True))
+            mode = param_cast_counter(torch, list(captured.model.parameters()))
+
+            def counting(self, body, mode=mode):
+                with mode:
+                    return capture(self, body)
+
+            graphs.Schedule.capture = counting
+            try:
+                with looped_kernel(looped):
+                    run_e = run_steps(torch, eager, inputs)
+                    reset_counters()
+                    run_c = run_steps(torch, captured, inputs)
+                    counts = read_counters()
+            finally:
+                graphs.Schedule.capture = capture
+            bad = same_bits(torch, run_e, run_c)
+            if bad:
+                fail(f"graph {name} {dtype}: the captured step differs from the eager step: "
+                     f"{bad[:6]}")
+            launches = executed_launches(counts, [captured])
+            step = captured.steps[0].run
+            res[dtype] = dict(launches={k: v for k, v in launches.items() if v},
+                              recorded=dict(step.recorded), replayed=dict(step.replayed),
+                              replays=step.replays,
+                              graphs=len(step.schedule.items) if step.schedule else 0,
+                              param_casts=mode.n)
+            if mode.n:
+                fail(f"graph {name} {dtype}: {mode.n} parameter casts recorded into the graphs")
+            if dtype == "float32":
+                del eager, captured
+                torch.cuda.empty_cache()
+                continue
+            with looped_kernel(looped):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    before = dict(step.replayed)
+                    captured.step(pk, nk, no_reset)
+                    torch.cuda.synchronize()
+                named = kernel_table(prof, steps=1)
+                ran = {k for k, v in step.replayed.items() if v > before.get(k, 0)}
+                want = {GRAPH_KERNEL_LABELS[k] for k in ran if k in GRAPH_KERNEL_LABELS}
+                missing = want - set(named["hand_written"])
+                if missing or not want:
+                    fail(f"graph {name}: one replay ran {sorted(ran)}, its profiler rows name "
+                         f"{sorted(named['hand_written'])}; missing {sorted(missing)}")
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        eager.step(pk, nk, no_reset)
+                    torch.cuda.synchronize()
+                eager_card = kernel_table(prof, steps=3)
+                rounds = {"eager": [], "captured": []}
+                for _ in range(GRAPH_ROUNDS):
+                    for kind in ("eager", "captured", "captured", "eager"):
+                        det = eager if kind == "eager" else captured
+                        rounds[kind].append(cuda_ms(torch, lambda: det.step(pk, nk, no_reset),
+                                                    iters=20, warmup=3))
+                host = {}
+                for kind, det in (("eager", eager), ("captured", captured)):
+                    det.reset()
+                    det.process_batch(frames[0])
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for f in range(1, len(frames)):
+                        det.process_batch(frames[f])
+                    host[kind] = (time.perf_counter() - t0) / (len(frames) - 1) * 1e3
+            ms = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+            res[dtype].update(
+                replay_kernels=named["hand_written"], card_ms=named["kernel_ms"],
+                eager_card_ms=eager_card["kernel_ms"], step_ms_rounds=rounds, step_ms=ms,
+                idle_share=1 - named["kernel_ms"] / ms["captured"],
+                eager_idle_share=1 - eager_card["kernel_ms"] / ms["eager"],
+                process_batch_ms=host)
+            log(f"graph {name}: captured = eager bit for bit in fp32 and bf16 over "
+                f"{len(inputs)} frames ({res[dtype]['graphs']} graphs, "
+                f"{mode.n} parameter casts recorded); bf16 step ms eager {ms['eager']:.3f} / "
+                f"captured {ms['captured']:.3f} (rounds {rounds}); card ms eager "
+                f"{eager_card['kernel_ms']:.3f} / captured {named['kernel_ms']:.3f}, idle share "
+                f"{res[dtype]['eager_idle_share']:.3f} / {res[dtype]['idle_share']:.3f}; "
+                f"process_batch ms {host}; one replay names "
+                f"{ {k: round(v, 4) for k, v in named['hand_written'].items()} }; launches run "
+                f"{res[dtype]['launches']}")
+            del eager, captured
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_graph_deployment(torch, np, cfg, model, inputs):
+    """11b: the captured mesh of two replicas on the one card against its
+    eager mesh; a loaded artifact (default path, and the threshold
+    configuration whose layers choose on the card), captured, against the
+    captured live detector, and the parameter casts left in its graph; new
+    weights loaded into a captured detector that has stepped, against a
+    fresh detector on those weights."""
+    from sast_tpu_torch import export
+    from sast_tpu_torch.models.detector import build_detector
+    from sast_tpu_torch.serving import StreamingDetector
+
+    res = {}
+    meshes = {}
+    for graph in (False, True):
+        m = copy.deepcopy(model)
+        meshes[graph] = StreamingDetector(cfg, m, max_events=EVENTS_PER_FRAME,
+                                          num_streams=STREAMS, mesh=MESH, graph=graph)
+    bad = same_bits(torch, run_steps(torch, meshes[False], inputs),
+                    run_steps(torch, meshes[True], inputs))
+    if bad:
+        fail(f"graph mesh: the captured mesh differs from the eager mesh: {bad[:6]}")
+    res["mesh_replays"] = [s.run.replays for s in meshes[True].steps]
+    log(f"graph mesh {MESH}: captured = eager bit for bit over {len(inputs)} frames")
+    del meshes
+    for name in ("default", "threshold_0.5"):
+        (live,) = graph_detectors(torch, cfg, model, name, "bfloat16")
+        live_run = run_steps(torch, live, inputs)
+        t0 = time.perf_counter()
+        blob = export.export_streaming_detector(live)
+        export_s = time.perf_counter() - t0
+        art = export.ExportedStreamingDetector(blob)
+        casts = export.parameter_casts(art.program)
+        art_run = run_steps(torch, art, inputs)
+        bad = same_bits(torch, live_run, art_run)
+        if bad:
+            fail(f"graph artifact {name}: the captured artifact differs from the captured live "
+                 f"detector: {bad[:6]}")
+        if name == "default" and casts:
+            fail(f"graph artifact {name}: {casts} parameter casts left in the graph")
+        pk, nk, _ = inputs[0]
+        no_reset = torch.zeros(STREAMS, dtype=torch.bool, device=DEVICE)
+        turns = [cuda_ms(torch, lambda d=d: d.step(pk, nk, no_reset), iters=20, warmup=3)
+                 for d in (live, art, art, live)]
+        res[f"artifact_{name}"] = dict(export_s=export_s, bytes=len(blob), parameter_casts=casts,
+                                       cond_nodes=len(art.cond_nodes),
+                                       graphs=len(art._step.run.schedule.items)
+                                       if art._step.run.schedule else 0,
+                                       live_ms_turns=[turns[0], turns[3]],
+                                       artifact_ms_turns=turns[1:3])
+        log(f"graph artifact {name}: captured artifact = captured live detector bit for bit "
+            f"({res[f'artifact_{name}']})")
+        del live, art, blob
+        torch.cuda.empty_cache()
+    (det,) = graph_detectors(torch, cfg, model, "default", "bfloat16")
+    run_steps(torch, det, inputs[:3])
+    schedule = det.steps[0].run.schedule
+    other = stand_in_trained(torch, build_detector(cfg.model, seed=1, device="cpu"))
+    det.model.load_state_dict(other.state_dict())
+    got = run_steps(torch, det, inputs)
+    (fresh,) = graph_detectors(torch, cfg, other, "default", "bfloat16")
+    bad = same_bits(torch, got, run_steps(torch, fresh, inputs))
+    if bad:
+        fail(f"graph weights: a captured detector given new weights differs from a fresh one: "
+             f"{bad[:6]}")
+    res["new_weights_recaptured"] = det.steps[0].run.schedule is not schedule
+    log(f"graph weights: new weights loaded after capture = a fresh detector, bit for bit "
+        f"(captured again: {res['new_weights_recaptured']})")
+    return res
+
+
+def phase_eleven(torch, np):
+    """Phase 11: the serving step as captured CUDA graphs at gen4-base, 4
+    lanes, phase 8's weights and frames."""
+    cfg, model, frames, resets = deployment_setup(torch, np)
+    inputs = serving_inputs(torch, np, cfg, frames, resets)
+    t0 = time.perf_counter()
+    res = dict(paths=phase_graph_paths(torch, np, cfg, model, frames, inputs))
+    log(f"phase 11a: captured paths ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    res["deployment"] = phase_graph_deployment(torch, np, cfg, model, inputs)
+    log(f"phase 11b: captured mesh, artifacts and new weights ok "
+        f"({time.perf_counter() - t0:.1f} s)")
     return res
 
 
@@ -3570,9 +3866,29 @@ def main() -> None:
     ten["seconds"] = time.perf_counter() - t0
     log(f"phase 10: cond artifacts and measuring CLIs ok ({ten['seconds']:.1f} s)")
 
+    t0 = time.perf_counter()
+    eleven = phase_eleven(torch, np)
+    # Launches on this slice's path: the captured steps of phase 11a (fp32
+    # and bf16, each path counted from 0 over its 8 frames), the warm-ups'
+    # and the replays', summed; every serving kernel must have run inside
+    # a replay.
+    for k in kernels:
+        n = sum(r["launches"].get(k["name"], 0) for p in eleven["paths"].values()
+                for r in p.values())
+        if n:
+            k["launches_captured"] = n
+    for name in ("stem_conv7x4", "density_ratio", "greedy_keep", "fused_window_block",
+                 "sparse_window_block", "sparse_window_block_looped"):
+        if not any(r["replayed"].get(name) for p in eleven["paths"].values()
+                   for r in p.values()):
+            fail(f"kernel {name} was not launched by a replay of a captured step")
+    eleven["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: captured serving steps ok ({eleven['seconds']:.1f} s)")
+
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
                   training=training, fit_validate=fit_validate, phase7=seven, phase8=eight,
-                  phase9=nine, phase10=ten, seconds=time.perf_counter() - t_start)
+                  phase9=nine, phase10=ten, phase11=eleven,
+                  seconds=time.perf_counter() - t_start)
     log(f"chip_smoke: all phases ok in {record['seconds']:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print_result(kernels, smi, torch.cuda.get_device_name(0), torch.cuda.device_count())
@@ -3589,7 +3905,8 @@ def print_result(kernels, smi: str, kind: str, count: int) -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # Kernels redesigned since their first port; launches on phases 6-10.
     extra = ("redesigned", "launches_fit_validate", "launches_data_parallel",
-             "launches_artifact", "launches_benchmark", "launches_cond_artifact", "launches_cli")
+             "launches_artifact", "launches_benchmark", "launches_cond_artifact", "launches_cli",
+             "launches_captured")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(smi)

@@ -6,7 +6,13 @@ tensorize, recurrent backbone, head, NMS) traced by ``torch.export`` into
 one ``ExportedProgram`` and saved with ``torch.export.save``:
 
 - the **weights are baked** into the artifact (they are the program's
-  parameters and buffers, saved beside its graph);
+  parameters and buffers, saved beside its graph); each parameter that the
+  step only ever reads cast to one dtype (the compute dtype: conv and dense
+  kernels, most biases) is stored cast, so the graph holds no cast of a
+  parameter, as JAX bakes its weights in as constants of the compute dtype
+  (sast_tpu/export.py:72-76). Parameters read at their own dtype anywhere
+  (norm scales, the block kernels' fp32 vectors, BatchNorm statistics) stay
+  as they are, and so do those that only the branches of a cond node read;
 - the carried LSTM state, the packed events, the valid counts and the reset
   mask stay **runtime inputs**;
 - the hand-written kernels stand in the graph as the operators
@@ -43,7 +49,8 @@ import sast_tpu_torch.ops.fused_block  # noqa: F401  (fused_block_fwd)
 import sast_tpu_torch.ops.nms_keep  # noqa: F401  (sast_tpu_torch::greedy_keep)
 import sast_tpu_torch.ops.sparse_block  # noqa: F401  (sparse_block_fwd, sparse_block_looped)
 import sast_tpu_torch.ops.stem_conv  # noqa: F401  (stem_conv7x4, stem_conv_density7x4)
-from sast_tpu_torch.packing import pack_event_batch
+from sast_tpu_torch import graphs
+from sast_tpu_torch.graphs import CapturedStep, Staging
 
 ARTIFACT_NAME = "streaming_step.pt2"
 
@@ -85,6 +92,7 @@ def export_streaming_detector(det, path=None) -> bytes:
                 if node.target is torch.ops.aten._assert_tensor_metadata.default:
                     gm.graph.erase_node(node)
             gm.recompile()
+    bake_compute_weights(program)
     buf = io.BytesIO()
     torch.export.save(program, buf)
     blob = buf.getvalue()
@@ -95,15 +103,73 @@ def export_streaming_detector(det, path=None) -> bytes:
     return blob
 
 
+def bake_compute_weights(program) -> int:
+    """Store each parameter of ``program`` whose every use in its graph is a
+    cast to one dtype cast to that dtype, and drop the casts (in place).
+    Returns how many were baked. The values are those the casts computed, so
+    the program's results keep their bits."""
+    names = program.graph_signature.inputs_to_parameters
+    baked = 0
+    for node in list(program.graph.nodes):
+        if node.op != "placeholder" or node.name not in names:
+            continue
+        users = list(node.users)
+        if not users or any(u.target is not torch.ops.aten.to.dtype or len(u.args) != 2
+                            or u.kwargs for u in users):
+            continue
+        dtypes = {u.args[1] for u in users}
+        fqn = names[node.name]
+        held = program.state_dict[fqn]
+        if len(dtypes) != 1 or held.dtype in dtypes:
+            continue
+        (dtype,) = dtypes
+        program.state_dict[fqn] = torch.nn.Parameter(held.detach().to(dtype), requires_grad=False)
+        node.meta["val"] = node.meta["val"].to(dtype)
+        for u in users:
+            u.replace_all_uses_with(node)
+            program.graph.erase_node(u)
+        baked += 1
+    program.graph_module.recompile()
+    return baked
+
+
+def parameter_casts(program) -> int:
+    """How many nodes of ``program``'s graph cast a parameter directly."""
+    names = program.graph_signature.inputs_to_parameters
+    return sum(1 for node in program.graph.nodes
+               if node.op == "placeholder" and node.name in names
+               for u in node.users if u.target is torch.ops.aten.to.dtype)
+
+
+class _CondInterpreter(torch.fx.Interpreter):
+    """Runs a loaded program's graph node by node, each cond node through
+    ``graphs.choose``: eagerly one host read of its predicate, and in a
+    captured step a choice between its two branches captured as graphs."""
+
+    def call_function(self, target, args, kwargs):
+        if target is torch.ops.higher_order.cond:
+            pred, true_fn, false_fn, operands = args
+            return graphs.choose(pred, true_fn, false_fn, tuple(operands))
+        return super().call_function(target, args, kwargs)
+
+
 class ExportedStreamingDetector:
     """Run an exported streaming-detector artifact.
 
     The API of ``StreamingDetector`` (``reset``, ``process_batch``,
-    ``process_events``) without the model code or config: the zero state,
-    ``num_streams`` and ``max_events`` come from the program's own input
-    signature, and it runs on the device it was exported on."""
+    ``process_events``, ``step``, ``states``) without the model code or
+    config: the zero state, ``num_streams`` and ``max_events`` come from the
+    program's own input signature, and it runs on the device it was
+    exported on. There, on a card and with ``graph`` on (the default), the
+    program's step is captured as CUDA graphs at the first batch and
+    replayed from then on, the carried state in place
+    (``graphs.CapturedStep``; JAX jits the loaded artifact's call,
+    sast_tpu/export.py:125). A program whose layers choose their branch on
+    the card runs through an interpreter that hands each cond node to
+    ``graphs.choose``, captured in segments as the live detector is.
+    ``graph=False`` runs the program eagerly."""
 
-    def __init__(self, blob_or_path: Union[bytes, str]):
+    def __init__(self, blob_or_path: Union[bytes, str], graph: bool = True):
         if isinstance(blob_or_path, (bytes, bytearray)):
             source = io.BytesIO(bytes(blob_or_path))
         else:
@@ -120,33 +186,53 @@ class ExportedStreamingDetector:
         self.device = specs[0].device
         leaves = [torch.zeros(v.shape, dtype=v.dtype, device=self.device) for v in specs]
         (states, packed, _, _), _ = pytree.tree_unflatten(leaves, self.program.call_spec.in_spec)
-        self._states_zero = states
         self.num_streams, self.max_events = int(packed.shape[0]), int(packed.shape[1])
-        self.reset()
+        self.cond_nodes = [n.name for n in self._fn.graph.nodes
+                           if n.target is torch.ops.higher_order.cond]
+        fn = gm = self._fn
+        if self.cond_nodes:
+            def fn(*args):
+                out = _CondInterpreter(gm).run(*pytree.arg_tree_leaves(*args))
+                return pytree.tree_unflatten(pytree.tree_leaves(out), gm._out_spec)
+        self._step = CapturedStep(fn, states, self.num_streams, self.max_events, self.device,
+                                  graph, weights=(self._fn,))
+        self._staging = Staging(self.num_streams, self.max_events,
+                                 pinned=self.device.type == "cuda")
+
+    @property
+    def states(self):
+        """The carried state of every lane: the step's own buffers,
+        rewritten in place by every step."""
+        return self._step.states
 
     def reset(self) -> None:
-        """Zero the carried recurrent state of every lane (per-lane resets
-        go through ``process_batch``'s ``reset`` mask)."""
-        self.states = pytree.tree_map(torch.clone, self._states_zero)
+        """Zero the carried recurrent state of every lane, in place
+        (per-lane resets go through ``process_batch``'s ``reset`` mask)."""
+        self._step.zero_states()
 
     @torch.no_grad()
     def step(self, packed: torch.Tensor, n_events: torch.Tensor, reset: torch.Tensor):
         """``StreamingDetector.step`` through the program: (S, E, 4) int32
         events, (S,) counts and (S,) resets on the artifact's device ->
-        (detections, selected-token telemetry); carries the state."""
-        dets, self.states, p_tel = self._fn(self.states, packed, n_events, reset)
-        return dets, p_tel
+        (detections, selected-token telemetry), tensors of their own;
+        carries the state."""
+        dets, p_tel = self._run((packed, n_events, reset))
+        return {k: v.clone() for k, v in dets.items()}, p_tel.clone()
+
+    def _run(self, inputs):
+        step = self._step
+        for buf, t in zip((step.packed, step.n_events, step.reset), inputs):
+            buf.copy_(t, non_blocking=True)
+        return step()
 
     def process_batch(self, frames, reset: "np.ndarray | None" = None) -> Dict[str, np.ndarray]:
         """One frame window per lane -> batched detections (the contract of
         ``StreamingDetector.process_batch``; both pack with
-        ``packing.pack_event_batch``)."""
-        S = self.num_streams
-        packed, n = pack_event_batch(frames, S, self.max_events)
-        reset = np.zeros((S,), bool) if reset is None else np.asarray(reset, bool)
-        dets, p_tel = self.step(*(torch.from_numpy(a).to(self.device) for a in (packed, n, reset)))
-        out = {k: v.cpu().numpy() for k, v in dets.items()}
-        return out | {"selected_tokens": p_tel.cpu().numpy()}
+        ``packing.pack_event_batch`` and move the batch through page-locked
+        buffers on a card)."""
+        ((dets, p_tel),) = self._staging.batch(frames, reset, lambda *batch: [self._run(batch)])
+        return {k: v.numpy().copy() for k, v in dets.items()} | {
+            "selected_tokens": p_tel.numpy().copy()}
 
     def process_events(self, x: np.ndarray, y: np.ndarray, p: np.ndarray,
                        t: np.ndarray) -> Dict[str, np.ndarray]:

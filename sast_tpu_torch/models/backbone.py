@@ -13,7 +13,13 @@ import torch
 import torch.nn as nn
 
 from sast_tpu_torch.config import BackboneConfig
-from sast_tpu_torch.models.layers import ConvDownsample, Dropout, DropoutKey, DWSConvLSTM2d
+from sast_tpu_torch.models.layers import (
+    ConvDownsample,
+    Dropout,
+    DropoutKey,
+    DWSConvLSTM2d,
+    compute_copy,
+)
 from sast_tpu_torch.models.sast import SASTBlock
 from sast_tpu_torch.ops.posemb import position_embedding_sine
 from sast_tpu_torch.ops.sparse import non_zero_ratio
@@ -68,16 +74,17 @@ class SASTStage(nn.Module):
         )
         self._pos: Dict[tuple, torch.Tensor] = {}
 
-    def pos_emb(self, H: int, W: int, device) -> torch.Tensor:
-        """The (H, W) sine embedding on ``device``, kept per shape and device;
-        under a trace (``torch.export``) made afresh and not kept, so that no
-        traced value is left behind in the live module."""
-        key = (H, W, str(device))
+    def pos_emb(self, H: int, W: int, device, dtype=torch.float32) -> torch.Tensor:
+        """The (H, W) sine embedding on ``device`` in ``dtype``, kept per
+        shape, device and dtype; under a trace (``torch.export``) made afresh
+        and not kept, so that no traced value is left behind in the live
+        module."""
+        key = (H, W, str(device), dtype)
         pos = self._pos.get(key)
         if pos is None:
             pos = torch.from_numpy(
                 position_embedding_sine(H, W, num_pos_feats=self.dim // 2)
-            ).to(device)
+            ).to(device).to(dtype)
             if not torch.compiler.is_compiling():
                 self._pos[key] = pos
         return pos
@@ -103,9 +110,9 @@ class SASTStage(nn.Module):
         else:
             x = self.downsample(x)
         if token_mask is not None:
-            x = torch.where(token_mask[..., None], self.mask_token.to(x.dtype), x)
+            x = torch.where(token_mask[..., None], compute_copy(self, "mask_token", x.dtype), x)
         H, W = x.shape[1], x.shape[2]
-        pos = self.pos_emb(H, W, x.device)
+        pos = self.pos_emb(H, W, x.device, x.dtype)
         p_total = torch.zeros((), dtype=torch.float32, device=x.device)
         masks = None
         for i in range(self.num_blocks):

@@ -4,8 +4,12 @@ Port of sast_tpu/models/layers.py. Every module names its submodules and
 parameters as the JAX package's flax modules do (``Conv_0/kernel``,
 ``BatchNorm_0/mean``, ...), so ``weights.load_jax_variables`` maps a flax
 tree onto the port by name; only the layouts differ (conv kernels are OIHW,
-dense kernels ``(out, in)``). Parameters stay fp32; each module casts them
-to its compute ``dtype`` at use, as flax's ``dtype=`` does.
+dense kernels ``(out, in)``). Parameters stay fp32; each module uses them
+in its compute ``dtype``, as flax's ``dtype=`` does: under grad mode (and
+under a trace) cast at each use, so that gradients reach the fp32
+parameters; otherwise through ``compute_copy``, one copy per parameter kept
+in the compute dtype (JAX's jitted step folds the casts of its constant
+weights once).
 
 - ``Conv`` / ``Dense`` / ``LayerNorm`` / ``BatchNorm``: the flax primitives
   (LayerNorm and BatchNorm compute in fp32 and cast at the end; BatchNorm
@@ -34,6 +38,58 @@ import torch.nn.functional as F
 
 from sast_tpu_torch.ops.stem_conv import stem_conv7x4, stem_conv7x4_plain, stem_supported
 from sast_tpu_torch.parallel.mesh import Mesh
+
+
+def compute_copy(module: nn.Module, name: str, dtype: torch.dtype, fn=None):
+    """Parameter ``name`` of ``module`` (``fn`` of it, where given) in
+    ``dtype``, or None where the module has no such parameter.
+
+    Under grad mode or a trace, cast at this call (differentiable). Otherwise
+    ``cached_copy``: the parameter itself where it already has ``dtype`` and
+    there is no ``fn``, else one copy kept on the module."""
+    p = getattr(module, name)
+    if p is None:
+        return None
+    if torch.is_grad_enabled() or torch.compiler.is_compiling():
+        return (p if fn is None else fn(p)).to(dtype)
+    return cached_copy(module, name, dtype, fn)
+
+
+def cached_copy(module: nn.Module, name: str, dtype: torch.dtype, fn=None) -> torch.Tensor:
+    """``compute_copy`` without grad: detached, kept on the module and
+    stamped with the parameter's dtype, device, ``data_ptr`` and
+    ``_version``. When the stamp changes (the parameter was written, moved
+    or cast) the copy is rebuilt in place, in the same storage where the
+    shape and device allow, so that a captured CUDA graph that reads it
+    stays valid after new weights are loaded (``graphs.py``)."""
+    p = getattr(module, name)
+    if fn is None and p.dtype == dtype:
+        return p.detach()
+    copies = module.__dict__.setdefault("_compute_copies", {})
+    stamp = (dtype, p.device, p.data_ptr(), p._version)
+    entry = copies.get(name)
+    if entry is not None and entry[0] == stamp:
+        return entry[1]
+    # The copy is an ordinary tensor even when first asked for under
+    # ``torch.inference_mode``, so that it can be rewritten outside it.
+    with torch.inference_mode(False), torch.no_grad():
+        value = (p if fn is None else fn(p)).to(dtype)
+        held = None if entry is None else entry[1]
+        if held is not None and (held.shape, held.dtype, held.device) == (
+                value.shape, value.dtype, value.device):
+            held.copy_(value)
+        else:
+            held = value
+    copies[name] = (stamp, held, fn)
+    return held
+
+
+def refresh_compute_copies(model: nn.Module) -> None:
+    """Bring every copy that ``cached_copy`` keeps in ``model`` up to date
+    with its parameter, in place where it can."""
+    for m in model.modules():
+        for name, (_, held, fn) in list(m.__dict__.get("_compute_copies", {}).items()):
+            cached_copy(m, name, held.dtype, fn)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -66,8 +122,8 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        w = self.kernel.to(dt)
-        b = None if self.bias is None else self.bias.to(dt)
+        w = compute_copy(self, "kernel", dt)
+        b = compute_copy(self, "bias", dt)
         x = x.to(dt)
         if w.shape[-1] == 1 and self.stride == 1 and self.groups == 1:
             return F.linear(x, w.flatten(1), b)
@@ -87,8 +143,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.to(self.dtype) @ self.kernel.to(self.dtype).t()
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        y = x.to(self.dtype) @ compute_copy(self, "kernel", self.dtype).t()
+        return y if self.bias is None else y + compute_copy(self, "bias", self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -273,7 +329,7 @@ class ConvDownsample(nn.Module):
     def forward(self, x: torch.Tensor, with_density: bool = False):
         ratio = None
         if self.is_stem:
-            w = self.Conv_0.kernel.to(self.dtype)
+            w = compute_copy(self.Conv_0, "kernel", self.dtype)
             if with_density:
                 if not self.stem_kernel_applies(x):
                     raise ValueError("with_density needs the stem kernel's gate")

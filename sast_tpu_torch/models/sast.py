@@ -40,7 +40,8 @@ when the threshold is below 1) are a 0-d bool tensor on the layer's device,
 computed as JAX computes them (``branch_predicate``). Under a trace
 (``torch.export``) the layer emits a cond node on it (``choose``), JAX's
 ``lax.cond``; the eager step reads it back, one host synchronisation per
-such layer.
+such layer, and so does a captured step between its graphs
+(``graphs.Schedule``).
 """
 
 from __future__ import annotations
@@ -53,10 +54,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from sast_tpu_torch import graphs
 from sast_tpu_torch.config import AttentionConfig
 from sast_tpu_torch.models.layers import (
     Dense,
     DropoutKey,
+    compute_copy,
     DropPath,
     Dropout,
     LayerNorm,
@@ -78,15 +81,15 @@ MASK_VALUE = -1e4  # the reference's key-mask constant
 Masks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _layernorm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
+def _layernorm(x: torch.Tensor, norm: LayerNorm, eps: float) -> torch.Tensor:
     """flax LayerNorm(dtype=x.dtype) as the JAX package writes it for the
-    attention: fp32 statistics (E[x^2] - E[x]^2, clamped at 0), elementwise
-    math in the input dtype."""
+    attention, with ``norm``'s parameters: fp32 statistics (E[x^2] - E[x]^2,
+    clamped at 0) and scale, elementwise math in the input dtype."""
     x32 = x.to(torch.float32)
     mu = x32.mean(dim=-1, keepdim=True)
     var = ((x32 * x32).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-    inv = (torch.rsqrt(var + eps) * scale).to(x.dtype)
-    return (x - mu.to(x.dtype)) * inv + bias.to(x.dtype)
+    inv = (torch.rsqrt(var + eps) * norm.scale).to(x.dtype)
+    return (x - mu.to(x.dtype)) * inv + compute_copy(norm, "bias", x.dtype)
 
 
 class PositiveDense(nn.Module):
@@ -99,7 +102,7 @@ class PositiveDense(nn.Module):
         self.weight = nn.Parameter(torch.ones(cout, cin))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = torch.exp(self.weight).to(self.dtype)
+        w = compute_copy(self, "weight", self.dtype, torch.exp)
         return x.to(self.dtype) @ w.t()
 
 
@@ -167,7 +170,7 @@ class MaskedSparseAttention(nn.Module):
         B, N, hw, C = y.shape
         heads, dh = self.num_heads, self.dim_head
         k4 = token_keep[..., None]
-        z = torch.where(k4, _layernorm(y, self.norm2.scale, self.norm2.bias, self.eps), y)
+        z = torch.where(k4, _layernorm(y, self.norm2, self.eps), y)
 
         qkv = self.qkv(z).reshape(B, N, hw, 3 * heads, dh)
         q = qkv[:, :, :, :heads].permute(0, 1, 3, 2, 4)  # (B, N, h, hw, dh)
@@ -181,7 +184,7 @@ class MaskedSparseAttention(nn.Module):
         attn = torch.softmax(logits, dim=-1)
         out = (attn @ v).permute(0, 1, 3, 2, 4).reshape(B, N, hw, C)
         out = self.proj(out)
-        h = z + self.drop_path1(self.ls1.gamma.to(z.dtype) * out, dropout)
+        h = z + self.drop_path1(compute_copy(self.ls1, "gamma", z.dtype) * out, dropout)
 
         val, gate = self.mlp.GLU_0.Dense_0(h).chunk(2, dim=-1)
         mlp_out = self.mlp.Dense_0(self.mlp_drop(val * self.act(gate), dropout))
@@ -190,14 +193,15 @@ class MaskedSparseAttention(nn.Module):
             # the mean over all token slots (unselected ones count as zero).
             masked = torch.where(k4, mlp_out, 0.0)
             mlp_out = 0.5 * masked + 0.5 * masked.mean(dim=(1, 2), keepdim=True)
-        h2 = h + self.drop_path2(self.ls2.gamma.to(h.dtype) * mlp_out, dropout)
+        h2 = h + self.drop_path2(compute_copy(self.ls2, "gamma", h.dtype) * mlp_out,
+                                 dropout)
         return torch.where(k4, h2, y)
 
     def forward(self, x: torch.Tensor, token_keep: torch.Tensor,
                 win_keep: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 dropout: Optional[DropoutKey] = None) -> torch.Tensor:
-        y = _layernorm(x, self.norm1.scale, self.norm1.bias, self.eps)
+        y = _layernorm(x, self.norm1, self.eps)
         if not deterministic and (self.drop_path > 0.0 or self.drop_mlp > 0.0):
             if dropout is None:
                 raise ValueError(f"attention.drop_path = {self.drop_path}, drop_mlp = "
@@ -301,9 +305,11 @@ def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Ca
            operands: Tuple[torch.Tensor, ...]) -> torch.Tensor:
     """JAX's ``lax.cond(pred, true_fn, false_fn)`` on ``layer``'s branches:
     under a trace (the non-strict ``torch.export``) a cond node, so that the
-    program picks the branch on its device; eagerly one host read of
-    ``pred``. (Eager ``torch.cond`` compiles the branches with dynamo and
-    reads the host all the same.)
+    program picks the branch on its device; otherwise ``graphs.choose``:
+    eagerly one host read of ``pred``, and in a captured step a choice
+    between two captured branches (``graphs.Schedule``). (Eager
+    ``torch.cond`` compiles the branches with dynamo and reads the host all
+    the same.)
 
     The node is made by the cond operator itself, whose branches the export
     traces once: ``torch.cond`` would first trace them with dynamo as well,
@@ -312,7 +318,7 @@ def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Ca
     operands, bound to the layer by ``torch.func.functional_call``: the
     lifting that dynamo does for ``torch.cond``."""
     if not torch.compiler.is_compiling():
-        return true_fn(*operands) if bool(pred) else false_fn(*operands)
+        return graphs.choose(pred, true_fn, false_fn, operands)
     names, tensors = zip(*layer.named_parameters(), *layer.named_buffers())
 
     def lifted(fn: Callable) -> Callable:

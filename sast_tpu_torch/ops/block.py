@@ -107,12 +107,20 @@ def kernel_params(attn) -> Dict[str, torch.Tensor]:
 
     The port stores ``Dense`` kernels ``(out, in)``, which is how the CUDA
     kernels read a matrix, so each matrix here is the transposed *view* of a
-    contiguous ``(out, in)`` tensor in the compute dtype: the plain version
-    multiplies by the view, the launcher takes the tensor under it without a
-    copy. The dict is cached on the module and rebuilt when a parameter is
-    written, moved or cast. Under a trace (``torch.export``, whose
-    parameters have no storage) it is built from the traced parameters and
-    neither read from nor written to the cache."""
+    contiguous ``(out, in)`` tensor in the compute dtype: the layer's own
+    copy of its kernel in that dtype (``models/layers.cached_copy``, the
+    one its ``forward`` reads without grad), or the parameter itself in
+    fp32. The plain version multiplies by the view, the launcher takes the
+    tensor under it without a copy. The dict is cached on the module and
+    rebuilt when a parameter is written, moved or cast; the rebuilt dict
+    holds the same storages where the parameters kept theirs (the copies
+    are rewritten in place, an absent bias's zeros are kept), so that a
+    captured CUDA graph that reads them stays valid. Under a trace
+    (``torch.export``, whose parameters have no storage) it is built from
+    the traced parameters and neither read from nor written to the
+    cache."""
+    from sast_tpu_torch.models.layers import cached_copy
+
     dense = (attn.qkv, attn.proj, attn.mlp.GLU_0.Dense_0, attn.mlp.Dense_0)
     tracing = torch.compiler.is_compiling()
     if not tracing:
@@ -128,7 +136,14 @@ def kernel_params(attn) -> Dict[str, torch.Tensor]:
     def bias(d):
         if d.bias is not None:
             return d.bias.detach()
-        return torch.zeros(d.kernel.shape[0], device=d.kernel.device)
+        if tracing:
+            return torch.zeros(d.kernel.shape[0], device=d.kernel.device)
+        zeros = d.__dict__.get("_zero_bias")
+        if zeros is None or zeros.shape[0] != d.kernel.shape[0] or zeros.device != d.kernel.device:
+            with torch.inference_mode(False):
+                zeros = d.__dict__["_zero_bias"] = torch.zeros(d.kernel.shape[0],
+                                                                device=d.kernel.device)
+        return zeros
 
     params = {
         "ln2_scale": attn.norm2.scale.detach(),
@@ -137,7 +152,8 @@ def kernel_params(attn) -> Dict[str, torch.Tensor]:
         "ls2": attn.ls2.gamma.detach(),
     }
     for key, bkey, d in zip(MATRICES, ("bqkv", "bproj", "bglu", "bout"), dense):
-        params[key] = d.kernel.detach().to(dt).contiguous().t()
+        w = d.kernel.to(dt) if tracing else cached_copy(d, "kernel", dt)
+        params[key] = w.detach().contiguous().t()
         params[bkey] = bias(d)
     if not tracing:
         attn._kernel_params = (stamp, params)

@@ -42,7 +42,8 @@ def density_supported(shape, dtype) -> bool:
 @functools.lru_cache(maxsize=16)
 def cell_counts(H: int, W: int, C: int, device) -> torch.Tensor:
     """(4,) fp32 normaliser ``(H/k) * (W/k) * C`` of each pyramid level
-    (kept per shape and device: building it copies from the host)."""
+    (kept per shape and device: building it copies from the host, so a
+    captured step finds it made by its eager warm-up)."""
     return torch.tensor(
         [float((H // k) * (W // k) * C) for k in POOLS], device=device
     )
@@ -69,7 +70,11 @@ def non_zero_ratio_plain(x: torch.Tensor, num_stages: int = 4) -> torch.Tensor:
         pooled = pooled.reshape(B, H // k, k, W // k, k, C).amax(dim=(2, 4))
         nz = (pooled != 0).to(torch.float32).sum(dim=(1, 2))  # (B, C)
         n = float(pooled.shape[1] * pooled.shape[2] * C)
-        ratios.append(nz / torch.tensor(n, device=x.device))
+        # A true division by a tensor (a Python number would be a product
+        # with its reciprocal on a card), filled on the device: a tensor
+        # copied from the host would wait for the stream, which a captured
+        # step cannot do.
+        ratios.append(nz / torch.full((), n, device=x.device))
     return torch.stack(ratios, dim=1)
 
 

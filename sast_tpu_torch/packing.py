@@ -40,17 +40,30 @@ def pack_event_batch(
     frames: List[Dict[str, np.ndarray]],
     num_streams: int,
     max_events: int,
+    out: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Pack one frame dict per lane into ((S, E, 4) int32, (S,) int32).
 
-    The host-side contract of ``serving.StreamingDetector``.
+    The host-side contract of ``serving.StreamingDetector``. ``out``: the
+    (packed, n) of the previous batch packed by this function, rewritten in
+    place (a serving loop's pinned staging buffers); only the rows that the
+    previous batch filled past this one's counts are zeroed again, so the
+    result equals a fresh pack.
     """
     S = num_streams
     if len(frames) != S:
         raise ValueError(f"{len(frames)} frames for {S} streams")
-    packed = np.zeros((S, max_events, 4), np.int32)
-    n = np.zeros((S,), np.int32)
+    if out is None:
+        packed = np.zeros((S, max_events, 4), np.int32)
+        n = np.zeros((S,), np.int32)
+    else:
+        packed, n = out
+        if packed.shape != (S, max_events, 4) or n.shape != (S,):
+            raise ValueError(f"out is {packed.shape} / {n.shape}, expected "
+                             f"{(S, max_events, 4)} / {(S,)}")
     for i, f in enumerate(frames):
+        if out is not None:
+            packed[i, min(int(f["x"].size), max_events):n[i]] = 0
         _, n[i] = pack_events(
             f["x"], f["y"], f["p"], f["t"], max_events, out=packed[i]
         )

@@ -10,9 +10,11 @@ validity mask. The recurrent state stays on the device between frames; a
 per-lane ``reset`` mask zeroes it inside the step.
 
 ``StreamingStep`` is that step as a pure function of ``(states, packed,
-n_events, reset)``, the counterpart of the JAX runtime's ``_step_fn``: the
-detector keeps one per device and carries the state, and
-``export.export_streaming_detector`` traces it.
+n_events, reset)``, the counterpart of the JAX runtime's ``_step_fn``;
+``export.export_streaming_detector`` traces it. ``CapturedStep`` runs it on
+static buffers, the carried state written back in place, and on a card as
+captured CUDA graphs (``graphs.py``): the counterpart of the JAX runtime's
+``jax.jit(step, donate_argnums=(1,))``. The detector keeps one per device.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.nn as nn
 
 from sast_tpu_torch.config import ExperimentConfig
 from sast_tpu_torch.data.representations import stacked_histogram
+from sast_tpu_torch.graphs import CapturedStep, Staging, run_together
 from sast_tpu_torch.models.backbone import zero_states
 from sast_tpu_torch.models.detector import (
     DTYPES,
@@ -35,7 +38,6 @@ from sast_tpu_torch.models.detector import (
 )
 from sast_tpu_torch.models.head import inference_outputs
 from sast_tpu_torch.ops.nms import postprocess
-from sast_tpu_torch.packing import pack_event_batch
 from sast_tpu_torch.utils.padding import InputPadder, padding_token_mask
 
 
@@ -112,17 +114,30 @@ class StreamingDetector:
     device is CUDA unless the caller passes ``device="cpu"``, which runs the
     kernels' plain versions.
 
+    ``graph`` (default on): on a card each device's step is captured as
+    CUDA graphs at its first batch and replayed from then on
+    (``CapturedStep``), with the carried state in place and the weights
+    read through their compute-dtype copies; ``graph=False`` runs the same
+    step eagerly, one op at a time. On the CPU the step runs eagerly
+    whatever ``graph`` says. Weights written after the capture (in place,
+    as ``load_state_dict`` and ``weights.load_jax_variables`` write them)
+    are seen by the next step; moved ones are captured again.
+
     ``mesh``: a sequence of devices (JAX's ``mesh=``), or None. The lanes
     are split over them in contiguous blocks, in order (``num_streams`` must
     tile the mesh, else ``ValueError``); each device holds its own replica
-    of the model, copied once here, and its lanes' carried state. A batch
-    is one upload per device; every device's step is issued before any
-    result is fetched, so the cards' work overlaps (one thread issues the
-    replicas one after another, so a host-paced step gains nothing from a
-    second card until one card is full); the slates come back
-    concatenated in lane order, and ``selected_tokens`` is the mean over the
-    devices of their batch aggregates, which is the aggregate of all lanes.
-    ``device`` is then ignored.
+    of the model, copied once here, and its lanes' carried state, and
+    captures its step on its own card. A batch is one upload per device;
+    every device's step is launched before any result is fetched, so the
+    cards' work overlaps. Where the step chooses on the host (a gather
+    budget below 1, the sparse kernel's threshold below 1), the replicas'
+    replays are interleaved: every card's graphs up to a choice are enqueued
+    before any card's predicate is read. Eagerly one thread dispatches the
+    replicas one after another, so a host-paced step gains little from a
+    second card. The slates come back concatenated in lane order, and
+    ``selected_tokens`` is the mean over the devices of their batch
+    aggregates, which is the aggregate of all lanes. ``device`` is then
+    ignored.
 
     ``sparse_kernel`` (the JAX runtime's ``use_pallas``, ``--sparse_kernel``
     on its validation CLI) decides the attention path as the JAX runtime
@@ -143,6 +158,7 @@ class StreamingDetector:
         device="cuda",
         sparse_kernel: bool = False,
         mesh: Optional[Sequence] = None,
+        graph: bool = True,
     ):
         bb = cfg.model.backbone
         if bb.input_channels != 2 * bins:
@@ -166,49 +182,54 @@ class StreamingDetector:
         ]
         self.model = model
         self.lanes_per_replica = num_streams // len(devices)
-        self.reset()
+        self.steps = [
+            CapturedStep(r, zero_states(bb, self.lanes_per_replica, self.dtype, d),
+                         self.lanes_per_replica, max_events, d, graph, weights=(r,))
+            for r, d in zip(self.replicas, devices)
+        ]
+        self._staging = Staging(num_streams, max_events,
+                                 pinned=any(d.type == "cuda" for d in devices))
 
     def reset(self) -> None:
-        """Zero the carried state of every lane (per-lane resets go through
-        ``process_batch``'s ``reset`` mask)."""
-        self.replica_states = [
-            zero_states(self.cfg.model.backbone, self.lanes_per_replica, self.dtype, d)
-            for d in self.devices
-        ]
+        """Zero the carried state of every lane, in place (per-lane resets
+        go through ``process_batch``'s ``reset`` mask)."""
+        for step in self.steps:
+            step.zero_states()
 
     @property
     def states(self):
         """The carried state of every lane (a list per stage of (hidden,
-        cell)); with a mesh, one such list per device."""
-        return self.replica_states[0] if self.mesh is None else self.replica_states
+        cell)); with a mesh, one such list per device. These are the step's
+        own buffers, rewritten in place by every step."""
+        states = [step.states for step in self.steps]
+        return states[0] if self.mesh is None else states
 
     def _lanes(self, i: int) -> slice:
         return slice(i * self.lanes_per_replica, (i + 1) * self.lanes_per_replica)
 
-    @torch.no_grad()
-    def _issue(self, inputs):
-        """Run every replica's step on its (packed, n_events, reset) and
-        carry its state; returns the per-replica (dets, p_tel)."""
-        out = []
-        for i, (replica, (packed, n, reset)) in enumerate(zip(self.replicas, inputs)):
-            dets, self.replica_states[i], p_tel = replica(self.replica_states[i], packed, n,
-                                                          reset)
-            out.append((dets, p_tel))
-        return out
+    def _launch(self, inputs):
+        """Copy each replica's (packed, n_events, reset) into its step's
+        static inputs (asynchronously) and launch every replica's step before
+        any result is read (``graphs.run_together``); returns the
+        per-replica (dets, p_tel)."""
+        for step, source in zip(self.steps, inputs):
+            for buf, t in zip((step.packed, step.n_events, step.reset), source):
+                buf.copy_(t, non_blocking=True)
+        return run_together([step.run for step in self.steps])
 
     @torch.no_grad()
     def step(self, packed: torch.Tensor, n_events: torch.Tensor, reset: torch.Tensor):
         """One batch of frames on the device: (S, E, 4) int32 events, (S,)
         valid counts and (S,) bool resets -> (detections, selected-token
-        telemetry). Updates the carried state. With a mesh each device's
-        lanes are sliced out and moved there, and the results come back to
+        telemetry), tensors of their own (the next step does not overwrite
+        them). Updates the carried state. With a mesh each device's lanes
+        are sliced out and copied to its step, and the results come back to
         the first device."""
+        outs = self._launch([tuple(t[self._lanes(i)] for t in (packed, n_events, reset))
+                            for i in range(len(self.steps))])
         if self.mesh is None:
-            ((dets, p_tel),) = self._issue([(packed, n_events, reset)])
-            return dets, p_tel
-        inputs = [tuple(t[self._lanes(i)].to(d) for t in (packed, n_events, reset))
-                  for i, d in enumerate(self.devices)]
-        outs = self._issue(inputs)
+            ((dets, p_tel),) = outs
+            return {k: v.clone() for k, v in dets.items()}, p_tel.clone()
         dets = {k: torch.cat([d[k].to(self.device) for d, _ in outs]) for k in outs[0][0]}
         p_tel = torch.stack([p.to(self.device) for _, p in outs]).mean(dim=0)
         return dets, p_tel
@@ -224,17 +245,17 @@ class StreamingDetector:
         optional (S,) bool — lanes starting a new stream this frame.
         Returns arrays with a leading lane axis, plus the per-stage
         ``selected_tokens`` telemetry (batch aggregate).
+
+        On a card the events are packed into page-locked buffers, each
+        device's lanes are copied up asynchronously, every device's step is
+        launched, and the slates come back through page-locked buffers with
+        one wait.
         """
-        S = self.num_streams
-        packed, n = pack_event_batch(frames, S, self.max_events)
-        reset = np.zeros((S,), bool) if reset is None else np.asarray(reset, bool)
-        inputs = [tuple(torch.from_numpy(a[self._lanes(i)]).to(d) for a in (packed, n, reset))
-                  for i, d in enumerate(self.devices)]
-        outs = self._issue(inputs)
-        host = [({k: v.cpu().numpy() for k, v in d.items()}, p.cpu().numpy()) for d, p in outs]
-        out = {k: np.concatenate([d[k] for d, _ in host]) for k in host[0][0]}
-        tel = host[0][1] if len(host) == 1 else np.mean(np.stack([p for _, p in host]), axis=0,
-                                                        dtype=np.float32)
+        host = self._staging.batch(frames, reset, lambda *batch: self._launch(
+            [tuple(t[self._lanes(i)] for t in batch) for i in range(len(self.steps))]))
+        out = {k: np.concatenate([d[k].numpy() for d, _ in host]) for k in host[0][0]}
+        tel = (host[0][1].numpy().copy() if len(host) == 1 else
+               np.mean(np.stack([p.numpy() for _, p in host]), axis=0, dtype=np.float32))
         return out | {"selected_tokens": tel}
 
     def process_events(

@@ -38,6 +38,7 @@ import torch
 import torch.utils._pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from sast_tpu_torch import graphs
 from sast_tpu_torch.config import ExperimentConfig
 
 PATHS = ("default", "sparse", "looped", "fused", "masked")
@@ -79,7 +80,7 @@ def make_sparse_input(
     return sparse_event_input(rng, shape, sparsity)
 
 
-def streaming_chunk(model, length: int, detect: bool = False):
+def streaming_chunk(model, length: int, detect: bool = False, graph: bool = False):
     """``run(x, states) -> (states, acc)``: ``length`` frames of the full
     detector with the recurrent state carried, under
     ``torch.inference_mode``.
@@ -88,34 +89,100 @@ def streaming_chunk(model, length: int, detect: bool = False):
     fp32 scalar on ``x``'s device that accumulates ``preds.sum()``. JAX
     needs this feedback to keep XLA from hoisting per-frame input work out of
     its ``lax.scan``; eager PyTorch hoists nothing across frames, so here it
-    keeps the same work per frame as JAX's chunk, and keeps the body ready
-    for a one-program step. Weights, input and states stay arguments (the
-    model's parameters and ``run``'s); nothing inside reads the host. With
-    ``detect`` each frame also runs the serving step's decode and
-    fixed-budget NMS (``ops/nms.postprocess`` with the model configuration's
-    thresholds), and ``acc`` also takes the slate's scores.
-    """
-    from sast_tpu_torch.models.head import inference_outputs
-    from sast_tpu_torch.ops.nms import postprocess
+    keeps the same work per frame as JAX's chunk. Weights, input and states
+    stay arguments (the model's parameters and ``run``'s); nothing inside
+    reads the host. With ``detect`` each frame also runs the serving step's
+    decode and fixed-budget NMS (``ops/nms.postprocess`` with the model
+    configuration's thresholds), and ``acc`` also takes the slate's scores.
 
-    cfg = model.config
-    pp = cfg.postprocess
+    With ``graph`` (a card only) the frame is captured once as CUDA graphs
+    on static buffers (``captured_frame``: ``acc`` and the state carried in
+    place) and the chunk replays it ``length`` times: JAX's one program over
+    the chunk's ``lax.scan``, as near as a replay per frame comes to it.
+    """
+    if graph:
+        def run_graph(x: torch.Tensor, states):
+            return captured_frame(model, detect, x, states).chunk(x, states, length)
+        return run_graph
 
     @torch.inference_mode()
     def run(x: torch.Tensor, states):
         acc = torch.zeros((), dtype=torch.float32, device=x.device)
         for _ in range(length):
-            outputs, states, _ = model(x + (acc * 0).to(x.dtype), states)
-            acc = acc + outputs["preds"].sum(dtype=torch.float32)
-            if detect:
-                dets = postprocess(
-                    inference_outputs(outputs["preds"]), num_classes=cfg.head.num_classes,
-                    conf_threshold=pp.confidence_threshold, nms_threshold=pp.nms_threshold,
-                    pre_nms_topk=pp.pre_nms_topk, max_detections=pp.max_detections)
-                acc = acc + dets["scores"].sum(dtype=torch.float32)
+            states, acc = _frame(model, detect, x, states, acc)
         return states, acc
 
     return run
+
+
+def _frame(model, detect: bool, x: torch.Tensor, states, acc: torch.Tensor):
+    """One frame of ``streaming_chunk``: the new states and ``acc``."""
+    from sast_tpu_torch.models.head import inference_outputs
+    from sast_tpu_torch.ops.nms import postprocess
+
+    cfg = model.config
+    pp = cfg.postprocess
+    outputs, states, _ = model(x + (acc * 0).to(x.dtype), states)
+    acc = acc + outputs["preds"].sum(dtype=torch.float32)
+    if detect:
+        dets = postprocess(
+            inference_outputs(outputs["preds"]), num_classes=cfg.head.num_classes,
+            conf_threshold=pp.confidence_threshold, nms_threshold=pp.nms_threshold,
+            pre_nms_topk=pp.pre_nms_topk, max_detections=pp.max_detections)
+        acc = acc + dets["scores"].sum(dtype=torch.float32)
+    return states, acc
+
+
+class CapturedFrame:
+    """One frame of ``streaming_chunk`` on static buffers of ``x``'s card
+    (the input, the carried state, ``acc``), captured as CUDA graphs at its
+    first run (``graphs.Captured``; the weights read in place)."""
+
+    def __init__(self, model, detect: bool, x: torch.Tensor, states):
+        with torch.inference_mode(False):
+            self.x = x.clone()
+            self.states = [tuple(t.clone() for t in hc) for hc in states]
+            self.acc = torch.zeros((), dtype=torch.float32, device=x.device)
+        # The body holds the buffers, not this object (no reference cycle).
+        x, states, acc = self.x, self.states, self.acc
+
+        def body():
+            new_states, new_acc = _frame(model, detect, x, states, acc)
+            for hc, new in zip(states, new_states):
+                for t, v in zip(hc, new):
+                    t.copy_(v)
+            acc.copy_(new_acc)
+
+        self.run = graphs.Captured(body, x.device, graph=True, weights=(model,))
+
+    @torch.inference_mode()
+    def chunk(self, x: torch.Tensor, states, length: int):
+        """``length`` frames from ``(x, states)``: the chunk's new states
+        and ``acc``, tensors of their own."""
+        self.x.copy_(x)
+        for hc, given in zip(self.states, states):
+            for t, v in zip(hc, given):
+                t.copy_(v)
+        self.acc.zero_()
+        for _ in range(length):
+            self.run()
+        return [tuple(t.clone() for t in hc) for hc in self.states], self.acc.clone()
+
+
+def captured_frame(model, detect: bool, x: torch.Tensor, states) -> CapturedFrame:
+    """The ``CapturedFrame`` of ``model`` for ``detect``, ``x``'s shape,
+    dtype and device and the sparse path's kernel
+    (``sparse_block.MODEL_USES_LOOPED``), made at the first chunk that asks
+    for it and kept on the model."""
+    from sast_tpu_torch.ops import sparse_block
+
+    if x.device.type != "cuda":
+        raise RuntimeError(f"a captured frame needs a card, got {x.device}")
+    key = (detect, tuple(x.shape), x.dtype, str(x.device), sparse_block.MODEL_USES_LOOPED)
+    frames = model.__dict__.setdefault("_captured_frames", {})
+    if key not in frames:
+        frames[key] = CapturedFrame(model, detect, x, states)
+    return frames[key]
 
 
 def _sync() -> None:
@@ -191,15 +258,16 @@ def compute_fps(
     path: str = "default",
     blocks: int = 3,
     device="cuda",
+    graph: bool = True,
 ) -> Dict[str, float]:
     """Streaming per-frame frames/s on the card, the state carried: the
     slope over ``streaming_chunk``s of ``max(10, iters // 6)`` and
     ``max(iters, 2 * L1)`` frames, each chunk from the same zero states.
     The timed frame is the serving frame (``detect``: decode and NMS, kernel
-    C, included; JAX's chunk ends at the predictions). Refuses to run
-    without a card. ``frames`` counts every
-    frame run (the untimed first chunks included), for checks of the launch
-    counters."""
+    C, included; JAX's chunk ends at the predictions), captured as CUDA
+    graphs and replayed (``graph``; False times the eager frame). Refuses to
+    run without a card. ``frames`` counts every frame run (the untimed first
+    chunks included), for checks of the launch counters."""
     device = _card(device)
     cfg, sparse_kernel, looped = path_config(cfg, path)
     model, x, states = _build_model_and_inputs(cfg, batch_size, sparsity, seed, device,
@@ -208,7 +276,7 @@ def compute_fps(
     L2 = max(iters, 2 * L1)
 
     def make_fn(length):
-        run = streaming_chunk(model, length, detect=True)
+        run = streaming_chunk(model, length, detect=True, graph=graph)
         return lambda: run(x, states)
 
     with looped_kernel(looped):
@@ -222,6 +290,7 @@ def compute_fps(
         "batch_size": batch_size,
         "sparsity": sparsity,
         "path": path,
+        "graph": graph,
         "chunk_lengths": (L1, L2),
         "frames": (blocks + 1) * (L1 + L2),
         "device_kind": torch.cuda.get_device_name(device),

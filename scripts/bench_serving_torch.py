@@ -2,7 +2,9 @@
 """Throughput of the port's FULL serving step: raw events in, detections
 out (port of scripts/bench_serving.py).
 
-The timed unit is ``serving.StreamingDetector.step``: the stacked-histogram
+The timed unit is ``serving.StreamingDetector.step`` as the detector runs
+it by default: on a card captured as CUDA graphs and replayed, the carried
+state in place. The step is the stacked-histogram
 scatter-add of the packed events, the pad to the model resolution, the
 recurrent backbone with carried LSTM state, PAFPN, head, decode and
 fixed-budget NMS (kernel A and C on every path; E, F or D on the attention
@@ -124,14 +126,16 @@ def main(argv=None) -> None:
     with looped_kernel(looped):
         t1, t2 = chunk_times(make_fn, args.L1, args.L2, args.blocks)
     dt = (min(t2) - min(t1)) / (args.L2 - args.L1)
+    graph = det.steps[0].run.graph
     row = dict(metric="serving_step", dataset=args.dataset, size=args.size, path=args.path,
-               streams=S, events=E, clustered=args.clustered, ms_per_step=dt * 1e3,
+               graph=graph, streams=S, events=E, clustered=args.clustered, ms_per_step=dt * 1e3,
                ms_per_frame=dt / S * 1e3, frames_per_s=S / dt, mevents_per_s=S * E / dt / 1e6,
                L1=args.L1, L2=args.L2, blocks=args.blocks, t_L1_s=t1, t_L2_s=t2,
                device_kind=info["kind"], card=info["smi"])
     profiling.emit(f"# serving step, {args.dataset}-{args.size}, {S} streams, {E} events/frame"
                    f"{f', {args.clustered} clusters' if args.clustered else ', uniform'}, path "
-                   f"{args.path}, slope of L {args.L1}/{args.L2} over {args.blocks} blocks",
+                   f"{args.path}, {'captured' if graph else 'eager'}, slope of L {args.L1}/"
+                   f"{args.L2} over {args.blocks} blocks",
                    [row], ("path", "ms_per_step", "ms_per_frame", "frames_per_s",
                            "mevents_per_s"))
 

@@ -3,6 +3,8 @@
 by kernel (port of scripts/profile_inference.py).
 
 The chunk is ``utils/benchmark.streaming_chunk(model, length, detect=True)``
+as the serving detector runs its step by default: on a card each frame a
+replay of the frame captured as CUDA graphs (``--eager``: the eager frame),
 at gen4-base: ``--length`` frames of backbone (state carried), PAFPN, head,
 decode and NMS on a (B, H, W, 20) uint8 input at ``--sparsity``
 (``data/synthetic.sparse_event_input``, seed 0), seeded weights, on the
@@ -17,7 +19,7 @@ time / wall time. The trace is written to ``--out`` as a Chrome trace
 
     python scripts/profile_inference_torch.py [--out runs/profile_inference]
         [--length 50] [--batch 4] [--sparsity 0.9] [--top-k 40]
-        [--path default|sparse|looped|fused|masked] [--device cuda|cpu]
+        [--path default|sparse|looped|fused|masked] [--device cuda|cpu] [--eager]
 
 The JAX script's flags keep their defaults, but ``--out`` defaults to a
 directory of the checkout (``runs/``, which git ignores). ``--report-only``
@@ -59,6 +61,8 @@ def main(argv=None) -> None:
     ap.add_argument("--path", choices=PATHS, default="default")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the eager frame instead of the captured one")
     ap.add_argument("--set", dest="overrides", action="append", metavar="KEY=VALUE")
     args = ap.parse_args(argv)
     try:
@@ -81,7 +85,8 @@ def main(argv=None) -> None:
     cfg, sparse_kernel, looped = path_config(cfg, args.path)
     model, x, states = _build_model_and_inputs(cfg, args.batch, args.sparsity, args.seed,
                                                device, sparse_kernel)
-    run = streaming_chunk(model, args.length, detect=True)
+    graph = device.type == "cuda" and not args.eager
+    run = streaming_chunk(model, args.length, detect=True, graph=graph)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
                                            else [])
     info = profiling.card_info(device)
@@ -101,14 +106,15 @@ def main(argv=None) -> None:
     prof.export_chrome_trace(str(out / "trace.json"))
     table = profiling.kernel_table(prof, args.length, device.type)
     print(f"# serving chunk, {args.dataset}-{args.size}, B={args.batch}, {args.length} frames, "
-          f"sparsity {args.sparsity}, path {args.path}; trace in {out / 'trace.json'}")
+          f"sparsity {args.sparsity}, path {args.path}, {'captured' if graph else 'eager'}; "
+          f"trace in {out / 'trace.json'}")
     for line in profiling.format_table(table, args.top_k, wall_ms):
         print(line)
     for r in table["rows"][:args.top_k]:
         print(json.dumps(dict(metric="profile_inference_kernel", **r)))
     print(json.dumps(dict(
         metric="profile_inference", dataset=args.dataset, size=args.size, path=args.path,
-        batch=args.batch, length=args.length, sparsity=args.sparsity,
+        graph=graph, batch=args.batch, length=args.length, sparsity=args.sparsity,
         kernel_ms_per_frame=table["kernel_ms"], wall_ms_per_frame=wall_ms,
         idle_share=1 - table["kernel_ms"] / wall_ms, groups=table["groups"],
         hand_written=table["hand_written"], trace=str(out / "trace.json"),

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_serving_mesh.py [--lanes-per-card 4] [--frames 6] \\
         [--out chiprun_out/serving_mesh.json]
+    python3 scripts/torch_serving_mesh.py --eager
 
 At gen4-base (bf16, seeded random weights, chip_smoke.py's clustered
 frames of 200k events a lane, one lane reset midway), on the sparse-kernel
@@ -14,7 +15,9 @@ runs its block of lanes as a detector of those lanes would). Then, on
 the default path, ms/step on the host clock, from a synchronise of every
 card to a synchronise of every card, of the mesh, of one detector of
 ``--lanes-per-card`` lanes, and of one detector of all N x lanes lanes on
-card 0, in turns; frames/s of each. Prints one JSON line (also written to
+card 0, in turns; frames/s of each. Every detector runs its step as the
+detector does by default, captured as CUDA graphs per card and replayed
+(``--eager``: ``graph=False``). Prints one JSON line (also written to
 ``--out``) with the cards' names and power limits. Exits non-zero if a
 check fails or fewer than two cards are visible.
 """
@@ -38,6 +41,7 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--steps", type=int, default=10, help="timed steps per turn")
     ap.add_argument("--out", default=str(HERE / "chiprun_out" / "serving_mesh.json"))
+    ap.add_argument("--eager", action="store_true", help="run the eager step (graph=False)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -75,7 +79,7 @@ def main() -> None:
         import copy
 
         return StreamingDetector(cfg, copy.deepcopy(model), max_events=E, num_streams=lanes,
-                                 sparse_kernel=sparse_kernel, **kw)
+                                 sparse_kernel=sparse_kernel, graph=not args.eager, **kw)
 
     # The default path (kernels A and C) and the sparse-kernel path (A, E, C).
     for sparse_kernel in (True, False):
@@ -129,6 +133,7 @@ def main() -> None:
             times[k].append(step_ms(*runs[k]))
     lanes = dict(mesh=S, one_card=L, all_lanes_one_card=S)
     record = dict(cards=smi, count=cards, lanes_per_card=L, frames=args.frames,
+                  graph=not args.eager,
                   bit_equal_to_blocks=True, torch=torch.__version__,
                   **{k: dict(lanes=lanes[k], ms_turns=v, ms=sum(v) / len(v),
                              frames_per_s=lanes[k] * 1e3 / (sum(v) / len(v)))

@@ -454,3 +454,198 @@ def test_block_kernels_refuse_grad_and_bad_shapes(dev):
         with pytest.raises(ValueError, match="multiples of 16"):
             bad = dict(params, wqkv=params["wqkv"][:24, :72])
             fused_block.fused_window_block(y[..., :24].contiguous(), tok, bad, 3, 8)
+
+
+# ---------------------------------------------------------------------------
+# The serving step captured as CUDA graphs (``sast_tpu_torch/graphs.py``)
+# against the eager step, on a tiny configuration: the geometry of
+# tests/test_torch_serving.py (gen1 events at 240x304, model resolution
+# 256x320, partition (4, 5)), confidence threshold 0 so that the slates
+# are full.
+
+
+def _graph_config(**attention):
+    import dataclasses
+
+    from sast_tpu_torch.config import get_test_config
+
+    cfg = get_test_config()
+    bb = cfg.model.backbone
+    bb = dataclasses.replace(bb, in_res_hw=(256, 320), attention=dataclasses.replace(
+        bb.attention, partition_size=(4, 5), **attention))
+    pp = dataclasses.replace(cfg.model.postprocess, confidence_threshold=0.0)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb,
+                                                              postprocess=pp))
+
+
+def _graph_frames(n, seed=1, empty=()):
+    """``n`` frames of two lanes of random events (frames in ``empty``
+    hold none: few windows kept)."""
+    rng = np.random.RandomState(seed)
+    frames = []
+    for i in range(n):
+        lanes = []
+        for _ in range(2):
+            k = 0 if i in empty else rng.randint(300, 4000)
+            lanes.append(dict(x=rng.randint(0, 304, k), y=rng.randint(0, 240, k),
+                              p=rng.randint(0, 2, k),
+                              t=np.sort(rng.randint(0, 50_000, k)) + i * 50_000))
+        frames.append(lanes)
+    return frames
+
+
+def _graph_run(det, frames):
+    """Slates of each frame (a lane reset at frame 2) and the carried
+    states after the last, on the host."""
+    det.reset()
+    outs = [det.process_batch(f, reset=[False, i == 2]) for i, f in enumerate(frames)]
+    states = det.states if det.mesh is None else [hc for r in det.states for hc in r]
+    return outs, [t.cpu() for hc in states for t in hc]
+
+
+def _assert_same_bits(a, b):
+    (outs_a, states_a), (outs_b, states_b) = a, b
+    for i, (x, y) in enumerate(zip(outs_a, outs_b)):
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=f"frame {i} {k}")
+    for i, (x, y) in enumerate(zip(states_a, states_b)):
+        assert torch.equal(x, y), f"state leaf {i}"
+
+
+def _graph_detectors(cfg, seed=0, **kw):
+    """An eager and a captured detector on one seeded model."""
+    from sast_tpu_torch.models.detector import build_detector
+    from sast_tpu_torch.serving import StreamingDetector
+
+    model = build_detector(cfg.model, seed=seed, device="cuda")
+    return [StreamingDetector(cfg, model, max_events=4000, num_streams=2, graph=g, **kw)
+            for g in (False, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", ["default", "sparse", "fused", "masked"])
+def test_captured_step_is_the_eager_step(dev, path, dtype):
+    """Slates and carried states bit for bit over 5 frames, one graph per
+    step, and the launches that the replays ran counted."""
+    import dataclasses
+
+    cfg = _graph_config(fused_block=path == "fused")
+    bb = cfg.model.backbone
+    if path == "masked":
+        bb = dataclasses.replace(bb, stem_pallas=False, ratio_pallas=False,
+                                 fuse_stem_density=False)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb,
+                                                             compute_dtype=dtype))
+    eager, captured = _graph_detectors(cfg, sparse_kernel=path == "sparse")
+    frames = _graph_frames(5)
+    _assert_same_bits(_graph_run(eager, frames), _graph_run(captured, frames))
+    run = captured.steps[0].run
+    assert run.replays == 4 and len(run.schedule.items) == 1
+    assert run.replayed["greedy_keep"] == 4
+
+
+def test_captured_mesh_is_the_eager_mesh(dev):
+    """Two replicas on one card, each captured on its own: the same bits as
+    the eager mesh."""
+    from sast_tpu_torch.models.detector import build_detector
+    from sast_tpu_torch.serving import StreamingDetector
+
+    cfg = _graph_config()
+    dets = [StreamingDetector(cfg, build_detector(cfg.model, seed=0, device="cuda"),
+                              max_events=4000, num_streams=2, mesh=("cuda:0", "cuda:0"),
+                              graph=g) for g in (False, True)]
+    frames = _graph_frames(4)
+    _assert_same_bits(_graph_run(dets[0], frames), _graph_run(dets[1], frames))
+    assert [s.run.replays for s in dets[1].steps] == [3, 3]
+
+
+def test_captured_choice_takes_both_branches(dev):
+    """``gather_budget`` 0.5: empty frames keep few windows (the gathered
+    branch), full ones every window (the masked branch). The captured step
+    is one graph more per choosing layer and each choice's two branches,
+    and equals the eager step bit for bit; the eager run took both
+    branches."""
+    from sast_tpu_torch.models.sast import MaskedSparseAttention
+
+    cfg = _graph_config(gather_budget=0.5)
+    eager, captured = _graph_detectors(cfg)
+    frames = _graph_frames(5, empty=(0, 3))
+    taken = []
+    originals = {b: getattr(MaskedSparseAttention, b) for b in ("gathered", "masked")}
+
+    def spy(branch):
+        def run(self, *args, **kw):
+            taken.append(branch)
+            return originals[branch](self, *args, **kw)
+        return run
+
+    for b in originals:
+        setattr(MaskedSparseAttention, b, spy(b))
+    try:
+        ref = _graph_run(eager, frames)
+    finally:
+        for b, fn in originals.items():
+            setattr(MaskedSparseAttention, b, fn)
+    assert set(taken) == {"gathered", "masked"}
+    _assert_same_bits(ref, _graph_run(captured, frames))
+    layers = sum(isinstance(m, MaskedSparseAttention) for m in captured.model.modules())
+    kinds = [item[0] for item in captured.steps[0].run.schedule.items]
+    assert kinds.count("choose") == layers and kinds.count("run") == layers + 1
+
+
+def test_captured_step_sees_new_weights(dev):
+    """Weights written in place after the capture (bf16: the compute copies
+    are rewritten in place) reach the replays: the detector then equals a
+    fresh one built on the new weights, without a second capture."""
+    import dataclasses
+
+    from sast_tpu_torch.models.detector import build_detector
+
+    cfg = _graph_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             compute_dtype="bfloat16"))
+    _, captured = _graph_detectors(cfg)
+    frames = _graph_frames(4)
+    _graph_run(captured, frames)
+    schedule = captured.steps[0].run.schedule
+    other = build_detector(cfg.model, seed=1, device="cpu")
+    captured.model.load_state_dict(other.state_dict())
+    _, fresh = _graph_detectors(cfg, seed=1)
+    _assert_same_bits(_graph_run(captured, frames), _graph_run(fresh, frames))
+    assert captured.steps[0].run.schedule is schedule
+
+
+def test_captured_mesh_interleaves_choices(dev):
+    """``gather_budget`` 0.5 over two replicas on one card: the replays
+    interleave at each choice and give the same bits as the eager mesh."""
+    from sast_tpu_torch.models.detector import build_detector
+    from sast_tpu_torch.serving import StreamingDetector
+
+    cfg = _graph_config(gather_budget=0.5)
+    dets = [StreamingDetector(cfg, build_detector(cfg.model, seed=0, device="cuda"),
+                              max_events=4000, num_streams=2, mesh=("cuda:0", "cuda:0"),
+                              graph=g) for g in (False, True)]
+    frames = _graph_frames(5, empty=(0, 3))
+    _assert_same_bits(_graph_run(dets[0], frames), _graph_run(dets[1], frames))
+    assert [s.run.replays for s in dets[1].steps] == [4, 4]
+    assert all("choose" in [item[0] for item in s.run.schedule.items] for s in dets[1].steps)
+
+
+def test_captured_step_follows_the_looped_switch(dev):
+    """The sparse path captured under kernel E, then stepped under kernel F
+    (``looped_kernel``): captured again, its replays run F, and it equals
+    the eager step under F."""
+    from sast_tpu_torch.utils.benchmark import looped_kernel
+
+    cfg = _graph_config()
+    eager, captured = _graph_detectors(cfg, sparse_kernel=True)
+    frames = _graph_frames(3)
+    _graph_run(captured, frames)
+    run = captured.steps[0].run
+    first = run.schedule
+    assert run.replayed["sparse_window_block"] > 0
+    with looped_kernel(True):
+        ref = _graph_run(eager, frames)
+        got = _graph_run(captured, frames)
+    _assert_same_bits(ref, got)
+    assert run.schedule is not first and run.replayed["sparse_window_block_looped"] > 0
