@@ -123,7 +123,7 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
 9. Measure and inspect, at gen4-base, B 4, sparsity 0.9, bf16. (a)
    ``utils/benchmark.compute_fps`` on the default (kernels A, C), sparse
    (A, E, C), looped (A, F, C) and fused (A, D, C) paths with short chunks
-   (L 10 and 40, 2 blocks): the launch counters must advance by the
+   (L 10 and 20, 2 blocks): the launch counters must advance by the
    chunks' frames times each path's launches per frame (8 block-kernel
    launches a frame), and a 3-frame chunk's carried states must equal the
    same frames stepped one by one through ``model(...)``, bit for bit;
@@ -167,13 +167,37 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    weights loaded into a captured detector that has stepped, against a
    fresh detector on them.
 
+12. Train and validate as JAX's jitted and donated steps do
+   (``Trainer(graph=True)``, ``training/steps.CapturedTrainStep`` and
+   ``CapturedEvalStep``), at gen4-base full width. (a) ``fit`` over 4
+   steps (B 12, T 5, L 3, remat full) on the sparse-kernel path (A, E, G, H
+   inside the graphs) and the masked path, in fp32 and bf16, captured
+   against eager in the deterministic modes: every logged metric,
+   parameters, BatchNorm statistics, EMA copy, optimizer count and
+   moments, LSTM states bit for bit; then in bf16 ms/step eager and
+   captured in turns (CUDA events and the host clock), each one's card
+   time (the eager step's from phase 5's profile of the same step) and
+   idle share, peak memory, capture seconds; and the captured
+   eval step after captured train steps against a fresh model holding
+   the trained weights. (b) The eval step captured against eager on the
+   default, sparse (E), looped (F), fused (D) and fusion-off (B) paths,
+   bit for bit, ms per batch in turns. (c) Phase 6's configuration with
+   ``fit`` captured: validation every 2 steps over 4 (captured), a trace
+   of steps 3-4, and a resume from the step-2 checkpoint bit-equal to the
+   uninterrupted run. (d) The card cache gathering into the captured step's
+   buffer against the host's batches, bit for bit. (e) Every regularizer
+   at 0.1, and a world of one over NCCL (its all-reduces captured), each
+   captured against eager, bit for bit.
+
 Prints the kernel table as one JSON line (the rows of kernels redesigned
 since their first port carry ``redesigned``, what the redesign made of
 them; the first versions' times are in PERF.md; ``launches_artifact`` counts
 phase 8's launches inside the artifacts, ``launches_benchmark`` phase 9a's
 in the timed chunks, ``launches_cond_artifact`` phase 10a's inside the two
 artifacts, ``launches_cli`` phase 10b's in the CLIs' runs, ``launches_captured``
-phase 11a's by the captured steps, the warm-ups' and the replays'), then the nvidia-smi line, then
+phase 11a's by the captured steps, the warm-ups' and the replays', ``launches_captured_train``
+phase 12's by the captured train and eval steps, the warm-ups' and the replays'), then the
+nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line; the timer registry is
 emptied before, so that nothing is printed after it. Longer output (build
 logs, profiler table, all measurements) goes to ``chiprun_out/``.
@@ -253,12 +277,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    """Print a line, and keep it in ``chiprun_out/chip_smoke_log.txt``."""
+    """Print a line, and keep it in ``OUT_DIR / "chip_smoke_log.txt"`` after
+    the seconds since the script started."""
     print(msg, flush=True)
     if OUT_DIR.is_dir():
         with open(OUT_DIR / "chip_smoke_log.txt", "a") as f:
-            f.write(msg + "\n")
+            f.write(f"[{time.perf_counter() - _START:7.1f} s] {msg}\n")
 
 
 _AHEAD = []
@@ -1417,6 +1445,26 @@ def clustered_train_batch(torch, np, cfg, rng, step, batch_size=None, seq_len=No
     return batch
 
 
+_MADE = {}  # host data that more than one phase uses, made once
+
+
+def training_batches(torch, np, cfg):
+    """Phase 5's batches (also phase 12's): two synthetic at sparsity 0.9,
+    then clustered scenes that leave windows unkept; every lane starts at
+    the first. Made once."""
+    from sast_tpu_torch.data.synthetic import synthetic_train_batch
+
+    if "training_batches" not in _MADE:
+        B = cfg.training.batch_size_train
+        rng = np.random.RandomState(21)
+        batches = [synthetic_train_batch(cfg, rng, sparsity=0.9) for _ in range(2)]
+        batches += [clustered_train_batch(torch, np, cfg, rng, i) for i in range(TRAIN_STEPS - 2)]
+        for i, b in enumerate(batches):
+            b["is_first"] = np.full((B,), i == 0)
+        _MADE["training_batches"] = batches
+    return _MADE["training_batches"]
+
+
 def phase_training(torch, np, card):
     """``Trainer.fit`` at gen4-base width on the sparse-kernel and the masked
     path, then fp32 steps on the card against the CPU at a cut size."""
@@ -1424,7 +1472,6 @@ def phase_training(torch, np, card):
 
     from sast_tpu_torch.config import get_config
     from sast_tpu_torch.data.batch import to_device
-    from sast_tpu_torch.data.synthetic import synthetic_train_batch
     from sast_tpu_torch.models.sast import MaskedSparseAttention
     from sast_tpu_torch.training.loop import Trainer
 
@@ -1436,11 +1483,7 @@ def phase_training(torch, np, card):
     log(f"training gen4-base: B {B}, T {T}, L {L}, {cfg.model.compute_dtype}, remat "
         f"{tr.remat_policy}, max_gt {cfg.model.head.max_gt}, simota_topk "
         f"{cfg.model.head.simota_topk}, lr {tr.learning_rate}")
-    rng = np.random.RandomState(21)
-    batches = [synthetic_train_batch(cfg, rng, sparsity=0.9) for _ in range(2)]
-    batches += [clustered_train_batch(torch, np, cfg, rng, i) for i in range(TRAIN_STEPS - 2)]
-    for i, b in enumerate(batches):
-        b["is_first"] = np.full((B,), i == 0)
+    batches = training_batches(torch, np, cfg)
     dev_batches = [to_device(b, DEVICE) for b in batches]
     layers = 8  # 4 stages x (window layer + grid layer)
     results = {}
@@ -1449,7 +1492,7 @@ def phase_training(torch, np, card):
         (workdir / "metrics.jsonl").unlink(missing_ok=True)
         torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(cfg, str(workdir), log_every=1, sparse_kernel_train=sparse,
-                          device=DEVICE)
+                          device=DEVICE, graph=False)
         reset_counters()
         t0 = time.perf_counter()
         trainer.fit(iter(batches), max_steps=TRAIN_STEPS)
@@ -1941,6 +1984,20 @@ def _states_differ(torch, a, b):
     return bad
 
 
+def fit_clips(np, cfg):
+    """Phase 6's clips (also phase 12c's), made once: ``FIT_STEPS + 1``
+    train batches and ``FIT_EVAL_BATCHES`` evaluation batches of
+    ``FIT_LANES`` clips, every lane starting at the first of each."""
+    if "fit_clips" not in _MADE:
+        rng = np.random.RandomState(8)
+        train = [[memory_clip(np, cfg, rng, s * FIT_LANES + b, s == 0) for b in range(FIT_LANES)]
+                 for s in range(FIT_STEPS + 1)]
+        evals = [[memory_clip(np, cfg, rng, 100 + s * FIT_LANES + b, s == 0)
+                  for b in range(FIT_LANES)] for s in range(FIT_EVAL_BATCHES)]
+        _MADE["fit_clips"] = (train, evals)
+    return _MADE["fit_clips"]
+
+
 def phase_fit_validate(torch, np, card):
     """Train, validate, checkpoint and resume on the card at gen4-base full
     width, from in-memory clips assembled by the port's data pipeline; then
@@ -1965,12 +2022,8 @@ def phase_fit_validate(torch, np, card):
         f"{cfg.dataset.resolution_hw} -> {cfg.model.backbone.in_res_hw}, "
         f"{cfg.model.backbone.input_channels} channels, {cfg.model.compute_dtype}, "
         f"ema {tr.ema_decay}")
-    rng = np.random.RandomState(8)
     t0 = time.perf_counter()
-    train_clips = [[memory_clip(np, cfg, rng, s * FIT_LANES + b, s == 0) for b in range(FIT_LANES)]
-                   for s in range(FIT_STEPS + 1)]
-    eval_clips = [[memory_clip(np, cfg, rng, 100 + s * FIT_LANES + b, s == 0)
-                   for b in range(FIT_LANES)] for s in range(FIT_EVAL_BATCHES)]
+    train_clips, eval_clips = fit_clips(np, cfg)
     log(f"fit/validate: {FIT_STEPS + 1 + FIT_EVAL_BATCHES} batches of clips made on the host in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1994,7 +2047,8 @@ def phase_fit_validate(torch, np, card):
     loop.save_png = recorded_png
     try:
         trainer = Trainer(cfg, str(work / "run"), log_every=1, val_every=FIT_VAL_EVERY,
-                          sparse_kernel_train=True, sparse_kernel_eval=True, device=DEVICE)
+                          sparse_kernel_train=True, sparse_kernel_eval=True, device=DEVICE,
+                          graph=False)
         step_s, val_s, save_s, saved = [], [], [], []
         trainer.train_step = _clock(torch, trainer.train_step, step_s)
         trainer.validate = _clock(torch, trainer.validate, val_s)
@@ -2053,7 +2107,7 @@ def phase_fit_validate(torch, np, card):
         # one's bits; one more step on both from the same batch (cuDNN and
         # torch in their deterministic modes) gives the same bits again.
         resumed = Trainer(cfg, str(work / "run"), sparse_kernel_train=True,
-                          sparse_kernel_eval=True, device=DEVICE)
+                          sparse_kernel_eval=True, device=DEVICE, graph=False)
         restore_s = []
         _clock(torch, resumed.maybe_resume, restore_s)(True)
         bad = _states_differ(torch, trainer.state, resumed.state)
@@ -2077,7 +2131,7 @@ def phase_fit_validate(torch, np, card):
         bad = _states_differ(torch, trainer.state, resumed.state)
         if bad:
             fail(f"fit/validate: the step after resume differs in {bad[:5]}")
-        fine_tune = Trainer(cfg, str(work / "run"), device=DEVICE)
+        fine_tune = Trainer(cfg, str(work / "run"), device=DEVICE, graph=False)
         fine_tune.maybe_resume(True, weights_only=True)
         best = torch.load(trainer.ckpt.path(trainer.ckpt.best_step()), map_location="cpu",
                           weights_only=True)
@@ -2269,7 +2323,7 @@ def dp_run(torch, np, cfg, device, mesh, workdir, order=None, seed=DP_DATA_SEED,
 
     rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     trainer = Trainer(cfg, workdir, log_every=1, sparse_kernel_train=True,
-                      sparse_kernel_eval=True, device=device, mesh=mesh)
+                      sparse_kernel_eval=True, device=device, mesh=mesh, graph=False)
     params = trainer.state.optimizer.params
     init = [_host(p) for p in params]
     grads, step_s, reduce_s, metrics = [], [], [], []
@@ -2562,7 +2616,7 @@ def phase_regularizers(torch, np, card, phase5_first, work):
     out = {}
     for i, rate in enumerate((0.0, 0.1, 0.1)):
         trainer = Trainer(with_rates(cfg, rate), str(work / f"regularizers{i}"),
-                          sparse_kernel_train=True, device=DEVICE)
+                          sparse_kernel_train=True, device=DEVICE, graph=False)
         reset_counters()
         step_s = []
         # Rates 0 run as phase 5 ran; the regularized steps in the
@@ -2608,11 +2662,14 @@ def phase_regularizers(torch, np, card, phase5_first, work):
 
 def cache_readers(np, cfg):
     """In-memory sequences at the dataset's resolution (u8, (N, H, W, C)),
-    labels in the recording's pixels as ``labels.npz`` holds them."""
+    labels in the recording's pixels as ``labels.npz`` holds them; made once
+    (phases 7c and 12d)."""
     from sast_tpu_torch.config import DATASET_RES_HW
     from sast_tpu_torch.data.sequence import MemorySequenceReader
     from sast_tpu_torch.data.synthetic import sparse_event_input
 
+    if "cache_readers" in _MADE:
+        return _MADE["cache_readers"]
     rng = np.random.RandomState(41)
     h, w = cfg.dataset.resolution_hw
     C = cfg.model.backbone.input_channels
@@ -2630,6 +2687,7 @@ def cache_readers(np, cfg):
             f"seq{i}", sparse_event_input(rng, (n, h, w, C), 0.9), np.asarray(rows, np.float32),
             np.asarray(start), np.asarray(labeled), cfg.dataset.name,
             cfg.dataset.downsample_by_factor_2))
+    _MADE["cache_readers"] = readers
     return readers
 
 
@@ -2720,7 +2778,8 @@ def phase_profile(torch, np, card, work):
     rng = np.random.RandomState(61)
     batches = [synthetic_train_batch(cfg, rng, sparsity=0.9) for _ in range(3)]
     work = work / "profile"
-    trainer = Trainer(cfg, str(work), log_every=1, sparse_kernel_train=True, device=DEVICE)
+    trainer = Trainer(cfg, str(work), log_every=1, sparse_kernel_train=True, device=DEVICE,
+                      graph=False)
     reset_counters()
     trainer.fit(batches, max_steps=3, profile_steps=PROFILE_WINDOW)
     counts = read_counters()
@@ -2901,6 +2960,7 @@ def phase_export(torch, np, cfg, model, inputs, work):
             fail(f"export {name}: the live detector steps differently after the export: {bad[:4]}")
         torch.save(list(inputs), work / name / "inputs.pt")
         results[name] = dict(export_s=export_s, artifact_bytes=len(blob))
+        _MADE[f"artifact_{name}"] = blob  # phase 11b loads it again, captured
         log(f"export {name}: {export_s:.1f} s, {len(blob)} bytes; the live detector after the "
             f"export is the same bits over {EXPORT_FRAMES} frames")
 
@@ -2932,7 +2992,7 @@ def phase_export(torch, np, cfg, model, inputs, work):
             f"{ {k: v for k, v in counts.items() if v} }")
 
     # The artifact and the live step in turns (live, artifact, artifact,
-    # live), CUDA events over 20 steps each, on the first frame's inputs.
+    # live), CUDA events over 10 steps each, on the first frame's inputs.
     no_reset = torch.zeros(STREAMS, dtype=torch.bool, device=DEVICE)
     pk, nk, _ = inputs[0]
     for name, (_, _, _, looped, _) in EXPORT_PATHS.items():
@@ -2940,7 +3000,7 @@ def phase_export(torch, np, cfg, model, inputs, work):
         live = dets[name]
         sparse_block.MODEL_USES_LOOPED, default = looped, sparse_block.MODEL_USES_LOOPED
         try:
-            turns = [cuda_ms(torch, lambda d=d: d.step(pk, nk, no_reset), iters=20, warmup=3)
+            turns = [cuda_ms(torch, lambda d=d: d.step(pk, nk, no_reset), iters=10, warmup=3)
                      for d in (live, art, art, live)]
         finally:
             sparse_block.MODEL_USES_LOOPED = default
@@ -3120,7 +3180,7 @@ def phase_eight(torch, np):
 # preprocessing representations.
 
 BENCH_PATHS = ("default", "sparse", "looped", "fused")  # timed, in this order
-BENCH_ITERS, BENCH_BLOCKS = 40, 2  # compute_fps' chunks: L 10 and 40, 2 blocks
+BENCH_ITERS, BENCH_BLOCKS = 20, 2  # compute_fps' chunks: L 10 and 20, 2 blocks
 BENCH_KERNEL = {"default": None, "sparse": "sparse_window_block",
                 "looped": "sparse_window_block_looped", "fused": "fused_window_block"}
 CHUNK_CHECK_FRAMES = 3  # frames of the chunk held against stepping one by one
@@ -3361,6 +3421,7 @@ def phase_cond_exports(torch, np, work):
         torch.save(list(inputs), work / name / "inputs.pt")
         results[name] = dict(export_s=export_s, artifact_bytes=len(blob), layers=len(names),
                              branches=taken, launches_live=live_counts)
+        _MADE[f"artifact_{name}"] = blob  # phase 11b loads it again, captured
         log(f"cond {name}: exported in {export_s:.1f} s, {len(blob)} bytes")
         del det, model_p
 
@@ -3426,6 +3487,13 @@ def phase_clis(torch, np, work):
                 if line.startswith("{")]
         if not rows:
             fail(f"cli {run}: printed no JSON row:\n{printed.getvalue()[-2000:]}")
+        # The train CLIs time the captured step (the gather path, which
+        # chooses on the card, eagerly).
+        if run == "profile_train" and not all(r["captured"] for r in rows):
+            fail(f"cli {run}: a policy was not timed captured: {rows}")
+        if run == "bench_train_sparsity" and any(
+                r["modes"][p] != "captured" for r in rows for p in ("masked", "sparse")):
+            fail(f"cli {run}: a path was not timed captured: {[r['modes'] for r in rows]}")
         launches = {k: v for k, v in read_counters().items() if v}
         out[run] = dict(argv=argv, rows=rows, launches=launches,
                         seconds=time.perf_counter() - t0)
@@ -3590,10 +3658,22 @@ def phase_graph_paths(torch, np, cfg, model, frames, inputs):
                 torch.cuda.empty_cache()
                 continue
             with looped_kernel(looped):
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                # One replay's rows must name every hand-written kernel it
+                # ran. The profiler's first step is a warm-up, whose rows are
+                # dropped: CUPTI's activity records are live before the
+                # replay that is read starts (a replay profiled from the
+                # profiler's start once went without its first kernel's
+                # record, the stem's).
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                              repeat=1)) as prof:
+                    captured.step(pk, nk, no_reset)
+                    torch.cuda.synchronize()
+                    prof.step()
                     before = dict(step.replayed)
                     captured.step(pk, nk, no_reset)
                     torch.cuda.synchronize()
+                    prof.step()
                 named = kernel_table(prof, steps=1)
                 ran = {k for k, v in step.replayed.items() if v > before.get(k, 0)}
                 want = {GRAPH_KERNEL_LABELS[k] for k in ran if k in GRAPH_KERNEL_LABELS}
@@ -3669,9 +3749,13 @@ def phase_graph_deployment(torch, np, cfg, model, inputs):
     for name in ("default", "threshold_0.5"):
         (live,) = graph_detectors(torch, cfg, model, name, "bfloat16")
         live_run = run_steps(torch, live, inputs)
-        t0 = time.perf_counter()
-        blob = export.export_streaming_detector(live)
-        export_s = time.perf_counter() - t0
+        # The artifact of this configuration that phase 8a or 10a exported
+        # from the same weights (exported here where those did not run).
+        blob, export_s = _MADE.get(f"artifact_{name}"), None
+        if blob is None:
+            t0 = time.perf_counter()
+            blob = export.export_streaming_detector(live)
+            export_s = time.perf_counter() - t0
         art = export.ExportedStreamingDetector(blob)
         casts = export.parameter_casts(art.program)
         art_run = run_steps(torch, art, inputs)
@@ -3725,6 +3809,570 @@ def phase_eleven(torch, np):
     log(f"phase 11b: captured mesh, artifacts and new weights ok "
         f"({time.perf_counter() - t0:.1f} s)")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: train and validate as JAX's jitted and donated steps do.
+
+TRAIN_GRAPH_STEPS = 4  # fit steps of each captured-against-eager run (12a)
+GRAPH_TURN_STEPS = 3  # train steps per timing turn (12a), E C C E
+# path -> (sparse_kernel_eval, kernel F, attention switches, backbone switches)
+EVAL_GRAPH_PATHS = {"default": (False, False, {}, {}), "sparse": (True, False, {}, {}),
+                    "looped": (True, True, {}, {}), "fused": (False, False, {"fused_block": True}, {}),
+                    "fusion_off": (False, False, {}, {"fuse_stem_density": False})}
+EVAL_GRAPH_BATCHES = 3
+CACHE_GRAPH_STEPS = 3
+REGULARIZED_GRAPH_STEPS = 3
+
+
+def captured_launches(counts, runs):
+    """The launches the card ran while ``counts`` counted: the wrappers'
+    counts, less those recorded into the graphs of ``runs``
+    (``graphs.Captured``), plus those their replays ran."""
+    out = dict(counts)
+    for run in runs:
+        for k, v in run.recorded.items():
+            out[k] -= v
+        for k, v in run.replayed.items():
+            out[k] += v
+    return {k: v for k, v in out.items() if v}
+
+
+def trainer_runs(trainer):
+    """The ``graphs.Captured`` of a trainer's train step and eval steps."""
+    runs = [trainer._train.run] if trainer._train.run is not None else []
+    return runs + [e.run for e in trainer._evals.values() if e.run is not None]
+
+
+def written_state(torch, run):
+    """Copies on the card of all that the train step ``run`` (a
+    ``CapturedTrainStep``) writes: parameters and BatchNorm statistics, the
+    EMA copy, the optimizer's count and moments, the carried LSTM states."""
+    state = run.state
+    out = list(state.model.state_dict().values())
+    out += list((state.ema_params or {}).values())
+    out += state.optimizer.tensors()
+    out += [t for hc in run.states for t in hc]
+    return [t.detach().clone() for t in out]
+
+
+def eager_twin(torch, trainer, mesh=None):
+    """The eager train step (what ``Trainer(graph=False)`` runs) on a copy of
+    ``trainer``'s model, its optimizer and EMA copy fresh from the same
+    weights as a new trainer's are: the same start without a second random
+    initialisation. Made before ``trainer`` steps."""
+    from sast_tpu_torch.models.detector import YoloXDetector
+    from sast_tpu_torch.training.steps import CapturedTrainStep, make_train_step, train_state_for
+
+    cfg = trainer.cfg
+    model = YoloXDetector(cfg.model, sparse_kernel=trainer.sparse_kernel_train)
+    model = model.to(trainer.device).eval()
+    model.load_state_dict(trainer.model.state_dict())
+    return CapturedTrainStep({"train": make_train_step(model, cfg, mesh)},
+                             train_state_for(model, cfg), cfg, trainer.device, graph=False)
+
+
+def step_metrics(run, batches):
+    """``run`` over ``batches``: each step's metrics as floats."""
+    from sast_tpu_torch.data.batch import split_device_batch
+
+    return [{k: float(v) for k, v in run(split_device_batch(b)[0]).items()} for b in batches]
+
+
+@contextlib.contextmanager
+def timed_captures(times):
+    """``graphs.Schedule.capture`` with the host seconds of each capture
+    (warm-ups excluded) appended to ``times``."""
+    from sast_tpu_torch import graphs
+
+    capture = graphs.Schedule.capture
+
+    def timed(self, body):
+        t0 = time.perf_counter()
+        try:
+            return capture(self, body)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    graphs.Schedule.capture = timed
+    try:
+        yield
+    finally:
+        graphs.Schedule.capture = capture
+
+
+def step_times(torch, fn, steps):
+    """ms per call of ``fn`` over ``steps`` calls after one: between two
+    CUDA events, and on the host clock to the card's end."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps, (time.perf_counter() - t0) / steps * 1e3
+
+
+def graph_train_batches(torch, np, cfg):
+    """Phase 5's batches (``training_batches``), the clustered ones, which
+    come at the dataset's resolution, padded to the model's as the step's
+    padder pads (zeros below and to the right), so that every batch has one
+    shape and the step is captured once."""
+    C = cfg.model.backbone.input_channels
+    H, W = cfg.model.backbone.in_res_hw
+    out = []
+    for b in training_batches(torch, np, cfg)[:TRAIN_GRAPH_STEPS]:
+        T, B, h, wc = b["ev_repr"].shape
+        ev = b["ev_repr"].reshape(T, B, h, wc // C, C)
+        ev = np.pad(ev, ((0, 0), (0, 0), (0, H - h), (0, W - wc // C), (0, 0)))
+        out.append(dict(b, ev_repr=ev.reshape(T, B, H, W * C)))
+    return out
+
+
+def phase_graph_train(torch, np, card, work, batches, eager_card=None):
+    """12a: ``fit`` over 4 steps at gen4-base (B 12, T 5, L 3, remat full) on
+    the sparse-kernel path (A, E, G, H) and the masked path, in fp32 and
+    bf16, captured (``graph=True``) against eager, from one seed and the
+    same batches, cuDNN and torch in their deterministic modes: every
+    logged metric and all that the step writes (parameters, BatchNorm
+    statistics, EMA copy, optimizer count and moments, LSTM states) bit for
+    bit. Then, bf16, in the default modes: a fresh eager and a fresh
+    captured trainer's first step (capture seconds, peak memory), ms/step in
+    turns E C C E (CUDA events and host clock), the card's kernel time of
+    one step each (``torch.profiler``; the eager step's from phase 5's
+    profile of the same step where ``eager_card`` holds it, by path) and
+    the idle share; after more captured steps, the trainer's captured eval
+    step against a fresh model holding the trained weights (a replay writes
+    the weights without moving their versions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.batch import split_device_batch, to_device
+    from sast_tpu_torch.models.detector import YoloXDetector
+    from sast_tpu_torch.training.loop import Trainer
+    from sast_tpu_torch.training.steps import CapturedEvalStep, make_eval_step
+    from sast_tpu_torch.utils.profiling import kernel_table
+
+    base = get_config("gen4", "base")
+    res, launches = {}, {}
+    for name, sparse in (("sparse", True), ("masked", False)):
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, model=dataclasses.replace(base.model,
+                                                                      compute_dtype=dtype))
+            trainer = Trainer(cfg, str(work / f"train_{name}_{dtype}"), sparse_kernel_train=sparse,
+                              device=DEVICE)
+            twin = eager_twin(torch, trainer)
+            with deterministic(torch):
+                rows_e = step_metrics(twin, batches)
+                state_e = written_state(torch, twin)
+                del twin
+                torch.cuda.empty_cache()
+                reset_counters()
+                rows_c = step_metrics(trainer._train, batches)
+            torch.cuda.synchronize()
+            counts = read_counters()
+            state_c = written_state(torch, trainer._train)
+            run = trainer._train.run
+            if run.replays != TRAIN_GRAPH_STEPS - 1:
+                fail(f"graph train {name} {dtype}: {run.replays} replays")
+            for k, v in captured_launches(counts, [run]).items():
+                launches[k] = launches.get(k, 0) + v
+            replayed = dict(run.replayed)
+            del trainer, run
+            torch.cuda.empty_cache()
+            bad = [i for i, (a, b) in enumerate(zip(state_e, state_c)) if not torch.equal(a, b)]
+            if rows_e != rows_c or bad or len(state_e) != len(state_c):
+                apart = sorted({k for a, b in zip(rows_e, rows_c) for k in a if a[k] != b.get(k)})
+                fail(f"graph train {name} {dtype}: captured differs from eager: metrics "
+                     f"{apart}, tensors {bad[:8]} of {len(state_e)}")
+            if sparse and not all(replayed.get(k) for k in
+                                  ("stem_conv7x4", "sparse_window_block", "sparse_block_mlp_bwd",
+                                   "sparse_block_attn_bwd")):
+                fail(f"graph train {name} {dtype}: the replays ran {replayed}")
+            res[f"{name}_{dtype}"] = dict(losses=[r["loss"] for r in rows_c],
+                                          replayed=replayed, tensors=len(state_c))
+            log(f"graph train {name} {dtype}: captured = eager bit for bit over "
+                f"{TRAIN_GRAPH_STEPS} steps ({len(state_c)} tensors, every metric; losses "
+                f"{[round(r['loss'], 5) for r in rows_c]}); the replays ran {replayed}")
+            del state_e, state_c
+            torch.cuda.empty_cache()
+
+        # Timing, bf16, the default modes: a fresh trainer and its eager twin.
+        dev_batch = to_device(split_device_batch(batches[-1])[0], DEVICE)
+        trainer = Trainer(base, str(work / f"time_{name}"), sparse_kernel_train=sparse,
+                          device=DEVICE)
+        steps = {False: eager_twin(torch, trainer), True: trainer._train}
+        peak, capture_s = {}, []
+        for graph in (False, True):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # Above what was allocated before the first step (the models,
+            # the batch): gradients, optimizer, buffers, activations, pool.
+            before = torch.cuda.memory_allocated()
+            with timed_captures(capture_s) if graph else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                steps[graph](dev_batch)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            steps[graph](dev_batch)
+            torch.cuda.synchronize()
+            peak[graph] = dict(allocated=torch.cuda.max_memory_allocated() - before,
+                               reserved=torch.cuda.max_memory_reserved(), first_step_s=first_s)
+        turns = {False: [], True: []}
+        for graph in (False, True, True, False):
+            turns[graph].append(step_times(torch, lambda r=steps[graph]: r(dev_batch),
+                                           GRAPH_TURN_STEPS))
+        busy = {}
+        for graph in (False, True):
+            if not graph and eager_card:
+                busy[graph] = dict(kernel_ms=eager_card[name]["card_ms"],
+                                   hand_written=eager_card[name]["hand_written_kernels_ms"])
+                continue
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                steps[graph](dev_batch)
+                torch.cuda.synchronize()
+            busy[graph] = kernel_table(prof)
+        timing = {}
+        for graph, kind in ((False, "eager"), (True, "captured")):
+            ev = sorted(t[0] for t in turns[graph])
+            host = sorted(t[1] for t in turns[graph])
+            timing[kind] = dict(
+                event_ms=[t[0] for t in turns[graph]], host_ms=[t[1] for t in turns[graph]],
+                event_ms_mean=sum(ev) / len(ev), host_ms_mean=sum(host) / len(host),
+                card_ms=busy[graph]["kernel_ms"], hand_written_ms=busy[graph]["hand_written"],
+                idle_share=1 - busy[graph]["kernel_ms"] / (sum(ev) / len(ev)),
+                peak_allocated_gib=peak[graph]["allocated"] / 2 ** 30,
+                peak_reserved_gib=peak[graph]["reserved"] / 2 ** 30,
+                first_step_s=peak[graph]["first_step_s"])
+        timing["capture_s"] = capture_s
+        res[f"{name}_timing"] = timing
+        log(f"graph train {name} bf16 on {card}: ms/step eager "
+            f"{[round(t[0], 3) for t in turns[False]]} (host {[round(t[1], 3) for t in turns[False]]})"
+            f", captured {[round(t[0], 3) for t in turns[True]]} (host "
+            f"{[round(t[1], 3) for t in turns[True]]}); card ms eager "
+            f"{busy[False]['kernel_ms']:.3f}{' (phase 5)' if eager_card else ''} / captured "
+            f"{busy[True]['kernel_ms']:.3f}, idle share "
+            f"{timing['eager']['idle_share']:.3f} / {timing['captured']['idle_share']:.3f}; peak "
+            f"allocated above the first step's start, GiB {timing['eager']['peak_allocated_gib']:.3f} / "
+            f"{timing['captured']['peak_allocated_gib']:.3f} (reserved "
+            f"{timing['eager']['peak_reserved_gib']:.3f} / "
+            f"{timing['captured']['peak_reserved_gib']:.3f}); capture {capture_s} s, first step "
+            f"eager {peak[False]['first_step_s']:.3f} s / captured {peak[True]['first_step_s']:.3f} s")
+        if name == "sparse":
+            # Item 4's trap: the eval step captured, then captured train
+            # steps, then the eval step replayed: a fresh model's bits.
+            eval_batch = split_device_batch(batches[0])[0]
+            run = trainer._eval_run()
+            run(eval_batch)
+            run(eval_batch)
+            before = trainer._train.run.replays
+            for b in batches[1:3]:
+                trainer._train(split_device_batch(b)[0])
+            run.zero_states()
+            got = {k: v.clone() for k, v in run(eval_batch).items()}
+            fresh = YoloXDetector(base.model, sparse_kernel=True).to(DEVICE)
+            fresh.load_state_dict(trainer.model.state_dict())
+            ref_run = CapturedEvalStep({"eval": make_eval_step(fresh, base)}, fresh, base,
+                                       DEVICE, graph=False)
+            want = ref_run(eval_batch)
+            bad = [k for k in want if not torch.equal(got[k], want[k])]
+            bad += [f"state {i}" for i, (a, b) in enumerate(zip(
+                [t for hc in run.states for t in hc], [t for hc in ref_run.states for t in hc]))
+                if not torch.equal(a, b)]
+            if bad or trainer._train.run.replays != before + 2 or run.run.replays != 2:
+                fail(f"graph eval after captured train steps differs from a fresh model: {bad}")
+            res["eval_after_train"] = dict(train_replays=trainer._train.run.replays,
+                                           eval_replays=run.run.replays)
+            log(f"graph eval after 2 captured train steps = a fresh model on the trained "
+                f"weights, bit for bit (bf16; the eval step captured before them)")
+            del fresh, ref_run, run
+        del steps, trainer
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    return res
+
+
+def phase_graph_eval(torch, np, card, batches):
+    """12b: the eval step at gen4-base (B 12, T 5, L 3, bf16) on the default,
+    sparse, looped and fused paths and with the stem's density fusion off
+    (kernel B), captured against eager over 3 batches
+    with the LSTM states carried: detections and states bit for bit; ms per
+    batch in turns E C C E (CUDA events)."""
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.batch import split_device_batch
+    from sast_tpu_torch.models.detector import YoloXDetector, build_detector
+    from sast_tpu_torch.training.steps import CapturedEvalStep, make_eval_step
+    from sast_tpu_torch.utils.benchmark import looped_kernel
+
+    base = get_config("gen4", "base")
+    batches = [split_device_batch(b)[0] for b in batches[-EVAL_GRAPH_BATCHES:]]
+    weights = build_detector(base.model, seed=0, device=DEVICE).state_dict()
+    res, launches = {}, {}
+    for name, (sparse, looped, attention, backbone) in EVAL_GRAPH_PATHS.items():
+        cfg = export_config(base, backbone, attention)
+        model = YoloXDetector(cfg.model, sparse_kernel=sparse).to(DEVICE).eval()
+        model.load_state_dict(weights)
+        fns = {"eval": make_eval_step(model, cfg)}
+        runs = {g: CapturedEvalStep(fns, model, cfg, DEVICE, graph=g) for g in (False, True)}
+        with looped_kernel(looped):
+            outs = {}
+            for graph, run in runs.items():
+                reset_counters()
+                outs[graph] = [{k: v.clone() for k, v in run(b).items()} for b in batches]
+                counts = read_counters()
+                outs[graph].append([t.clone() for hc in run.states for t in hc])
+            bad = [i for i, (a, b) in enumerate(zip(outs[False], outs[True]))
+                   if not all(torch.equal(x, y) for x, y in
+                              (zip(a, b) if isinstance(a, list) else ((a[k], b[k]) for k in a)))]
+            if bad:
+                fail(f"graph eval {name}: captured differs from eager at {bad}")
+            for k, v in captured_launches(counts, [runs[True].run]).items():
+                launches[k] = launches.get(k, 0) + v
+            turns = {False: [], True: []}
+            for graph in (False, True, True, False):
+                turns[graph].append(cuda_ms(torch, lambda r=runs[graph]: r(batches[0]), iters=5,
+                                            warmup=1))
+        res[name] = dict(eager_ms=turns[False], captured_ms=turns[True],
+                         replayed=dict(runs[True].run.replayed),
+                         graphs=len(runs[True].run.schedule.items) if runs[True].run.schedule
+                         else 0)
+        log(f"graph eval {name}: captured = eager bit for bit over {len(batches)} batches "
+            f"(detections, carried states); ms per batch (B 12) eager "
+            f"{[round(v, 3) for v in turns[False]]}, captured "
+            f"{[round(v, 3) for v in turns[True]]}; the replays ran {res[name]['replayed']}")
+        del runs, model, fns, outs
+        torch.cuda.empty_cache()
+    del weights
+    res["launches"] = launches
+    return res
+
+
+def phase_graph_fit(torch, np, card, work):
+    """12c: phase 6's configuration (gen4-base B 4, T 5, L 3, bf16, EMA
+    0.999, in-memory clips through ``assemble_batch`` and ``Prefetcher``)
+    with ``fit`` captured: validation every 2 steps over 4 (the eval step
+    captured), a trace of steps 3-4 holding their ``train_step`` ranges and
+    kernel E's launches from the replays; then a fresh trainer restored from
+    the step-2 checkpoint and fit over steps 3-4 (the third batch starts
+    every lane), bit-equal to the uninterrupted run (both in the
+    deterministic modes)."""
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.batch import Prefetcher, assemble_batch
+    from sast_tpu_torch.training.loop import Trainer
+
+    cfg = get_config("gen4", "base", **{"training.ema_decay": 0.999})
+    L, G = cfg.training.max_labeled_frames_per_lane, cfg.model.head.max_gt
+    train_clips, eval_clips = fit_clips(np, cfg)
+    train_clips = [[dict(c, is_first=s in (0, 2)) for c in clips]
+                   for s, clips in enumerate(train_clips[:FIT_STEPS])]
+
+    def batches(clips):
+        return Prefetcher(assemble_batch(c, L, G) for c in clips)
+
+    whole = Trainer(cfg, str(work / "fit"), log_every=1, val_every=FIT_VAL_EVERY,
+                    sparse_kernel_train=True, sparse_kernel_eval=True, device=DEVICE)
+    reset_counters()
+    t0 = time.perf_counter()
+    with deterministic(torch):
+        metrics = whole.fit(batches(train_clips), eval_loader_fn=lambda: batches(eval_clips),
+                            max_steps=FIT_STEPS, eval_max_batches=FIT_EVAL_BATCHES,
+                            profile_steps=(3, 4))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counters()
+    launches = captured_launches(counts, trainer_runs(whole))
+    rows = [json.loads(line) for line in (work / "fit" / "metrics.jsonl").read_text().splitlines()]
+    val_steps = [r["step"] for r in rows if "val/AP" in r]
+    val = {k for k in metrics if k.startswith("val/")}
+    evals = list(whole._evals.values())
+    if (val_steps != [2, 4] or val != VAL_KEYS or whole._train.run.replays != FIT_STEPS - 1
+            or len(evals) != 1 or evals[0].run.replays != 2 * FIT_EVAL_BATCHES - 1):
+        fail(f"graph fit: validations at {val_steps}, keys {sorted(val)}, train replays "
+             f"{whole._train.run.replays}, eval steps {len(evals)}")
+    files = sorted((work / "fit" / "trace").glob("*.pt.trace.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    steps = sorted({int(e["name"].split()[1]) for e in events
+                    if str(e.get("name", "")).startswith("train_step ")})
+    e_launches = sum(1 for e in events if e.get("cat") == "kernel" and "sf::" in e.get("name", ""))
+    shutil.rmtree(work / "fit" / "trace", ignore_errors=True)
+    if steps != [3, 4] or not e_launches:
+        fail(f"graph fit: the trace holds steps {steps} and {e_launches} launches of kernel E")
+    resumed = Trainer(cfg, str(work / "resumed"), log_every=1, sparse_kernel_train=True,
+                      sparse_kernel_eval=True, device=DEVICE)
+    whole.ckpt.restore(resumed.state, step=2)
+    with deterministic(torch):
+        resumed.fit(batches(train_clips[2:]), max_steps=FIT_STEPS)
+    bad = _states_differ(torch, whole.state, resumed.state)
+    if bad or resumed._train.run.replays != 1:
+        fail(f"graph fit: the resumed run differs from the uninterrupted one in {bad[:6]}")
+    res = dict(fit_s=fit_s, metrics={k: v for k, v in metrics.items() if k.startswith("val/")},
+               step_time_s=[r["train/step_time_s"] for r in rows if "train/step_time_s" in r],
+               trace_steps=steps, kernel_e_in_trace=e_launches, launches=launches)
+    log(f"graph fit: {FIT_STEPS} captured steps with validations at {val_steps} (captured eval "
+        f"step, {evals[0].run.replays} replays) in {fit_s:.1f} s, step times "
+        f"{[round(v * 1e3, 1) for v in res['step_time_s']]} ms (host clock between log points, "
+        f"batches assembled inside); trace of steps {steps} with {e_launches} launches of kernel "
+        f"E; a resume from step 2 = the uninterrupted run, bit for bit; launches {launches}")
+    del whole, resumed
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_graph_cache(torch, np, card, work):
+    """12d: phase 7c's in-memory sequences behind the card-resident cache,
+    each clip gathered straight into the captured step's ``ev_repr`` buffer
+    from the second batch on, against the host ``DataModule``'s batches
+    uploaded through the step's page-locked staging: 3 captured steps each
+    in the deterministic modes, bit for bit; host ms per step of each."""
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.device_cache import DeviceCachedTrainStream
+    from sast_tpu_torch.data.module import DataModule
+    from sast_tpu_torch.training.loop import Trainer
+
+    cfg = get_config("gen4", "base", **{
+        "training.batch_size_train": 4, "dataset.data_augmentation_stream.zoom.prob": 0.0,
+        "dataset.train_sampling": "stream"})
+    readers = cache_readers(np, cfg)
+    stream = DeviceCachedTrainStream(cfg, seed=5, device=DEVICE, readers=readers)
+    seen, step_s = [], {}
+
+    class Fed:
+        """The stream, its batches' storage recorded."""
+
+        def __iter__(self):
+            for batch in stream:
+                seen.append(batch["ev_repr"].data_ptr())
+                yield batch
+
+        def gather_into(self, buffer):
+            stream.gather_into(buffer)
+
+    trainers = {}
+    for name, source in (("cache", Fed()),
+                         ("host", DataModule(cfg, readers={"train": readers}).train_batches(
+                             seed=5, prefetch=False))):
+        trainer = Trainer(cfg, str(work / f"cache_{name}"), log_every=1, sparse_kernel_train=True,
+                          device=DEVICE)
+        with deterministic(torch):
+            trainer.fit(source, max_steps=CACHE_GRAPH_STEPS)
+        rows = [json.loads(line) for line in
+                (work / f"cache_{name}" / "metrics.jsonl").read_text().splitlines()]
+        step_s[name] = [r["train/step_time_s"] * 1e3 for r in rows]
+        trainers[name] = trainer
+    buffer = trainers["cache"]._train.buffers.tensors["ev_repr"].data_ptr()
+    bad = _states_differ(torch, trainers["cache"].state, trainers["host"].state)
+    if bad or seen[0] == buffer or seen[1:CACHE_GRAPH_STEPS] != [buffer] * (CACHE_GRAPH_STEPS - 1):
+        fail(f"graph cache: differs from the host's batches in {bad[:6]}; gathered into the "
+             f"buffer: {[p == buffer for p in seen]}")
+    log(f"graph cache: {CACHE_GRAPH_STEPS} captured steps fed by the cache, each clip after the "
+        f"first gathered into the step's ev_repr buffer, = the host's batches bit for bit; host "
+        f"ms per step (between log points) cache {[round(v, 1) for v in step_s['cache']]}, host "
+        f"{[round(v, 1) for v in step_s['host']]}")
+    del trainers, stream
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_s, bytes_resident=None)
+
+
+def phase_graph_world(torch, np, card, work):
+    """12e: every regularizer rate at 0.1 (gen4-base, B 12, bf16; the masked
+    path, masks hashed on the card from the count there), captured against
+    eager over 3 steps; a world of one over NCCL (phase 7a's configuration),
+    captured (the gradient buckets' and the metrics' all-reduces inside the
+    graph) against eager: bit for bit, cuDNN and torch in their
+    deterministic modes."""
+    import torch.distributed as dist
+
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.data.synthetic import synthetic_train_batch
+    from sast_tpu_torch.parallel.mesh import make_mesh
+    from sast_tpu_torch.training.loop import Trainer
+
+    res = {}
+    cfg = with_rates(get_config("gen4", "base"), 0.1)
+    rng = np.random.RandomState(22)
+    batches = [synthetic_train_batch(cfg, rng, sparsity=0.9)
+               for _ in range(REGULARIZED_GRAPH_STEPS)]
+
+    def captured_against_eager(trainer, batches, mesh=None):
+        """The trainer's captured steps against its eager twin's over
+        ``batches`` in the deterministic modes: (metrics, state) bit for
+        bit, and the replays."""
+        twin = eager_twin(torch, trainer, mesh)
+        with deterministic(torch):
+            rows_e = step_metrics(twin, batches)
+            state_e = written_state(torch, twin)
+            del twin
+            rows_c = step_metrics(trainer._train, batches)
+        state_c = written_state(torch, trainer._train)
+        bad = [i for i, (a, b) in enumerate(zip(state_e, state_c)) if not torch.equal(a, b)]
+        return rows_e == rows_c and not bad, bad, rows_c, trainer._train.run.replays
+
+    trainer = Trainer(cfg, str(work / "rates"), sparse_kernel_train=True, device=DEVICE)
+    same, bad, rows, replays = captured_against_eager(trainer, batches)
+    del trainer
+    torch.cuda.empty_cache()
+    if not same or replays != REGULARIZED_GRAPH_STEPS - 1:
+        fail(f"graph regularizers: captured differs from eager in tensors {bad[:6]}, metrics "
+             f"or replays {replays}")
+    res["regularized_losses"] = [r["loss"] for r in rows]
+    log(f"graph regularizers: every rate 0.1, captured = eager bit for bit over "
+        f"{REGULARIZED_GRAPH_STEPS} steps (losses {[round(v, 5) for v in res['regularized_losses']]})")
+
+    cfg = dp_config()
+    card0 = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    backend = "nccl" if card0.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, **({"device_id": card0} if backend == "nccl" else {}))
+    try:
+        mesh = make_mesh(card0)
+        trainer = Trainer(cfg, str(work / "nccl"), sparse_kernel_train=True, device=DEVICE,
+                          mesh=mesh)
+        same, bad, rows, replays = captured_against_eager(trainer, dp_batches(np, cfg), mesh)
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if not same or replays != DP_STEPS - 1:
+        fail(f"graph nccl: the captured world of one differs from eager in tensors {bad[:6]}, "
+             f"metrics or replays {replays}")
+    log(f"graph nccl: a world of one over {backend}, captured (all-reduces inside the graph) = "
+        f"eager bit for bit over {DP_STEPS} steps")
+    res["nccl_world_of_one"] = dict(steps=DP_STEPS, replays=replays)
+    return res
+
+
+def phase_twelve(torch, np, card, eager_card=None):
+    """Phase 12: train and validate as JAX's jitted and donated steps do;
+    its scratch directory under ``OUT_DIR`` removed at the end.
+    ``eager_card``: phase 5's card time of the eager B 12 step by path
+    (``card_ms``, ``hand_written_kernels_ms``), which 12a then does not
+    profile again."""
+    import tempfile
+
+    from sast_tpu_torch.config import get_config
+
+    work = Path(tempfile.mkdtemp(prefix="phase12_", dir=OUT_DIR))
+    out = {}
+    t0 = time.perf_counter()
+    batches = graph_train_batches(torch, np, get_config("gen4", "base"))
+    log(f"phase 12: {len(batches)} train batches made in {time.perf_counter() - t0:.1f} s")
+    try:
+        for name, fn, args in (("train", phase_graph_train, (work, batches, eager_card)),
+                               ("eval", phase_graph_eval, (batches,)),
+                               ("fit", phase_graph_fit, (work,)),
+                               ("cache", phase_graph_cache, (work,)),
+                               ("world", phase_graph_world, (work,))):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, np, card, *args)
+            out[name]["seconds"] = time.perf_counter() - t0
+            log(f"phase 12 {name}: ok ({out[name]['seconds']:.1f} s)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -3885,9 +4533,22 @@ def main() -> None:
     eleven["seconds"] = time.perf_counter() - t0
     log(f"phase 11: captured serving steps ok ({eleven['seconds']:.1f} s)")
 
+    t0 = time.perf_counter()
+    twelve = phase_twelve(torch, np, smi, eager_card=training)
+    # Launches on this slice's path: the captured train steps of 12a, the
+    # captured eval steps of 12b and the captured fit of 12c, the warm-ups'
+    # and the replays', each counted from 0 over its own run, summed.
+    for k in kernels:
+        n = sum(twelve[p]["launches"].get(k["name"], 0) for p in ("train", "eval", "fit"))
+        if not n:
+            fail(f"kernel {k['name']} was not launched by a captured train or eval step")
+        k["launches_captured_train"] = n
+    twelve["seconds"] = time.perf_counter() - t0
+    log(f"phase 12: captured train and eval steps ok ({twelve['seconds']:.1f} s)")
+
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
                   training=training, fit_validate=fit_validate, phase7=seven, phase8=eight,
-                  phase9=nine, phase10=ten, phase11=eleven,
+                  phase9=nine, phase10=ten, phase11=eleven, phase12=twelve,
                   seconds=time.perf_counter() - t_start)
     log(f"chip_smoke: all phases ok in {record['seconds']:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -3906,7 +4567,7 @@ def print_result(kernels, smi: str, kind: str, count: int) -> None:
     # Kernels redesigned since their first port; launches on phases 6-10.
     extra = ("redesigned", "launches_fit_validate", "launches_data_parallel",
              "launches_artifact", "launches_benchmark", "launches_cond_artifact", "launches_cli",
-             "launches_captured")
+             "launches_captured", "launches_captured_train")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(smi)

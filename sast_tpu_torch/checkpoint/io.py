@@ -7,8 +7,10 @@ either the old set or the new file whole. Each holds:
 
 - ``model``: the detector's ``state_dict()`` (parameters and BatchNorm
   running statistics);
-- ``optimizer``: ``OptaxAdamW``'s count and its ``torch.optim.AdamW`` state
-  (moments and their step tensors);
+- ``optimizer``: ``OptaxAdamW``'s count and its state in
+  ``torch.optim.AdamW``'s state-dict layout (moments and their step
+  tensors); a file written by ``torch.optim.AdamW`` itself (steps on the
+  host) restores the same way;
 - ``ema``: the EMA copy of the parameters by name, or None;
 - ``step`` and the ``metrics`` given to ``save``.
 

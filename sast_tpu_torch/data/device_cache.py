@@ -11,7 +11,11 @@ loops), this module uploads it once and gathers each step's clips there:
 - each step's (T, B) clip windows are one indexed gather on the card, then
   zero past each lane's real frames and a horizontal flip (W reversed, C
   kept in order) of the lanes that flip, without a loop over lanes;
-- labels (kilobytes) are packed on the host by ``data/batch.pack_batch_labels``.
+- labels (kilobytes) are packed on the host by ``data/batch.pack_batch_labels``;
+- ``gather_into(buffer)`` (the trainer's, from a captured step's static
+  ``ev_repr`` buffer) makes every later gather write into that buffer, so
+  that the clip exists once on the card: each batch's ``ev_repr`` is then
+  the buffer itself, which the next batch rewrites.
 
 The three train sampling modes ('stream', 'random', 'mixed', weighted
 sampling included) follow the host samplers' lane schedules, RNG streams,
@@ -173,14 +177,22 @@ class _HbmCache:
                 np.ascontiguousarray(ev).reshape(r.num_ev_repr, h, w * c)).to(self.device)
             r.close()
         self._steps = torch.arange(self.seq_len, device=self.device)
+        self.into: Optional[torch.Tensor] = None
 
     def gather(self, starts: np.ndarray, n_real: np.ndarray, flip: np.ndarray) -> torch.Tensor:
         """(T, B, H, W*C) uint8 on the card: frame ``starts[b] + t`` of lane
-        b, zero from ``n_real[b]`` on, W reversed where ``flip[b]``."""
+        b, zero from ``n_real[b]`` on, W reversed where ``flip[b]``; written
+        into ``into`` where that buffer has this shape."""
         T, (H, W), C = self.seq_len, self.hw, self.channels
+        B = len(starts)
         starts_d = torch.as_tensor(starts, device=self.device)
         n_real_d = torch.as_tensor(n_real, device=self.device)
-        ev = self.cache[starts_d[None, :] + self._steps[:, None]]  # (T, B, H, W*C)
+        frames = (starts_d[None, :] + self._steps[:, None]).reshape(T * B)
+        out = self.into
+        if out is None or tuple(out.shape) != (T, B, H, W * C) or not out.is_contiguous():
+            out = torch.empty((T, B, H, W * C), dtype=torch.uint8, device=self.device)
+        torch.index_select(self.cache, 0, frames, out=out.view(T * B, H, W * C))
+        ev = out
         ev *= (self._steps[:, None] < n_real_d[None, :]).to(torch.uint8)[:, :, None, None]
         if flip.any():
             lanes = torch.as_tensor(np.flatnonzero(flip), device=self.device)
@@ -251,6 +263,11 @@ class DeviceCachedTrainStream:
     def nbytes(self) -> int:
         return self._cache.nbytes
 
+    def gather_into(self, buffer: torch.Tensor) -> None:
+        """Gather every later batch's ``ev_repr`` into ``buffer`` (module
+        docstring)."""
+        self._cache.into = buffer
+
     def __iter__(self) -> Iterator[dict]:
         ds, tr = self.cfg.dataset, self.cfg.training
         lanes = [_LaneSchedule(self.streams, self.readers, self.offsets, self.seq_len, b,
@@ -291,6 +308,11 @@ class DeviceCachedEvalStream:
     @property
     def nbytes(self) -> int:
         return self._cache.nbytes
+
+    def gather_into(self, buffer: torch.Tensor) -> None:
+        """Gather every later batch's ``ev_repr`` into ``buffer`` (module
+        docstring)."""
+        self._cache.into = buffer
 
     def __len__(self) -> int:
         return self.global_steps

@@ -50,7 +50,7 @@ import sast_tpu_torch.ops.nms_keep  # noqa: F401  (sast_tpu_torch::greedy_keep)
 import sast_tpu_torch.ops.sparse_block  # noqa: F401  (sparse_block_fwd, sparse_block_looped)
 import sast_tpu_torch.ops.stem_conv  # noqa: F401  (stem_conv7x4, stem_conv_density7x4)
 from sast_tpu_torch import graphs
-from sast_tpu_torch.graphs import CapturedStep, Staging
+from sast_tpu_torch.graphs import SERVING_INPUTS, Staging, serving_step
 
 ARTIFACT_NAME = "streaming_step.pt2"
 
@@ -194,7 +194,7 @@ class ExportedStreamingDetector:
             def fn(*args):
                 out = _CondInterpreter(gm).run(*pytree.arg_tree_leaves(*args))
                 return pytree.tree_unflatten(pytree.tree_leaves(out), gm._out_spec)
-        self._step = CapturedStep(fn, states, self.num_streams, self.max_events, self.device,
+        self._step = serving_step(fn, states, self.num_streams, self.max_events, self.device,
                                   graph, weights=(self._fn,))
         self._staging = Staging(self.num_streams, self.max_events,
                                  pinned=self.device.type == "cuda")
@@ -221,8 +221,8 @@ class ExportedStreamingDetector:
 
     def _run(self, inputs):
         step = self._step
-        for buf, t in zip((step.packed, step.n_events, step.reset), inputs):
-            buf.copy_(t, non_blocking=True)
+        for k, t in zip(SERVING_INPUTS, inputs):
+            step.inputs[k].copy_(t, non_blocking=True)
         return step()
 
     def process_batch(self, frames, reset: "np.ndarray | None" = None) -> Dict[str, np.ndarray]:

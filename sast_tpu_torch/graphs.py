@@ -26,11 +26,16 @@ body that reads and writes static buffers:
 - ``run_together``: the replicas of a mesh, called together; their replays
   are interleaved so that every card's graphs up to a choice are enqueued
   before any card's predicate is read.
-- ``CapturedStep``: a serving step on its static buffers (the packed
-  events, counts and resets, and the carried state) through ``Captured``;
-  ``Staging``: the page-locked host buffers of a batch's upload and of its
-  slate's download. The live detector (``serving.py``) and the loaded
-  artifact (``export.py``) share both.
+- ``CapturedStep``: a step on its static inputs and carried state through
+  ``Captured``: the serving step (``serving_step``; the live detector,
+  ``serving.py``, and the loaded artifact, ``export.py``) and the train and
+  eval steps (``training/steps.py``). ``Staging``: the page-locked host
+  buffers of a serving batch's upload and of its slate's download.
+- ``BatchBuffers``: a training or evaluation batch's static buffers on the
+  card, filled from page-locked staging (host arrays) or by a copy on the
+  card, unless a producer wrote straight into them
+  (``data/device_cache.py``); the captured train and eval steps of
+  ``training/steps.py`` read them.
 - Launch counts: the kernels' wrappers count what they enqueue, and a
   replay runs no Python. Each graph keeps the counts recorded while it was
   captured; ``Captured.recorded`` sums them over its captures and
@@ -41,8 +46,13 @@ Captured graphs read the tensors they were captured with: the weights in
 place (``models/layers.cached_copy`` rewrites the compute-dtype copies in
 place), and every tensor that crosses from one graph to the next is held by
 the schedule for as long as its graphs live. ``Captured`` watches the
-storage and version of the weights it was given: a version change refreshes
-the copies before the next replay, a moved storage captures again.
+storage and version of the weights it was given, and the storage of the
+other state it is told of (an optimizer's moments, an EMA copy): a version
+change refreshes the copies before the next replay, a moved storage
+captures again. A replay writes tensors without Python, so without moving
+their version: a body that writes weights (the train step) has its caller
+move them (``bump_versions``), so that the copies and the other captures
+that read those weights see the change.
 """
 
 from __future__ import annotations
@@ -214,16 +224,20 @@ class Captured:
     body eagerly at every call. A call returns the body's outputs: after a
     replay the schedule's own tensors, which the next call rewrites.
 
-    The graphs are captured again when a weight moved, or when a switch
-    that picks a kernel as the body runs (``_kernel_switches``) changed
-    since the capture: a replay runs the kernels of the capture."""
+    The graphs are captured again when a weight moved, when a tensor of
+    ``state()`` (the other state the body reads and writes in place) moved,
+    or when a switch that picks a kernel as the body runs
+    (``_kernel_switches``) changed since the capture: a replay runs the
+    kernels of the capture."""
 
     def __init__(self, body: Callable, device, graph: bool = True,
-                 weights: Sequence[nn.Module] = ()):
+                 weights: Sequence[nn.Module] = (),
+                 state: Optional[Callable[[], List[torch.Tensor]]] = None):
         self.body = body
         self.device = torch.device(device)
         self.graph = bool(graph) and self.device.type == "cuda"
         self.weights = list(weights)
+        self.state = state
         self.schedule: Optional[Schedule] = None
         self.outputs = None
         self.recorded: collections.Counter = collections.Counter()
@@ -231,6 +245,7 @@ class Captured:
         self.replays = 0
         self._watched: List[torch.Tensor] = []
         self._stamps: list = []
+        self._state_ptrs: list = []
         self._switches: tuple = ()
 
     def __call__(self):
@@ -242,7 +257,7 @@ class Captured:
         predicate reads, and returns the call's outputs."""
         if not self.graph:
             return self.body()
-        if self.schedule is not None and (self._switches != _kernel_switches()
+        if self.schedule is not None and (self._switches != _kernel_switches(self.weights)
                                           or not self._weights_current()):
             self.schedule = self.outputs = None
         if self.schedule is None:
@@ -255,12 +270,15 @@ class Captured:
         """True where the graphs may be replayed: the weights kept their
         storage (their compute-dtype copies are brought up to date here when
         a weight was written in place)."""
+        if self.state is not None and [t.data_ptr() for t in self.state()] != self._state_ptrs:
+            return False
         stamps = [(t.data_ptr(), t._version) for t in self._watched]
         if stamps == self._stamps:
             return True
         if [s[0] for s in stamps] != [s[0] for s in self._stamps]:
             return False
-        if any("_compute_copies" in m.__dict__ for w in self.weights for m in w.modules()):
+        if any("_compute_copies" in m.__dict__
+                               for w in self.weights for m in w.modules()):
             from sast_tpu_torch.models.layers import refresh_compute_copies
 
             for module in self.weights:
@@ -269,7 +287,7 @@ class Captured:
         return True
 
     def _warm_up_and_capture(self):
-        self._switches = _kernel_switches()
+        self._switches = _kernel_switches(self.weights)
         schedule = Schedule(self.recorded, self.replayed)
         caller = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -295,16 +313,32 @@ class Captured:
             caller.wait_stream(side)
         self._watched = [t for m in self.weights for t in (*m.parameters(), *m.buffers())]
         self._stamps = [(t.data_ptr(), t._version) for t in self._watched]
+        self._state_ptrs = [t.data_ptr() for t in self.state()] if self.state else []
         self.schedule = schedule
         return out
 
 
-def _kernel_switches() -> tuple:
-    """The module-level switches that pick a kernel as a body runs:
-    ``sparse_block.MODEL_USES_LOOPED`` (kernel F or E on the sparse path)."""
+def _kernel_switches(weights: Sequence[nn.Module] = ()) -> tuple:
+    """The switches that pick a kernel as a body runs: the module-level
+    ``sparse_block.MODEL_USES_LOOPED`` (kernel F or E on the sparse path),
+    then each attention layer's ``sparse_kernel`` in ``weights``
+    (``models/detector.set_sparse_kernel``, which a trainer flips between
+    its train and eval paths)."""
+    from sast_tpu_torch.models.sast import MaskedSparseAttention
     from sast_tpu_torch.ops import sparse_block
 
-    return (sparse_block.MODEL_USES_LOOPED,)
+    layers = tuple(m.sparse_kernel for w in weights for m in w.modules()
+                   if isinstance(m, MaskedSparseAttention))
+    return (sparse_block.MODEL_USES_LOOPED,) + layers
+
+
+def bump_versions(tensors: Sequence[torch.Tensor]) -> None:
+    """Move the version of each of ``tensors`` as an in-place write does:
+    after a replay that wrote them, so that whatever is stamped with their
+    version (``models/layers.cached_copy``, another ``Captured``) sees the
+    write."""
+    for t in tensors:
+        torch.autograd.graph.increment_version(t)
 
 
 def run_together(runs: Sequence[Captured]) -> list:
@@ -329,49 +363,70 @@ def run_together(runs: Sequence[Captured]) -> list:
 
 
 class CapturedStep:
-    """A step function on static buffers: ``fn(states, packed, n_events,
-    reset) -> (dets, new_states, p_tel)`` (a ``StreamingStep``, or an
-    exported program's module) for ``lanes`` lanes of ``max_events`` events
-    on ``device``.
+    """A step function on static buffers: ``fn(states, inputs) ->
+    (new_states, out)`` on ``device``.
 
-    ``packed``, ``n_events`` and ``reset`` are the static inputs, which the
-    caller rewrites in place before each call; ``states`` holds the carried
-    state (``init_states``' structure), written back in place by every step
-    (JAX donates it). A call runs one step and returns ``(dets, p_tel)``:
-    on a card with ``graph`` on, the first call runs the step eagerly as the
-    warm-up and captures it, and every later call replays the graphs and
-    returns their own output tensors, which the next call rewrites
-    (``graphs.Captured``; ``weights``: the modules whose parameters the
-    graphs read). Otherwise the step runs eagerly every call."""
+    ``inputs`` (a dict of tensors) are the static inputs, which the caller
+    rewrites in place before each call; ``states`` holds the carried state
+    (a list of tuples of tensors, cloned from ``init_states``), written back
+    in place by every step (JAX donates it). A call runs one step and
+    returns ``out``: on a card with ``graph`` on, the first call runs the
+    step eagerly as the warm-up and captures it, and every later call
+    replays the graphs and returns their own output tensors, which the next
+    call rewrites (``Captured``; ``weights``: the modules whose parameters
+    the graphs read; ``state``: the other state they read and write in
+    place). Otherwise the step runs eagerly every call."""
 
-    def __init__(self, fn, init_states, lanes: int, max_events: int, device,
-                 graph: bool = True, weights=()):
+    def __init__(self, fn: Callable, init_states, inputs: Dict[str, torch.Tensor], device,
+                 graph: bool = True, weights: Sequence[nn.Module] = (),
+                 state: Optional[Callable[[], List[torch.Tensor]]] = None):
         self.device = torch.device(device)
         self.states = [tuple(t.clone() for t in hc) for hc in init_states]
-        self.packed = torch.zeros((lanes, max_events, 4), dtype=torch.int32, device=self.device)
-        self.n_events = torch.zeros((lanes,), dtype=torch.int32, device=self.device)
-        self.reset = torch.zeros((lanes,), dtype=torch.bool, device=self.device)
+        self.inputs = inputs
         # The body holds the buffers, not this object: no reference cycle
-        # keeps the graphs alive after their detector is gone.
-        states, inputs = self.states, (self.packed, self.n_events, self.reset)
+        # keeps the graphs alive after their owner is gone.
+        states = self.states
 
         def body():
-            dets, new_states, p_tel = fn(states, *inputs)
+            new_states, out = fn(states, inputs)
             for hc, new in zip(states, new_states):
                 for t, v in zip(hc, new):
                     t.copy_(v)
-            return dets, p_tel
+            return out
 
-        self.run = Captured(body, self.device, graph, weights)
+        self.run = Captured(body, self.device, graph, weights, state=state)
 
     def zero_states(self) -> None:
         for hc in self.states:
             for t in hc:
                 t.zero_()
 
-    @torch.no_grad()
     def __call__(self):
         return self.run()
+
+
+SERVING_INPUTS = ("packed", "n_events", "reset")
+
+
+def serving_step(fn, init_states, lanes: int, max_events: int, device, graph: bool = True,
+                 weights=()) -> CapturedStep:
+    """A serving step ``fn(states, packed, n_events, reset) -> (dets,
+    new_states, p_tel)`` (a ``StreamingStep``, or an exported program's
+    module) for ``lanes`` lanes of ``max_events`` events as a
+    ``CapturedStep``, without grad: its static inputs are the packed
+    events, counts and resets (``SERVING_INPUTS``), and a call returns
+    ``(dets, p_tel)``."""
+    device = torch.device(device)
+    inputs = {"packed": torch.zeros((lanes, max_events, 4), dtype=torch.int32, device=device),
+              "n_events": torch.zeros((lanes,), dtype=torch.int32, device=device),
+              "reset": torch.zeros((lanes,), dtype=torch.bool, device=device)}
+
+    @torch.no_grad()
+    def step(states, inputs):
+        dets, new_states, p_tel = fn(states, *(inputs[k] for k in SERVING_INPUTS))
+        return new_states, (dets, p_tel)
+
+    return CapturedStep(step, init_states, inputs, device, graph, weights)
 
 
 class Staging:
@@ -413,3 +468,65 @@ class Staging:
         for event in events:
             event.synchronize()
         return self.down
+
+
+def _dtype_of(value) -> torch.dtype:
+    """The torch dtype of a tensor or of a numpy array."""
+    if torch.is_tensor(value):
+        return value.dtype
+    return torch.from_numpy(np.empty(0, dtype=np.asarray(value).dtype)).dtype
+
+
+class BatchBuffers:
+    """A step's batch as static buffers on ``device``: one tensor per key of
+    ``like`` (a batch of numpy arrays or tensors), of its shape and dtype.
+
+    ``load(batch)`` writes a batch of those shapes and dtypes into them and
+    returns them: a host array through a page-locked staging buffer and a
+    ``non_blocking`` copy (the staging is rewritten only once the previous
+    batch's copies have run), a tensor on the card by a copy there, and
+    nothing for a tensor that is the buffer itself (a producer gathered into
+    it, ``data/device_cache.py``). The copies run on the current stream
+    after the work queued before them, so a step still reading the previous
+    batch finishes first."""
+
+    def __init__(self, like: Dict, device):
+        self.device = torch.device(device)
+        self.pinned = self.device.type == "cuda"
+        self.tensors = {k: torch.empty(tuple(v.shape), dtype=_dtype_of(v), device=self.device)
+                        for k, v in like.items()}
+        self._staging: Dict[str, torch.Tensor] = {}
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def matches(self, batch: Dict) -> bool:
+        return set(batch) == set(self.tensors) and all(
+            tuple(v.shape) == tuple(self.tensors[k].shape) and _dtype_of(v) == self.tensors[k].dtype
+            for k, v in batch.items())
+
+    def load(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        if self._copied is not None:
+            self._copied.synchronize()
+            self._copied = None
+        staged = False
+        for k, value in batch.items():
+            buf = self.tensors[k]
+            if torch.is_tensor(value) and value.device == buf.device:
+                if value.data_ptr() != buf.data_ptr() or value.stride() != buf.stride():
+                    buf.copy_(value)
+                continue
+            if not self.pinned:
+                buf.copy_(value if torch.is_tensor(value) else torch.from_numpy(np.asarray(value)))
+                continue
+            host = self._staging.get(k)
+            if host is None:
+                host = self._staging[k] = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            if torch.is_tensor(value):
+                host.copy_(value)
+            else:
+                host.numpy()[...] = value
+            buf.copy_(host, non_blocking=True)
+            staged = True
+        if staged:
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+        return self.tensors

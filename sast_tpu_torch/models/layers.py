@@ -18,10 +18,11 @@ weights once).
   stem goes through the stem kernel (ops/stem_conv.py).
 - ``DWSConvLSTM2d``: ConvLSTM cell, gates and cell state in fp32.
 - ``Dropout`` / ``DropPath`` with ``DropoutKey``: the stochastic
-  regularizers, their masks drawn from a generator seeded from (seed,
-  optimizer step, timestep, layer) for the global batch, this rank's rows
-  kept. They cannot draw JAX's threefry bits: the port's masks follow the
-  same distribution, not the same values.
+  regularizers, their masks a counter-based hash, computed with tensor
+  operations on the device, of (seed, optimizer step, timestep, layer,
+  element of the global batch), this rank's rows kept. They cannot draw
+  JAX's threefry bits: the port's masks follow the same distribution, not
+  the same values.
 - ``BaseConv`` / ``DWConv`` / ``Bottleneck`` / ``CSPLayer``: YOLOX blocks.
 """
 
@@ -31,7 +32,6 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -231,32 +231,69 @@ class BatchNorm(nn.Module):
         return ((x32 - mean) * mul + self.bias).to(self.dtype)
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``h * c mod 2**32`` for int64 ``h`` in [0, 2**32) and a constant ``c``
+    below 2**32, in two 16-bit halves of ``c`` so that no product leaves
+    int64's range."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer on int64 tensors holding uint32s: a
+    bijection whose every output bit depends on every input bit."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
 @dataclasses.dataclass(frozen=True)
 class DropoutKey:
     """Where one timestep's dropout masks come from in a training step: the
     run's seed, the optimizer step and the timestep (JAX folds the step into
     ``PRNGKey(seed)`` and splits one key per timestep), and this process's
-    place in the data-parallel world. Each layer seeds its own generator from
-    (seed, step, t, layer), draws the mask of the global batch and keeps its
-    rank's rows: a world of two draws what a world of one draws on the same
-    global batch, and a recomputation (``checkpoint``) draws the same masks
-    again."""
+    place in the data-parallel world.
+
+    Each element's keep draw is a hash of (seed, step, t, layer, its index
+    in the global batch), computed with tensor operations on the mask's
+    device: a world of two draws what a world of one draws on the same
+    global batch, a recomputation (``checkpoint``) draws the same masks
+    again, and a resumed run (the same step) the same stream. ``counter``,
+    where given, is the step as a 0-d tensor on the card (the optimizer's
+    count, ``OptaxAdamW.adamw.count``), read there at each draw, so that a
+    captured train step draws each replay's masks from that replay's step;
+    ``step`` (the host's count, equal to it) then only names the key."""
 
     seed: int
     step: int
     t: int
     rank: int = 0
     world: int = 1
+    counter: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
 
     def keep_mask(self, layer: int, shape, keep: float, device) -> torch.Tensor:
         """Bool mask of ``shape`` (this rank's rows), True with probability
         ``keep``."""
-        words = np.random.SeedSequence([self.seed, self.step, self.t, layer]).generate_state(2)
-        g = torch.Generator(device=device)
-        g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
-        rows = shape[0]
-        u = torch.rand((rows * self.world, *shape[1:]), generator=g, device=device)
-        return u[self.rank * rows:(self.rank + 1) * rows] < keep
+        def const(v):
+            return torch.full((), v & _U32, dtype=torch.int64, device=device)
+
+        step = (self.counter.to(device=device, dtype=torch.int64) & _U32
+                if self.counter is not None else const(self.step))
+        key = _fmix32(const(self.seed) ^ 0x9E3779B9)
+        key = _fmix32(key ^ step)
+        key = _fmix32(key ^ const(self.t))
+        key = _fmix32(key ^ const(layer))
+        second = _fmix32(key ^ 0x7F4A7C15)
+        rows, per_row = shape[0], math.prod(shape[1:])
+        first = self.rank * rows * per_row
+        index = torch.arange(first, first + rows * per_row, dtype=torch.int64, device=device)
+        u = _fmix32(_fmix32((index & _U32) ^ key) ^ second)
+        return (u < int(keep * 2 ** 32)).reshape(shape)
 
 
 class Dropout(nn.Module):

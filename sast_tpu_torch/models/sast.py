@@ -209,6 +209,20 @@ class MaskedSparseAttention(nn.Module):
             return self.block_math(y, token_keep, dropout)
         return self.run_block(y, token_keep, win_keep)
 
+    def chooses_in_training(self) -> Optional[str]:
+        """The switch by which the training forward of this layer chooses
+        its branch on the card (``run_block``'s ``choose``), or None: a
+        gather budget in (0, 1), or the sparse kernel below a density
+        threshold of 1; never with Context Broadcasting, nor with a
+        regularizer on (the masked path then runs)."""
+        if self.enable_cb or self.drop_path > 0.0 or self.drop_mlp > 0.0:
+            return None
+        if 0.0 < self.gather_budget < 1.0:
+            return f"attention.gather_budget={self.gather_budget}"
+        if self.gather_budget <= 0.0 and self.sparse_kernel and self.density_threshold < 1.0:
+            return f"attention.pallas_density_threshold={self.density_threshold}"
+        return None
+
     def run_block(self, y: torch.Tensor, token_keep: torch.Tensor,
                   win_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The block on norm1-ed tokens ``y``, on the path the switches and

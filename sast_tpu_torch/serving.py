@@ -28,7 +28,7 @@ import torch.nn as nn
 
 from sast_tpu_torch.config import ExperimentConfig
 from sast_tpu_torch.data.representations import stacked_histogram
-from sast_tpu_torch.graphs import CapturedStep, Staging, run_together
+from sast_tpu_torch.graphs import SERVING_INPUTS, Staging, run_together, serving_step
 from sast_tpu_torch.models.backbone import zero_states
 from sast_tpu_torch.models.detector import (
     DTYPES,
@@ -183,7 +183,7 @@ class StreamingDetector:
         self.model = model
         self.lanes_per_replica = num_streams // len(devices)
         self.steps = [
-            CapturedStep(r, zero_states(bb, self.lanes_per_replica, self.dtype, d),
+            serving_step(r, zero_states(bb, self.lanes_per_replica, self.dtype, d),
                          self.lanes_per_replica, max_events, d, graph, weights=(r,))
             for r, d in zip(self.replicas, devices)
         ]
@@ -213,8 +213,8 @@ class StreamingDetector:
         any result is read (``graphs.run_together``); returns the
         per-replica (dets, p_tel)."""
         for step, source in zip(self.steps, inputs):
-            for buf, t in zip((step.packed, step.n_events, step.reset), source):
-                buf.copy_(t, non_blocking=True)
+            for k, t in zip(SERVING_INPUTS, source):
+                step.inputs[k].copy_(t, non_blocking=True)
         return run_together([step.run for step in self.steps])
 
     @torch.no_grad()

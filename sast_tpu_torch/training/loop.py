@@ -15,6 +15,13 @@ start as rank 0's, the step reduces over the world (``training/steps.py``),
 only rank 0 logs and saves, every rank restores, and ``validate`` gathers the
 evaluation buffers of all ranks. ``fit(profile_steps=(first, last))``
 records a ``torch.profiler`` trace of those steps into ``<workdir>/trace``.
+``graph`` (default on) runs ``fit``'s steps and ``validate``'s on a card as
+JAX runs its jitted and donated steps: as captured CUDA graphs on static
+batch buffers (``training/steps.CapturedTrainStep`` and
+``CapturedEvalStep``), with the LSTM states carried in place; ``graph=False``
+runs the same bodies eagerly, as the CPU always does. The card-resident
+cache's streams (``data/device_cache.py``) gather each batch's events
+straight into the step's buffer.
 ``validate(save_viz=n)`` writes up to ``n`` prediction | label panels as
 ``<workdir>/viz/val_<batch>.png``, and ``fit`` writes the gradient-flow
 figure of the per-component gradient norms logged so far to
@@ -47,12 +54,15 @@ import torch.distributed as dist
 
 from sast_tpu_torch.checkpoint.io import CheckpointManager
 from sast_tpu_torch.config import ExperimentConfig
-from sast_tpu_torch.data.batch import split_device_batch, to_device
+from sast_tpu_torch.data.batch import split_device_batch
 from sast_tpu_torch.eval.prophesee import PropheseeEvaluator, detections_to_prophesee
 from sast_tpu_torch.models.backbone import zero_states
 from sast_tpu_torch.models.detector import DTYPES, resolve_device, set_sparse_kernel
 from sast_tpu_torch.parallel.mesh import Mesh
+from sast_tpu_torch.ops import sparse_block
 from sast_tpu_torch.training.steps import (
+    CapturedEvalStep,
+    CapturedTrainStep,
     TrainState,
     create_train_state,
     make_eval_step,
@@ -68,15 +78,12 @@ _NOT_PORTED = {
 
 def state_tensors(state: TrainState):
     """Every tensor of a ``TrainState`` on its device, in one fixed order:
-    parameters and BatchNorm statistics, the EMA copy, the AdamW moments
-    (AdamW's step counts live on the host and follow ``optimizer.count``)."""
+    parameters and BatchNorm statistics, the EMA copy, the optimizer's count
+    and moments (``OptaxAdamW.tensors``)."""
     out = list(state.model.state_dict().values())
     if state.ema_params is not None:
         out += list(state.ema_params.values())
-    adam = state.optimizer.adamw.state
-    for p in state.optimizer.params:
-        out += [adam[p][k] for k in ("exp_avg", "exp_avg_sq") if k in adam.get(p, {})]
-    return out
+    return out + state.optimizer.tensors()
 
 
 class Trainer:
@@ -92,6 +99,17 @@ class Trainer:
     rate. ``device`` is the card unless the caller passes ``"cpu"``, which
     runs the kernels' plain versions; without a card the default raises.
     With ``mesh`` the trainer runs on ``mesh.device``.
+
+    ``graph`` (default on) captures the train and eval steps on a card
+    (module docstring). A configuration whose layers choose their branch on
+    the card in training, or a gloo world, cannot capture the train step:
+    the first training step refuses it by name (``steps.refuse_capture``),
+    and it trains with ``graph=False``. Such a trainer still validates
+    through the captured eval step, which splits its graphs at each choice
+    as serving does.
+    ``train_step`` and ``_eval_step`` are the step functions those bodies
+    call (``make_train_step``'s and ``make_eval_step``'s); assigning either
+    replaces it for the eager calls and for a capture to come.
     """
 
     def __init__(
@@ -106,6 +124,7 @@ class Trainer:
         learning_rate: Optional[float] = None,
         device="cuda",
         mesh: Optional[Mesh] = None,
+        graph: bool = True,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -131,12 +150,42 @@ class Trainer:
         )
         self.sparse_kernel_train = sparse_kernel_train
         self.sparse_kernel_eval = sparse_kernel_eval
-        self.train_step = make_train_step(self.model, cfg, mesh)
-        self._eval_step = make_eval_step(self.model, cfg)
+        self.graph = graph
+        # The step functions, held apart from the trainer so that the
+        # captured steps' bodies hold no reference to it.
+        self._fns = {"train": make_train_step(self.model, cfg, mesh),
+                     "eval": make_eval_step(self.model, cfg)}
+        self._train = CapturedTrainStep(self._fns, self.state, cfg, self.device, graph, mesh)
+        self._evals: Dict[tuple, CapturedEvalStep] = {}
         self.p_smooth = SmoothedValue()
         self.best_val_ap = -1.0
         self._ckpt = None
         self._sync_state()
+
+    @property
+    def train_step(self) -> Callable:
+        return self._fns["train"]
+
+    @train_step.setter
+    def train_step(self, fn: Callable) -> None:
+        self._fns["train"] = fn
+
+    @property
+    def _eval_step(self) -> Callable:
+        return self._fns["eval"]
+
+    @_eval_step.setter
+    def _eval_step(self, fn: Callable) -> None:
+        self._fns["eval"] = fn
+
+    def _eval_run(self) -> CapturedEvalStep:
+        """The captured eval step of the path ``sparse_kernel_eval`` and
+        ``sparse_block.MODEL_USES_LOOPED`` name: one each, kept."""
+        key = (self.sparse_kernel_eval, sparse_block.MODEL_USES_LOOPED)
+        if key not in self._evals:
+            self._evals[key] = CapturedEvalStep(self._fns, self.model, self.cfg, self.device,
+                                                self.graph)
+        return self._evals[key]
 
     def _sync_state(self) -> None:
         """Under a mesh, every rank takes rank 0's state (the GSPMD step's
@@ -234,16 +283,20 @@ class Trainer:
         ``<workdir>/viz/val_<batch>.png``, as JAX picks and names them."""
         cfg = self.cfg
         evaluator = PropheseeEvaluator(cfg.dataset.name, cfg.dataset.downsample_by_factor_2)
-        lstm = None
+        run = self._eval_run()
+        run.zero_states()
         n = n_viz = 0
         try:
             with self._eval_parameters():
                 for batch in eval_batches:
                     device_batch, host = split_device_batch(batch)
-                    device_batch = to_device(device_batch, self.device)
-                    if lstm is None:
-                        lstm = self._zero_states(device_batch["ev_repr"].shape[1])
-                    lstm, dets = self.eval_step(device_batch, lstm)
+                    set_sparse_kernel(self.model, self.sparse_kernel_eval)
+                    try:
+                        dets = run(device_batch)
+                    finally:
+                        set_sparse_kernel(self.model, self.sparse_kernel_train)
+                    if hasattr(eval_batches, "gather_into"):  # the card cache's next gather
+                        eval_batches.gather_into(run.buffers.tensors["ev_repr"])
                     dets_np = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
                                for k, v in dets.items()}
 
@@ -336,7 +389,7 @@ class Trainer:
         t_last = time.time()
         step = self.state.step
         last_ckpt_step = step
-        lstm = None
+        self._train.zero_states()
         gf_steps: list = []
         gf_series: Dict[str, list] = {}
         try:
@@ -344,9 +397,6 @@ class Trainer:
                 if step >= max_steps:
                     break
                 device_batch, _ = split_device_batch(batch)
-                device_batch = to_device(device_batch, self.device)
-                if lstm is None:
-                    lstm = self._zero_states(device_batch["ev_repr"].shape[1])
                 # <= so that a resumed run whose step already sits inside the
                 # window records its rest; prof_last keeps a finished window
                 # from starting again.
@@ -355,7 +405,9 @@ class Trainer:
                     profiler = self._start_trace()
                 with (torch.profiler.record_function(f"train_step {step + 1}")
                       if profiler is not None else contextlib.nullcontext()):
-                    self.state, lstm, metrics = self.train_step(self.state, device_batch, lstm)
+                    metrics = self._train(device_batch)
+                if hasattr(train_batches, "gather_into"):  # the card cache's next gather
+                    train_batches.gather_into(self._train.buffers.tensors["ev_repr"])
                 step += 1
                 if profiler is not None and step >= prof_last:
                     self._stop_trace(profiler)

@@ -33,6 +33,19 @@ Batch layout (``data/synthetic.py`` makes such batches):
 Unlike the JAX package's pure functions, ``train_step`` updates the model's
 parameters, BatchNorm statistics, optimizer and EMA copy in place and hands
 back the same ``TrainState``.
+
+``CapturedTrainStep`` and ``CapturedEvalStep`` are the counterparts of the
+JAX trainer's ``jax.jit(train_step, donate_argnums=(0, 2))`` and
+``jax.jit(eval_step, donate_argnums=(2,))`` (sast_tpu/training/loop.py:
+90-99): the step on static batch buffers (``graphs.BatchBuffers``) with the
+carried LSTM states in buffers of their own, written back in place, and on
+a card captured as CUDA graphs after its first call (``graphs.Captured``):
+the first call is the real first step, run eagerly as the warm-up, and every
+later call replays it. The train step's whole update runs on the card (the
+optimizer's count and rate are tensors there, ``training/optimizer.py``;
+the dropout masks are hashed there from that count, ``models/layers``), so
+a replay is the next step. With ``graph`` off, or on the CPU, the same
+bodies run eagerly at every call.
 """
 
 from __future__ import annotations
@@ -49,9 +62,11 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from sast_tpu_torch import graphs
 from sast_tpu_torch.config import ExperimentConfig
-from sast_tpu_torch.models.backbone import LstmState
-from sast_tpu_torch.models.detector import YoloXDetector, build_detector
+from sast_tpu_torch.models.backbone import LstmState, zero_states
+from sast_tpu_torch.models.detector import DTYPES, YoloXDetector, build_detector
+from sast_tpu_torch.models.sast import MaskedSparseAttention
 from sast_tpu_torch.models.head import inference_outputs
 from sast_tpu_torch.models.layers import DropoutKey
 from sast_tpu_torch.models.losses import yolox_loss
@@ -240,7 +255,8 @@ def make_train_step(model: YoloXDetector, cfg: ExperimentConfig,
             deterministic=not stochastic, padder=padder,
             num_channels=cfg.model.backbone.input_channels,
             token_mask=token_mask, remat_policy=cfg.training.remat_policy,
-            dropout=DropoutKey(seed, state.step, 0, rank, world) if stochastic else None,
+            dropout=(DropoutKey(seed, state.step, 0, rank, world,
+                                counter=state.optimizer.adamw.count) if stochastic else None),
         )
         sel = _select_labeled(feats_seq, in_stages, batch["frame_tidx"])
         outputs = model.forward_detect(sel, train=True, mesh=mesh)
@@ -284,9 +300,11 @@ def make_train_step(model: YoloXDetector, cfg: ExperimentConfig,
         state.optimizer.step()
         if state.ema_params is not None:
             d = cfg.training.ema_decay
+            names, params = zip(*model.named_parameters())
+            ema = [state.ema_params[name] for name in names]
             with torch.no_grad():
-                for name, p in model.named_parameters():
-                    state.ema_params[name].mul_(d).add_(p, alpha=1.0 - d)
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, params, alpha=1.0 - d)
         new_lstm_states = [tuple(s.detach() for s in hc) for hc in final_states]
         return state, new_lstm_states, metrics
 
@@ -353,3 +371,139 @@ def make_inference_step(model: YoloXDetector, cfg: ExperimentConfig) -> Callable
         return _detect(model, cfg, feats), new_states, p
 
     return infer_step
+
+
+def refuse_capture(model: YoloXDetector, mesh: Optional[dp.Mesh] = None) -> None:
+    """Raise, naming the reason, where the train step of ``model`` cannot be
+    captured as it runs eagerly: a layer that chooses its branch on the card
+    (the backward cannot be split at the choice; conditional graph nodes
+    would take it on the card, ROADMAP section 1 item 8), or a world whose
+    backend stages its collectives through the host (gloo)."""
+    for name, m in model.named_modules():
+        if isinstance(m, MaskedSparseAttention) and m.chooses_in_training():
+            raise ValueError(
+                f"{name} chooses its branch on the card ({m.chooses_in_training()}): a captured "
+                "train step cannot split its backward at a choice (conditional graph nodes, "
+                "ROADMAP section 1 item 8, are not ported); pass graph=False")
+    if mesh is not None and dist.get_backend() == "gloo":
+        raise ValueError("the gloo backend stages its collectives through the host and cannot "
+                         "be captured in a CUDA graph; pass graph=False, or use nccl")
+
+
+class _OnBuffers:
+    """A step on static buffers: the batch's (``graphs.BatchBuffers``, made
+    from the first batch's shapes and dtypes; a batch of other shapes makes
+    new ones and captures again, as a jitted step retraces) and the carried
+    LSTM states' (zero at first; ``zero_states()`` zeroes them in place),
+    as a ``graphs.CapturedStep`` (``step``) over them. ``fns`` holds the
+    step functions, looked up at each eager call and at the capture, so
+    that a caller may wrap them."""
+
+    def __init__(self, fns: Dict[str, Callable], cfg: ExperimentConfig, device, graph: bool):
+        self.fns, self.cfg = fns, cfg
+        self.device = torch.device(device)
+        self.graph = bool(graph)
+        self.buffers: Optional[graphs.BatchBuffers] = None
+        self.step: Optional[graphs.CapturedStep] = None
+
+    def _load(self, batch) -> None:
+        if self.buffers is None or not self.buffers.matches(batch):
+            self.buffers = graphs.BatchBuffers(batch, self.device)
+            B = self.buffers.tensors["ev_repr"].shape[1]
+            states = zero_states(self.cfg.model.backbone, B,
+                                 DTYPES[self.cfg.model.compute_dtype], self.device)
+            self.step = self._captured(self.buffers.tensors, states)
+        self.buffers.load(batch)
+
+    def _captured(self, inputs, states) -> graphs.CapturedStep:
+        raise NotImplementedError
+
+    @property
+    def run(self) -> Optional[graphs.Captured]:
+        return None if self.step is None else self.step.run
+
+    @property
+    def states(self) -> Optional[List[LstmState]]:
+        return None if self.step is None else self.step.states
+
+    def zero_states(self) -> None:
+        if self.step is not None:
+            self.step.zero_states()
+
+
+class CapturedTrainStep(_OnBuffers):
+    """``fns["train"]`` (``make_train_step``'s function) on static buffers,
+    replayed as a captured CUDA graph on a card (module docstring), updating
+    ``state`` (a ``TrainState``). A call ``step(batch)`` (numpy arrays or
+    tensors in the layout above) loads the batch into the buffers, runs one
+    step and returns its metrics: 0-d tensors on the card, which the next
+    call rewrites. On a card with ``graph`` on, the first call refuses a
+    configuration that chooses on the card or a gloo world
+    (``refuse_capture``) before it touches the card."""
+
+    def __init__(self, fns: Dict[str, Callable], state: TrainState, cfg: ExperimentConfig,
+                 device, graph: bool = True, mesh: Optional[dp.Mesh] = None):
+        super().__init__(fns, cfg, device, graph)
+        self.state = state
+        self.mesh = mesh
+
+    def _captured(self, inputs, states) -> graphs.CapturedStep:
+        # The step holds what it reads, not this object: no reference cycle
+        # keeps the graphs alive after their trainer is gone.
+        fns, state = self.fns, self.state
+
+        def step(states, inputs):
+            _, new_states, metrics = fns["train"](state, inputs, states)
+            return new_states, metrics
+
+        def held():
+            ema = list(state.ema_params.values()) if state.ema_params is not None else []
+            return state.optimizer.tensors() + ema
+
+        return graphs.CapturedStep(step, states, inputs, self.device, self.graph,
+                                   [state.model], state=held)
+
+    def __call__(self, batch) -> Dict[str, torch.Tensor]:
+        if self.step is None and self.graph and self.device.type == "cuda":
+            refuse_capture(self.state.model, self.mesh)
+        self._load(batch)
+        optimizer = self.state.optimizer
+        count, replays = optimizer.count, self.run.replays
+        metrics = self.step()
+        # One call is one update: the warm-up's (its capture runs no step)
+        # or the replay's, whose Python did not run.
+        optimizer.count = count + 1
+        if self.run.replays != replays:
+            written = [*self.state.model.parameters(), *self.state.model.buffers()]
+            if self.state.ema_params is not None:
+                written += list(self.state.ema_params.values())
+            graphs.bump_versions(written)
+        return metrics
+
+
+class CapturedEvalStep(_OnBuffers):
+    """``fns["eval"]`` (``make_eval_step``'s function) on static buffers,
+    replayed as captured CUDA graphs on a card, as the serving step is:
+    ``step(batch)`` loads the batch into the buffers, runs the step with the
+    LSTM states carried in ``states`` and returns the detections, which the
+    next call rewrites. A layer that chooses its branch on the card splits
+    the capture at the choice (``graphs.Schedule``); the attention path is
+    that of ``model``'s switches at the call (``graphs._kernel_switches``)."""
+
+    def __init__(self, fns: Dict[str, Callable], model: YoloXDetector, cfg: ExperimentConfig,
+                 device, graph: bool = True):
+        super().__init__(fns, cfg, device, graph)
+        self.model = model
+
+    def _captured(self, inputs, states) -> graphs.CapturedStep:
+        fns = self.fns
+
+        def step(states, inputs):
+            return fns["eval"](inputs, states)
+
+        return graphs.CapturedStep(step, states, inputs, self.device, self.graph, [self.model])
+
+    @torch.no_grad()
+    def __call__(self, batch) -> Dict[str, torch.Tensor]:
+        self._load(batch)
+        return self.step()

@@ -69,14 +69,17 @@ def kernel_table(prof, steps: int = 1, device_type: str = "cuda") -> Dict:
     ``kernel_ms``; by time, longest first), ``groups`` and ``hand_written``
     (ms per step by group, and of the hand-written kernels alone). An
     operator's own row repeats its kernels' time, so only kernel rows
-    count. With ``device_type`` "cpu" the rows are the operators' self time
-    on the host instead (a run on the CPU has no kernel rows)."""
+    count; so does an annotation's (a ``record_function`` range, or the
+    profiler's own step under a ``schedule``, which the profiler also lays
+    on the card's timeline), so none counts. With ``device_type`` "cpu" the
+    rows are the operators' self time on the host instead (a run on the CPU
+    has no kernel rows)."""
     from torch.autograd import DeviceType
 
     want = DeviceType.CUDA if device_type == "cuda" else DeviceType.CPU
     rows, total = [], 0.0
     for e in prof.key_averages():
-        if e.device_type != want:
+        if e.device_type != want or getattr(e, "is_user_annotation", False):
             continue
         if want == DeviceType.CPU:
             us = e.self_cpu_time_total

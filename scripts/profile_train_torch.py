@@ -6,10 +6,14 @@ scripts/profile_train.py).
 A train step of ``training/steps.make_train_step`` (seeded weights, the
 configuration's attention path, ``data/synthetic.synthetic_train_batch`` at
 sparsity 0.9, seed 0) per ``--policies`` entry of ``training.remat_policy``
-(``full``, ``dots``, ``none``). Timing on the host clock to the card's end:
+(``full``, ``dots``, ``none``), captured as CUDA graphs on static buffers
+(``training/steps.CapturedTrainStep``, the trainer's default, as the JAX
+script times the jitted step; its first, untimed step is the warm-up and
+the capture); ``--eager`` times the same step run eagerly. Timing on the
+host clock to the card's end:
 after one untimed step, loops of ``--L1`` and ``--L2`` steps, each the best
 of ``--repeats``, and the slope ``(best L2 - best L1) / (L2 - L1)`` per
-step, as the JAX script takes it. FLOPs of one step by
+step, as the JAX script takes it. FLOPs of one eager step by
 ``FlopCounterMode`` (forward, backward and the recomputation that the
 policy adds), TFLOP/s and MFU against the card's dense bf16 peak
 (``utils/profiling.CARDS``; null for another device), and the peak of
@@ -19,7 +23,7 @@ profiles one more step and prints the per-kernel table of
 ``DIR/<policy>.json``.
 
     python scripts/profile_train_torch.py [--dataset gen1] [--size base]
-        [--policies full,dots,none] [--trace DIR] [--device cuda|cpu]
+        [--policies full,dots,none] [--trace DIR] [--eager] [--device cuda|cpu]
 
 The JAX script's flags keep their defaults; ``--pin`` (a TPU layout switch)
 has no counterpart, nor has ``sync_dispatch``; XLA's temporary-buffer size
@@ -59,6 +63,8 @@ def main(argv=None) -> None:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--top-k", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eager", action="store_true",
+                    help="time the step run eagerly instead of its captured graph")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--set", dest="overrides", action="append", metavar="KEY=VALUE")
     args = ap.parse_args(argv)
@@ -75,7 +81,11 @@ def main(argv=None) -> None:
     from sast_tpu_torch.data.synthetic import synthetic_train_batch
     from sast_tpu_torch.models.backbone import zero_states
     from sast_tpu_torch.models.detector import DTYPES
-    from sast_tpu_torch.training.steps import create_train_state, make_train_step
+    from sast_tpu_torch.training.steps import (
+        CapturedTrainStep,
+        create_train_state,
+        make_train_step,
+    )
     from train_torch import parse_overrides
 
     overrides = parse_overrides(args.overrides)
@@ -95,11 +105,11 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(base, training=dataclasses.replace(base.training,
                                                                      remat_policy=policy))
         state, model = create_train_state(cfg, seed=args.seed, device=device)
-        step = make_train_step(model, cfg)
-        lstm = zero_states(cfg.model.backbone, B, DTYPES[cfg.model.compute_dtype], device)
+        fns = {"train": make_train_step(model, cfg)}
+        step = CapturedTrainStep(fns, state, cfg, device, graph=not args.eager)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        state, lstm, m = step(state, batch, lstm)
+        m = step(batch)
         profiling.sync(device)
         best = {}
         for L in (args.L1, args.L2):
@@ -107,17 +117,18 @@ def main(argv=None) -> None:
             for _ in range(args.repeats):
                 t0 = time.perf_counter()
                 for _ in range(L):
-                    state, lstm, m = step(state, batch, lstm)
+                    m = step(batch)
                 profiling.sync(device)
                 best[L] = min(best[L], time.perf_counter() - t0)
         dt = (best[args.L2] - best[args.L1]) / (args.L2 - args.L1)
-        counter = FlopCounterMode(display=False)
+        counter = FlopCounterMode(display=False)  # a replay runs no operator: count one eagerly
+        lstm = zero_states(cfg.model.backbone, B, DTYPES[cfg.model.compute_dtype], device)
         with counter:
-            state, lstm, m = step(state, batch, lstm)
+            fns["train"](state, batch, lstm)
         flops = counter.get_total_flops()
         peak_bytes = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         row = dict(metric="train_step_policy", dataset=args.dataset, size=args.size,
-                   policy=policy, batch=B, seq=T, ms_per_step=dt * 1e3,
+                   policy=policy, batch=B, seq=T, captured=step.run.graph, ms_per_step=dt * 1e3,
                    tflop_per_step=flops / 1e12, tflops=flops / dt / 1e12,
                    mfu_pct=100 * flops / dt / 1e12 / peak if peak else None,
                    peak_gib=peak_bytes / 2 ** 30 if peak_bytes is not None else None,
@@ -127,7 +138,7 @@ def main(argv=None) -> None:
             activities = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if device.type == "cuda" else [])
             with profile(activities=activities) as prof:
-                state, lstm, m = step(state, batch, lstm)
+                m = step(batch)
                 profiling.sync(device)
             Path(args.trace).mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(Path(args.trace) / f"{policy}.json"))
@@ -138,11 +149,12 @@ def main(argv=None) -> None:
             row.update(kernel_ms=table["kernel_ms"], idle_share=1 - table["kernel_ms"] / (dt * 1e3),
                        groups=table["groups"], hand_written=table["hand_written"])
         rows.append(row)
-        del state, model, step, lstm, m
+        del state, model, step, fns, lstm, m
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    profiling.emit(f"# {args.dataset}-{args.size} train step, B={B} T={T}, slope of loops of "
-                   f"{args.L1}/{args.L2} steps, best of {args.repeats}", rows,
+    mode = "eager" if args.eager or device.type != "cuda" else "captured"
+    profiling.emit(f"# {args.dataset}-{args.size} train step ({mode}), B={B} T={T}, slope of "
+                   f"loops of {args.L1}/{args.L2} steps, best of {args.repeats}", rows,
                    ("policy", "ms_per_step", "tflop_per_step", "tflops", "peak_gib"))
 
 

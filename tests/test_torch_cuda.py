@@ -649,3 +649,190 @@ def test_captured_step_follows_the_looped_switch(dev):
         got = _graph_run(captured, frames)
     _assert_same_bits(ref, got)
     assert run.schedule is not first and run.replayed["sparse_window_block_looped"] > 0
+
+
+# The train and eval steps captured as CUDA graphs (``training/steps.
+# CapturedTrainStep`` and ``CapturedEvalStep`` through ``Trainer(graph=)``)
+# against the same bodies run eagerly, on the tiny test configuration.
+
+
+@pytest.fixture
+def deterministic(dev):
+    """cuDNN and torch in their deterministic modes: the masked path's
+    index and upsampling backwards add with atomics otherwise, and two runs
+    of one step then differ in their last bits."""
+    import torch.utils.deterministic
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    yield dev
+    torch.use_deterministic_algorithms(False)
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def _train_config(dtype="float32", **training):
+    import dataclasses
+
+    from sast_tpu_torch.config import get_test_config
+
+    cfg = get_test_config()
+    bb = cfg.model.backbone
+    bb = dataclasses.replace(bb, attention=dataclasses.replace(bb.attention, ls_init_value=0.3))
+    tr = dataclasses.replace(cfg.training, **dict(dict(ema_decay=0.9, weight_decay=0.01, seed=0,
+                                                       remat_policy="full"), **training))
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb,
+                                                              compute_dtype=dtype), training=tr)
+
+
+def _train_batches(cfg, n, seed=0):
+    """``n`` synthetic batches; lane 0 carries its state from the second
+    on, lane 1 starts a sequence every other batch."""
+    from sast_tpu_torch.data.synthetic import synthetic_train_batch
+
+    rng = np.random.RandomState(seed)
+    out = [synthetic_train_batch(cfg, rng) for _ in range(n)]
+    for i, b in enumerate(out):
+        b["is_first"] = np.array([i == 0, i % 2 == 0])
+    return out
+
+
+def _written(trainer):
+    """Everything the train step writes, on the host: parameters and
+    BatchNorm statistics, the EMA copy, the optimizer's count and moments,
+    the carried LSTM states."""
+    state = trainer.state
+    out = [t.detach().cpu() for t in state.model.state_dict().values()]
+    out += [t.cpu() for t in (state.ema_params or {}).values()]
+    out += [t.cpu() for t in state.optimizer.tensors()]
+    return out + [t.cpu() for hc in trainer._train.states for t in hc]
+
+
+def _logged(workdir):
+    """The metrics ``fit`` logged at every step, less the host's clock."""
+    import json
+    import os
+
+    rows = [json.loads(line) for line in open(os.path.join(workdir, "metrics.jsonl"))]
+    return [{k: v for k, v in r.items() if k not in ("time", "train/step_time_s")} for r in rows]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", ["sparse", "masked"])
+def test_captured_train_step_is_the_eager_step(deterministic, tmp_path, path, dtype):
+    """``fit`` over 4 steps with ``graph`` on and off from one seed (the
+    deterministic modes): every logged metric, the parameters, statistics, EMA copy, optimizer state and
+    LSTM states bit for bit; the first step is the warm-up, the other three
+    replays, which ran kernels E, G and H on the sparse path."""
+    from sast_tpu_torch.training.loop import Trainer
+
+    cfg = _train_config(dtype)
+    batches = _train_batches(cfg, 4)
+    runs = [Trainer(cfg, str(tmp_path / f"g{g}"), log_every=1, sparse_kernel_train=path == "sparse",
+                    graph=g) for g in (False, True)]
+    for trainer in runs:
+        trainer.fit(batches, max_steps=4)
+    assert _logged(tmp_path / "gFalse") == _logged(tmp_path / "gTrue")
+    for i, (a, b) in enumerate(zip(_written(runs[0]), _written(runs[1]))):
+        assert torch.equal(a, b), f"tensor {i}"
+    run = runs[1]._train.run
+    assert run.replays == 3 and not runs[0]._train.run.graph
+    if path == "sparse":
+        assert all(run.replayed[k] == 3 * run.recorded[k] > 0 for k in
+                   ("sparse_window_block", "sparse_block_mlp_bwd", "sparse_block_attn_bwd"))
+
+
+def test_captured_eval_after_captured_train_steps(deterministic, tmp_path):
+    """bf16 without an EMA copy: an eval step captured before training, then
+    two captured train steps (a replay writes the weights without moving
+    their versions; the trainer moves them), then the eval step replayed:
+    the detections and carried states of a fresh model holding the trained
+    weights, bit for bit."""
+    from sast_tpu_torch.data.batch import split_device_batch
+    from sast_tpu_torch.models.detector import YoloXDetector
+    from sast_tpu_torch.training.loop import Trainer
+    from sast_tpu_torch.training.steps import CapturedEvalStep, make_eval_step
+
+    cfg = _train_config("bfloat16", ema_decay=0.0)
+    batches = _train_batches(cfg, 3)
+    trainer = Trainer(cfg, str(tmp_path / "run"), sparse_kernel_train=True)
+    trainer.fit(batches[:1], max_steps=1)
+    batch = split_device_batch(batches[2])[0]
+    run = trainer._eval_run()
+    run(batch)
+    run(batch)  # captured, then replayed on the trained weights of step 1
+    trainer.fit(batches[1:], max_steps=3)
+    assert trainer._train.run.replays == 2
+    run.zero_states()
+    got = {k: v.cpu() for k, v in run(batch).items()}
+    assert run.run.replays == 2
+    fresh = YoloXDetector(cfg.model, sparse_kernel=True).to("cuda")
+    fresh.load_state_dict(trainer.model.state_dict())
+    ref_run = CapturedEvalStep({"eval": make_eval_step(fresh, cfg)}, fresh, cfg, "cuda",
+                               graph=False)
+    want = ref_run(batch)
+    for k in want:
+        assert torch.equal(got[k], want[k].cpu()), k
+    for a, b in zip([t for hc in run.states for t in hc], [t for hc in ref_run.states for t in hc]):
+        assert torch.equal(a, b)
+
+
+def test_choosing_trainer_validates_captured_and_refuses_captured_training(deterministic,
+                                                                           tmp_path):
+    """A gather budget of 0.5 (its layers choose on the card): a trainer
+    with ``graph`` on builds, and its eval step captures, split at each
+    choice, with the detections and carried states of the eager eval step
+    bit for bit; only its first train step refuses, by name."""
+    import dataclasses
+
+    from sast_tpu_torch.data.batch import split_device_batch
+    from sast_tpu_torch.training.loop import Trainer
+    from sast_tpu_torch.training.steps import CapturedEvalStep
+
+    cfg = _train_config()
+    bb = cfg.model.backbone
+    bb = dataclasses.replace(bb, attention=dataclasses.replace(bb.attention, gather_budget=0.5))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb))
+    batches = _train_batches(cfg, 2)
+    trainer = Trainer(cfg, str(tmp_path / "run"))
+    run = trainer._eval_run()
+    ref_run = CapturedEvalStep(trainer._fns, trainer.model, cfg, "cuda", graph=False)
+    for batch in batches:
+        batch = split_device_batch(batch)[0]
+        got, want = run(batch), ref_run(batch)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    for a, b in zip([t for hc in run.states for t in hc], [t for hc in ref_run.states for t in hc]):
+        assert torch.equal(a, b)
+    assert run.run.replays == 1
+    assert "choose" in [item[0] for item in run.run.schedule.items]
+    with pytest.raises(ValueError, match=r"gather_budget=0\.5.*item 8.*graph=False"):
+        trainer.fit(batches, max_steps=1)
+    assert trainer.state.step == 0 and trainer._train.step is None
+
+
+def test_captured_fit_resumes_bit_for_bit(deterministic, tmp_path):
+    """``fit`` over 4 steps, against ``fit`` over 2 saved at step 2 and a
+    fresh trainer resumed from that checkpoint for steps 3 and 4 (the third
+    batch starts every lane, as a resumed ``fit`` starts from zero LSTM
+    states): the same bits, every step captured but each trainer's first."""
+    from sast_tpu_torch.training.loop import Trainer
+
+    cfg = _train_config()
+    batches = _train_batches(cfg, 4)
+    batches[2]["is_first"] = np.array([True, True])
+    whole = Trainer(cfg, str(tmp_path / "whole"), sparse_kernel_train=True)
+    whole.fit(batches, max_steps=4)
+    first = Trainer(cfg, str(tmp_path / "split"), ckpt_every=2, sparse_kernel_train=True)
+    first.fit(batches[:2], max_steps=2)
+    resumed = Trainer(cfg, str(tmp_path / "split"), sparse_kernel_train=True)
+    resumed.maybe_resume(True)
+    assert resumed.state.step == 2
+    resumed.fit(batches[2:], max_steps=4)
+    assert resumed.state.step == whole.state.step == 4
+    for i, (a, b) in enumerate(zip(_written(whole), _written(resumed))):
+        assert torch.equal(a, b), f"tensor {i}"
+    assert whole._train.run.replays == 3 and resumed._train.run.replays == 1

@@ -88,3 +88,24 @@ def test_train_cli_trains_from_the_card_cache_and_traces(dataset_root, tmp_path)
     assert _traced_steps(workdir) == [2]
     assert train_torch.parse_profile_steps("5") == (5, 5)
     assert train_torch.parse_profile_steps(None) is None
+
+
+def test_kernel_table_counts_no_annotation():
+    """``utils/profiling.kernel_table`` counts the work, not the spans laid
+    over it: under a profiler ``schedule`` with a warm-up step, the one
+    active step's operators are its rows, and neither the profiler's step
+    nor a ``record_function`` range is one."""
+    from sast_tpu_torch.utils.profiling import kernel_table
+
+    a = torch.randn(64, 64)
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                schedule=schedule) as prof:
+        torch.mm(a, a)
+        prof.step()
+        with torch.profiler.record_function("a range"):
+            torch.add(a, a)
+        prof.step()
+    table = kernel_table(prof, device_type="cpu")
+    assert [r["name"] for r in table["rows"]] == ["aten::add"]
+    assert table["kernel_ms"] == table["rows"][0]["ms"]

@@ -13,7 +13,10 @@ takes card ``LOCAL_RANK`` (``nccl``; ``gloo`` with ``--device cpu``), feeds
 batch as ``train.py`` scales it: ``lr * sqrt(batch_size_train * N / 8)``.
 ``--device-cache`` keeps the train and test splits' event representations
 on the card (one process); ``--profile-steps FIRST:LAST`` records a
-``torch.profiler`` trace of those steps into ``<workdir>/trace``.
+``torch.profiler`` trace of those steps into ``<workdir>/trace``. On a
+card the train and eval steps run as captured CUDA graphs, as ``train.py``
+runs its jitted steps; ``--eager`` runs them eagerly (a gloo world, or a
+configuration whose layers choose their branch on the card, needs it).
 
 Examples:
     python train_torch.py --dataset gen1 --size base --data /data/gen1 \
@@ -91,6 +94,10 @@ def main(argv=None):
                     help="keep the train and test splits' event representations on the card "
                     "and gather clips there (one process, flip-only augmentation, the split "
                     "must fit; sast_tpu_torch/data/device_cache.py)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the train and eval steps eagerly instead of as captured CUDA "
+                    "graphs (Trainer(graph=False)); a configuration whose layers choose their "
+                    "branch on the card trains so")
     ap.add_argument("--profile-steps", metavar="FIRST:LAST", default=None,
                     help="record a torch.profiler trace of these training steps (inclusive) "
                     "into <workdir>/trace; view with TensorBoard or Perfetto")
@@ -133,7 +140,7 @@ def main(argv=None):
 
     trainer = Trainer(cfg, workdir=args.workdir, log_every=args.log_every,
                       val_every=args.val_every, sparse_kernel_train=args.sparse_kernel_train,
-                      learning_rate=lr, device=args.device, mesh=mesh)
+                      learning_rate=lr, device=args.device, mesh=mesh, graph=not args.eager)
     trainer.maybe_resume(args.resume or args.resume_only_weights,
                          weights_only=args.resume_only_weights)
     # As train.py: validation during fit streams the *test* split.
