@@ -6,9 +6,10 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
 
 1. Print the card's name and power limit; build the eight kernels (six
    libraries: kernel D runs kernel E's launches, and kernel F is the second
-   entry point of E's library) from ``sast_tpu_torch/csrc`` (one nvcc per
-   source, all started together), and log the registers and spills of
-   kernels A, B, C, E, F, G and H.
+   entry point of E's library) and the conditional-graph library
+   (``csrc/cond.cu``) from ``sast_tpu_torch/csrc`` (one nvcc per source,
+   all started together), and log the registers and spills of kernels A,
+   B, C, E, F, G and H.
 2. Hold each kernel against its plain PyTorch version on the card, TF32
    off, at the gen4-base b4 serving shapes, and time kernel, plain version,
    bound and library call; the stem kernel also at the training step's 12
@@ -94,15 +95,17 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    states bit-equal; a world of one over NCCL bit
    for bit against no process group; ``Trainer.validate`` of 2 batches over
    the two ranks equal to one process over the same frames (kernel C); ms
-   per step and all-reduce ms per step. (b) The regularizers at 0.1 on the
-   sparse-kernel config (B 12, bf16): no launch of E, G or H (the masked
-   path), the same bits twice; every rate 0 gives phase 5's first step bit
-   for bit. (c) The card-resident cache from in-memory sequences (360x640,
-   20 channels, T 5, B 4) bit-equal to the host ``DataModule`` in the
-   stream, random (weighted) and mixed modes and for evaluation; bytes
-   resident, ms per gathered batch and per host assembly plus upload. (d)
-   ``fit(profile_steps=(2, 3))`` writes a trace that holds those steps and
-   names kernel E's launches; it is removed afterwards.
+   per step and all-reduce ms per step (the ranks run beside the one
+   process's and the floor's runs, so these are readings side by side). (b)
+   The regularizers at 0.1 on the sparse-kernel config (B 12, bf16): no
+   launch of E, G or H (the masked path), the same bits twice; every rate 0
+   gives phase 5's first step bit for bit. (c) The card-resident cache from
+   in-memory sequences (360x640, 20 channels, T 5, B 4) bit-equal to the
+   host ``DataModule`` in the stream, random (weighted) and mixed modes and
+   for evaluation; bytes resident, ms per gathered batch and per host
+   assembly plus upload. (d) ``fit(profile_steps=(2, 3))`` writes a trace
+   that holds those steps and names kernel E's launches; it is removed
+   afterwards.
 8. Serve as a deployment serves, at gen4-base full width, 4 lanes,
    confidence threshold 0 and stand-in trained weights (phase 4's spread
    logits and LayerScale), 8 frames with lane 2 reset at frame 4. (a)
@@ -113,9 +116,10 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    imports ``sast_tpu_torch.export`` alone (and no model, training or data
    module) loads each artifact and runs the frames, the same bits as the
    live detector (detections, telemetry, carried states), with its launch
-   counters showing each kernel inside the artifact; export seconds,
-   artifact bytes, and ms/step of artifact and live in turns. The artifacts
-   live in a temporary directory under ``chiprun_out/``, removed afterwards.
+   counters showing each kernel inside the artifact (that process runs
+   beside phases 12c-12e, ``run_fresh``); export seconds, artifact bytes,
+   and ms/step of artifact and live in turns. The artifacts live in a
+   temporary directory under ``chiprun_out/``, removed afterwards.
    (b) ``StreamingDetector(mesh=("cuda:0", "cuda:0"), num_streams=4)``: the
    same bits as two 2-lane detectors; against one 4-lane detector, the
    largest differences and any mismatch of valid or classes; ms/step of both
@@ -142,46 +146,60 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    ``attention.pallas_density_threshold`` 0.5, whose every attention layer
    chooses its branch with a ``torch.cond`` in the exported graph (one node
    per layer). The live detector must take both branches at every layer
-   over the frames (logged per layer); a fresh process loads each artifact
-   and steps it, the same bits as the live detector, with kernel E
+   over the frames (logged per layer); a fresh process (beside phases
+   12c-12e) loads each artifact and steps it, the same bits as the live
+   detector, with kernel E
    launched inside the threshold artifact as often as the live detector
    took the kernel branch. (b) Each measuring CLI but the loader's
    (``scripts/{bench_serving,bench_sparse_layer,bench_train_sparsity,
    profile_inference,profile_train,roofline_inference,model_info}_torch.py``)
    with short arguments on the card; the rows each printed are logged.
+   (b) runs in a process of its own beside phases 12c-12e
+   (``chip_smoke.py --clis WORK OUT``): its rows, and the step times that
+   12c-12e log, are readings of runs side by side on one card.
 
 11. Serve as JAX's jitted step serves, at phase 8's configuration, weights
-   and 8 frames (lane 2 reset at frame 4). (a) On seven paths (default,
-   fusion off, sparse, looped, fused, masked, and the two that choose on
-   the card: gather 0.5 and the sparse kernel below a density threshold of
-   0.5), in fp32 (TF32 off) and bf16: the captured step (``graphs.py``)
-   against the eager step, bit for bit (slates, telemetry, carried states);
-   no parameter cast recorded into the graphs; in bf16 the profiler rows of
+   and 8 frames (lane 2 reset at frame 4). (a) On nine paths (default,
+   fusion off, sparse, looped, fused, masked, and the three that choose on
+   the card: gather 0.5, the sparse kernel below a density threshold of
+   0.5, and kernel F below it), in fp32 (TF32 off) and bf16: the captured
+   step (``graphs.py``: one graph, each choice a conditional node) against
+   the eager step, bit for bit (slates, telemetry, carried states); no
+   parameter cast recorded into the graphs. The choosing paths run over
+   phase 10a's frames: each replay one graph launch under the sync debug
+   mode "error", every choice both branches by the counters on the card,
+   the replays' launches the eager step's. In bf16 the profiler rows of
    one replay must name the hand-written kernels that the replay ran, and
    the step times eager and captured in turns, each one's card time and
    idle share, and ``process_batch`` on the host clock are logged. (b) The
    captured mesh of two replicas on the one card against the eager mesh;
-   artifacts of the default and the threshold configuration, loaded and
-   captured, against the captured live detector (the default artifact with
-   no parameter cast left in its graph), and timed in turns with it; new
-   weights loaded into a captured detector that has stepped, against a
-   fresh detector on them.
+   artifacts of the default, the gather and the threshold configuration,
+   loaded and captured, against the captured live detector (the default
+   artifact with no parameter cast left in its graph; the two choosing
+   ones one launch a replay, both branches at every choice), and timed in
+   turns with it; new weights loaded into a captured detector that has
+   stepped, against a fresh detector on them.
 
 12. Train and validate as JAX's jitted and donated steps do
    (``Trainer(graph=True)``, ``training/steps.CapturedTrainStep`` and
    ``CapturedEvalStep``), at gen4-base full width. (a) ``fit`` over 4
    steps (B 12, T 5, L 3, remat full) on the sparse-kernel path (A, E, G, H
    inside the graphs) and the masked path, in fp32 and bf16, captured
-   against eager in the deterministic modes: every logged metric,
-   parameters, BatchNorm statistics, EMA copy, optimizer count and
-   moments, LSTM states bit for bit; then in bf16 ms/step eager and
+   against eager in the deterministic modes, and on the two
+   configurations whose layers choose on the card (gather 0.5, threshold
+   0.5; batches without events between phase 5's, so that every choice
+   takes both branches; one graph launch a step, the forward's, the
+   recomputation's and the backward's choices conditional nodes): every
+   logged metric, parameters, BatchNorm statistics, EMA copy, optimizer
+   count and moments, LSTM states bit for bit; then in bf16 ms/step eager and
    captured in turns (CUDA events and the host clock), each one's card
    time (the eager step's from phase 5's profile of the same step) and
    idle share, peak memory, capture seconds; and the captured
    eval step after captured train steps against a fresh model holding
    the trained weights. (b) The eval step captured against eager on the
-   default, sparse (E), looped (F), fused (D) and fusion-off (B) paths,
-   bit for bit, ms per batch in turns. (c) Phase 6's configuration with
+   default, sparse (E), looped (F), fused (D) and fusion-off (B) paths and
+   the two choosing configurations, bit for bit, one graph launch a
+   replay, ms per batch in turns. (c) Phase 6's configuration with
    ``fit`` captured: validation every 2 steps over 4 (captured), a trace
    of steps 3-4, and a resume from the step-2 checkpoint bit-equal to the
    uninterrupted run. (d) The card cache gathering into the captured step's
@@ -206,6 +224,7 @@ Exits non-zero, printing no result, without a card or outside a checkout.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -216,6 +235,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -278,11 +298,13 @@ def fail(msg: str) -> None:
 
 
 _START = time.perf_counter()
+_LOG_PREFIX = ""  # "10b: " in the CLIs' own process
 
 
 def log(msg: str) -> None:
     """Print a line, and keep it in ``OUT_DIR / "chip_smoke_log.txt"`` after
     the seconds since the script started."""
+    msg = _LOG_PREFIX + msg
     print(msg, flush=True)
     if OUT_DIR.is_dir():
         with open(OUT_DIR / "chip_smoke_log.txt", "a") as f:
@@ -2400,8 +2422,8 @@ def _dp_rank(rank, port, out_dir, cfg, device, seed):
         device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=DP_WORLD)
+    store = dist.TCPStore("127.0.0.1", port, DP_WORLD, is_master=rank == 0)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=DP_WORLD)
     try:
         with deterministic(torch):
             res = dp_run(torch, np, cfg, device, make_mesh(device),
@@ -2413,8 +2435,24 @@ def _dp_rank(rank, port, out_dir, cfg, device, seed):
         if rank:
             res["groups"] = None
         torch.save(res, Path(out_dir) / f"rank{rank}.pt")
-    finally:
+    except BaseException:
         dist.destroy_process_group()
+        raise
+    leave_together(dist, store, DP_WORLD)
+
+
+def leave_together(dist, store, world: int) -> None:
+    """Tear a world down so that no rank leaves while another is still in
+    it: a barrier, so that no collective is in flight when a rank closes its
+    connections; then each rank destroys its process group and counts
+    itself out on the store, and rank 0, whose process serves the store,
+    keeps it until every rank has counted itself out."""
+    rank = dist.get_rank()
+    dist.barrier()
+    dist.destroy_process_group()
+    store.add("left", 1)
+    while rank == 0 and store.add("left", 0) < world:
+        time.sleep(0.01)
 
 
 def _free_port() -> int:
@@ -2466,6 +2504,12 @@ def phase_data_parallel(torch, np, card, work, warmup=False, seed=DP_DATA_SEED, 
         f"data seed {seed}")
     work = work / "data_parallel"
     work.mkdir()
+    # The world's two ranks run beside this process's own runs (the one
+    # process and the floor), which compute the same bits alone or not: the
+    # step and all-reduce times logged below are those of runs side by side.
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dp_rank, args=(_free_port(), str(work), cfg, DEVICE, seed),
+                             nprocs=DP_WORLD, join=False, start_method="spawn")
     try:
         with deterministic(torch):
             ref = dp_run(torch, np, cfg, DEVICE, None, str(work / "one"), seed=seed,
@@ -2481,9 +2525,6 @@ def phase_data_parallel(torch, np, card, work, warmup=False, seed=DP_DATA_SEED, 
             finally:
                 torch.backends.cudnn.enabled = True
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(_dp_rank, args=(_free_port(), str(work), cfg, DEVICE, seed),
-                                 nprocs=DP_WORLD, join=False, start_method="spawn")
         deadline = time.monotonic() + DP_LIMIT_S
         try:
             while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
@@ -2568,6 +2609,7 @@ def phase_data_parallel(torch, np, card, work, warmup=False, seed=DP_DATA_SEED, 
             with deterministic(torch):
                 nccl = dp_run(torch, np, cfg, DEVICE, make_mesh(card0), str(work / "nccl"),
                               seed=seed, validate=False)
+            dist.barrier()
         finally:
             dist.destroy_process_group()
         differ = [g for g, tensors in nccl["groups"].items()
@@ -2580,6 +2622,9 @@ def phase_data_parallel(torch, np, card, work, warmup=False, seed=DP_DATA_SEED, 
             f"{[round(s * 1e3, 1) for s in nccl['step_s']]} ms, all-reduce "
             f"{[round(s * 1e3, 3) for s in nccl['reduce_s']]} ms per step")
     finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
     return res | dict(rank_step_ms=step_ms, rank_all_reduce_ms=reduce_ms,
@@ -2884,6 +2929,57 @@ print(json.dumps(report))
 """
 
 
+_FRESH = []  # artifact runs in fresh processes, deferred to phase 12 (``run_fresh``)
+
+
+def run_fresh(what, work, names, check):
+    """Have a fresh process that imports ``sast_tpu_torch.export`` alone
+    (``ARTIFACT_RUNNER``) run the artifacts ``names`` exported under
+    ``work``, and ``check(report)`` its outputs: deferred to run beside
+    phases 12c-12e, whose logged step times are then readings of runs side
+    by side (``start_fresh``, ``finish_fresh``). ``work`` is removed at the end of the script."""
+    atexit.register(shutil.rmtree, work, True)
+    _FRESH.append(dict(what=what, work=work, names=names, check=check))
+
+
+def start_fresh():
+    """Start the deferred artifact processes (``run_fresh``), each its own."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for job in _FRESH:
+        job["printed"] = open(job["work"] / "runner_printed.txt", "w")
+        job["proc"] = subprocess.Popen(
+            [sys.executable, "-c", ARTIFACT_RUNNER, str(job["work"]), *job["names"]],
+            stdout=job["printed"], stderr=subprocess.STDOUT, env=env)
+        job["t0"] = time.perf_counter()
+
+
+def finish_fresh():
+    """Wait for the deferred artifact processes and check their outputs."""
+    while _FRESH:
+        job = _FRESH.pop(0)
+        try:
+            job["proc"].wait(timeout=max(600 - (time.perf_counter() - job["t0"]), 1))
+        except subprocess.TimeoutExpired:
+            job["proc"].kill()
+            job["proc"].wait()
+        job["printed"].close()
+        text = (job["work"] / "runner_printed.txt").read_text()
+        if job["proc"].returncode != 0:
+            fail(f"{job['what']}: the artifact process failed:\n{text[-3000:]}")
+        log(f"{job['what']}: a fresh process ran the {len(job['names'])} artifacts beside phases "
+            f"12c-12e ({time.perf_counter() - job['t0']:.1f} s from its start)")
+        job["check"](json.loads(text.strip().splitlines()[-1]))
+        shutil.rmtree(job["work"], ignore_errors=True)
+
+
+def stop_fresh():
+    """End any deferred artifact process still running."""
+    for job in _FRESH:
+        if job.get("proc") is not None and job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
+
+
 def export_config(cfg, backbone, attention):
     """``cfg`` with switches of ``model.backbone`` and of its attention
     replaced."""
@@ -2964,32 +3060,29 @@ def phase_export(torch, np, cfg, model, inputs, work):
         log(f"export {name}: {export_s:.1f} s, {len(blob)} bytes; the live detector after the "
             f"export is the same bits over {EXPORT_FRAMES} frames")
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", ARTIFACT_RUNNER, str(work), *EXPORT_PATHS],
-                          capture_output=True, text=True, env=env, timeout=600)
-    if proc.returncode != 0:
-        fail(f"export: the artifact process failed:\n{proc.stderr[-3000:]}")
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"export: a fresh process ran the {len(EXPORT_PATHS)} artifacts in "
-        f"{time.perf_counter() - t0:.1f} s; model modules it imported: {report['model_modules']}")
-    if report["model_modules"]:
-        fail(f"export: the artifact process imported {report['model_modules']}")
-    for name, (_, _, _, _, want) in EXPORT_PATHS.items():
-        got = torch.load(work / name / "artifact_outputs.pt", weights_only=True)
-        bad = same_bits(torch, (got["outs"], got["states"]), live_runs[name])
-        if bad:
-            fail(f"export {name}: the artifact differs from the live detector: {bad[:4]}")
-        counts, seen = report[name]["counts"], report[name]
-        short = {k: n * EXPORT_FRAMES for k, n in want.items() if counts[k] < n * EXPORT_FRAMES}
-        described = (seen["device"], seen["num_streams"], seen["max_events"])
-        if short or described != ("cuda:0", STREAMS, EVENTS_PER_FRAME):
-            fail(f"export {name}: launches inside the artifact {counts}, expected at least "
-                 f"{short}; device, lanes and event budget read from it {described}")
-        results[name]["launches_artifact"] = counts
-        log(f"export {name}: the artifact equals the live detector bit for bit over "
-            f"{EXPORT_FRAMES} frames (detections, telemetry, states); launches inside it "
-            f"{ {k: v for k, v in counts.items() if v} }")
+    def check(report):
+        """The fresh process's runs (``run_fresh``) against the live ones."""
+        if report["model_modules"]:
+            fail(f"export: the artifact process imported {report['model_modules']}")
+        for name, (_, _, _, _, want) in EXPORT_PATHS.items():
+            got = torch.load(work / name / "artifact_outputs.pt", weights_only=True)
+            bad = same_bits(torch, (got["outs"], got["states"]), live_runs[name])
+            if bad:
+                fail(f"export {name}: the artifact differs from the live detector: {bad[:4]}")
+            counts, seen = report[name]["counts"], report[name]
+            short = {k: n * EXPORT_FRAMES for k, n in want.items()
+                     if counts[k] < n * EXPORT_FRAMES}
+            described = (seen["device"], seen["num_streams"], seen["max_events"])
+            if short or described != ("cuda:0", STREAMS, EVENTS_PER_FRAME):
+                fail(f"export {name}: launches inside the artifact {counts}, expected at least "
+                     f"{short}; device, lanes and event budget read from it {described}")
+            results[name]["launches_artifact"] = counts
+            log(f"export {name}: the artifact equals the live detector bit for bit over "
+                f"{EXPORT_FRAMES} frames (detections, telemetry, states); launches inside it "
+                f"{ {k: v for k, v in counts.items() if v} }; model modules the process "
+                f"imported: {report['model_modules']}")
+
+    run_fresh("export", work, list(EXPORT_PATHS), check)
 
     # The artifact and the live step in turns (live, artifact, artifact,
     # live), CUDA events over 10 steps each, on the first frame's inputs.
@@ -3162,12 +3255,11 @@ def phase_eight(torch, np):
     cfg, model, frames, resets = deployment_setup(torch, np)
     inputs = serving_inputs(torch, np, cfg, frames, resets)
     work = Path(tempfile.mkdtemp(prefix="export_", dir=OUT_DIR))
-    try:
-        t0 = time.perf_counter()
-        exports = phase_export(torch, np, cfg, model, inputs, work)
-        log(f"phase 8a: export ok ({time.perf_counter() - t0:.1f} s)")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    atexit.register(shutil.rmtree, work, True)
+    t0 = time.perf_counter()
+    exports = phase_export(torch, np, cfg, model, inputs, work)
+    log(f"phase 8a: export ok ({time.perf_counter() - t0:.1f} s; the fresh process that runs "
+        f"the artifacts runs beside phase 12)")
     t0 = time.perf_counter()
     mesh = phase_mesh(torch, np, cfg, model, inputs)
     log(f"phase 8b: mesh ok ({time.perf_counter() - t0:.1f} s)")
@@ -3425,15 +3517,18 @@ def phase_cond_exports(torch, np, work):
         log(f"cond {name}: exported in {export_s:.1f} s, {len(blob)} bytes")
         del det, model_p
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", ARTIFACT_RUNNER, str(work), *COND_EXPORTS],
-                          capture_output=True, text=True, env=env, timeout=600)
-    if proc.returncode != 0:
-        fail(f"cond: the artifact process failed:\n{proc.stderr[-3000:]}")
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"cond: a fresh process ran the {len(COND_EXPORTS)} artifacts in "
-        f"{time.perf_counter() - t0:.1f} s")
+    def check(report):
+        """The fresh process's runs (``run_fresh``) against the live ones."""
+        check_cond_artifacts(torch, report, results, live_runs, work)
+
+    run_fresh("cond", work, list(COND_EXPORTS), check)
+    return results
+
+
+def check_cond_artifacts(torch, report, results, live_runs, work):
+    """10a's artifacts as a fresh process ran them (``report``) against the
+    live detector's runs: the same bits, one cond node per attention layer,
+    kernel E as often as the live detector took its branch."""
     for name, (_, sparse_kernel, first) in COND_EXPORTS.items():
         got = torch.load(work / name / "artifact_outputs.pt", weights_only=True)
         bad = same_bits(torch, (got["outs"], got["states"]), live_runs[name])
@@ -3456,7 +3551,6 @@ def phase_cond_exports(torch, np, work):
             f"{ {k: v for k, v in counts.items() if v} }")
     if not results["threshold_0.5"]["launches_artifact"]["sparse_window_block"]:
         fail("cond: kernel E was not launched inside the threshold artifact")
-    return results
 
 
 def phase_clis(torch, np, work):
@@ -3487,12 +3581,12 @@ def phase_clis(torch, np, work):
                 if line.startswith("{")]
         if not rows:
             fail(f"cli {run}: printed no JSON row:\n{printed.getvalue()[-2000:]}")
-        # The train CLIs time the captured step (the gather path, which
-        # chooses on the card, eagerly).
+        # The train CLIs time the captured step, the gather path's choices
+        # conditional nodes of its graph.
         if run == "profile_train" and not all(r["captured"] for r in rows):
             fail(f"cli {run}: a policy was not timed captured: {rows}")
         if run == "bench_train_sparsity" and any(
-                r["modes"][p] != "captured" for r in rows for p in ("masked", "sparse")):
+                m != "captured" for r in rows for m in r["modes"].values()):
             fail(f"cli {run}: a path was not timed captured: {[r['modes'] for r in rows]}")
         launches = {k: v for k, v in read_counters().items() if v}
         out[run] = dict(argv=argv, rows=rows, launches=launches,
@@ -3505,21 +3599,67 @@ def phase_clis(torch, np, work):
 
 
 def phase_ten(torch, np):
-    """Phase 10: (a) artifacts of the gather and the threshold configuration
-    at gen4-base, 4 lanes; (b) the measuring CLIs."""
+    """Phase 10a: artifacts of the gather and the threshold configuration at
+    gen4-base, 4 lanes. Phase 10b, the measuring CLIs, runs in a process of
+    its own beside phases 12c-12e (``start_clis``)."""
     import tempfile
 
     work = Path(tempfile.mkdtemp(prefix="phase10_", dir=OUT_DIR))
-    try:
-        t0 = time.perf_counter()
-        res = dict(cond=phase_cond_exports(torch, np, work))
-        log(f"phase 10a: gather and threshold artifacts ok ({time.perf_counter() - t0:.1f} s)")
-        t0 = time.perf_counter()
-        res["clis"] = phase_clis(torch, np, work)
-        log(f"phase 10b: measuring CLIs ok ({time.perf_counter() - t0:.1f} s)")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    atexit.register(shutil.rmtree, work, True)
+    t0 = time.perf_counter()
+    res = dict(cond=phase_cond_exports(torch, np, work))
+    log(f"phase 10a: gather and threshold artifacts ok ({time.perf_counter() - t0:.1f} s; the "
+        f"fresh process that runs them runs beside phase 12)")
     return res
+
+
+CLI_LIMIT_S = 600  # phase 10b's process, start to end
+
+
+def start_clis(work):
+    """Phase 10b (``phase_clis``) in a process of its own (``chip_smoke.py
+    --clis WORK OUT``), on the same card: started before phases 12c-12e,
+    so that its short runs overlap them. Its rows, and the step times that
+    12c-12e log, are readings of runs side by side on one card, not
+    measurements. Returns what ``finish_clis`` takes."""
+    out = work / "clis.json"
+    printed = open(work / "clis_printed.txt", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--clis", str(work),
+                             str(out)], stdout=printed, stderr=subprocess.STDOUT,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    return proc, printed, out, time.perf_counter()
+
+
+def finish_clis(started):
+    """Wait for phase 10b's process (``start_clis``); its result."""
+    proc, printed, out, t0 = started
+    try:
+        proc.wait(timeout=max(CLI_LIMIT_S - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    printed.close()
+    text = Path(printed.name).read_text()
+    if proc.returncode != 0 or not out.exists():
+        fail(f"phase 10b: the CLIs' process ended with {proc.returncode}:\n{text[-3000:]}")
+    log(f"phase 10b: measuring CLIs ok in their own process, beside phases 12c-12e "
+        f"({time.perf_counter() - t0:.1f} s from its start)")
+    return json.loads(out.read_text())
+
+
+def clis_main(work: str, out: str) -> None:
+    """``chip_smoke.py --clis WORK OUT``: phase 10b alone, its result written
+    to ``OUT`` as JSON (the kernels are built already)."""
+    global _LOG_PREFIX
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    _LOG_PREFIX = "10b: "
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = phase_clis(torch, np, Path(work))
+    Path(out).write_text(json.dumps(res))
 
 
 # ---------------------------------------------------------------------------
@@ -3538,7 +3678,13 @@ GRAPH_PATHS = {
                False, False),
     "gather_0.5": (dict(), dict(gather_budget=0.5), False, False),
     "threshold_0.5": (dict(), dict(pallas_density_threshold=0.5), True, False),
+    "looped_threshold_0.5": (dict(), dict(pallas_density_threshold=0.5), True, True),
 }
+# The paths whose layers choose their branch on the card: driven over phase
+# 10a's frames (empty and uniform scenes between phase 8's), on which every
+# choosing layer takes both branches, each replay under the sync debug mode
+# "error" (a host read raises) and one launch of one graph.
+CHOOSING_PATHS = ("gather_0.5", "threshold_0.5", "looped_threshold_0.5")
 # The hand-written kernels (``utils/profiling.HAND_WRITTEN`` labels) that one
 # replay must name, by the launch counter that says the path runs them.
 GRAPH_KERNEL_LABELS = {"stem_conv7x4": "A stem_conv", "density_ratio": "B density",
@@ -3561,6 +3707,73 @@ def executed_launches(counts, dets):
             for k, v in step.run.replayed.items():
                 out[k] += v
     return out
+
+
+def choosing_run(torch, det, inputs, quiet):
+    """``run_steps`` with the launches the wrappers counted over the frames
+    after the first (the captured detector's warm-up and capture) returned
+    too; with ``quiet`` those frames run under the sync debug mode "error",
+    so that a replay that read the host would raise."""
+    det.reset()
+    outs = [det.step(*inputs[0])]
+    torch.cuda.synchronize()
+    reset_counters()
+    if quiet:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs += [det.step(*frame) for frame in inputs[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = read_counters()
+    states = det.states if getattr(det, "mesh", None) is None else [
+        hc for replica in det.states for hc in replica]
+    return ([({k: v.cpu() for k, v in d.items()}, p.cpu()) for d, p in outs],
+            [t.cpu() for hc in states for t in hc]), counts
+
+
+@contextlib.contextmanager
+def graph_launches():
+    """Count, while active, the calls of the conditional-graph library's
+    launch entry (``csrc/cond.cu`` ``sast_cond_launch``, one
+    ``cudaGraphLaunch`` each): the counter's ``n``."""
+    from sast_tpu_torch import graphs
+
+    real = graphs._cond_library
+    counter = types.SimpleNamespace(n=0)
+
+    class Counting:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self.lib, name)
+
+        def sast_cond_launch(self, *args):
+            counter.n += 1
+            return self.lib.sast_cond_launch(*args)
+
+    graphs._cond_library = lambda device: Counting(real(device))
+    try:
+        yield counter
+    finally:
+        graphs._cond_library = real
+
+
+def one_launch_check(run, replays, launches, what, choosing=True):
+    """Fail unless the ``graphs.Captured`` ``run`` replayed ``replays``
+    times in ``launches`` graph launches (``graph_launches``), and, where
+    ``choosing``, every choice of its graph took both branches by the
+    counters on the card; returns the choices' counts."""
+    schedule = run.schedule
+    taken = schedule.taken.cpu().tolist() if schedule is not None else []
+    choices = sum(item[0] == "choose" for item in schedule.items) if schedule else 0
+    one_way = [i for i, (a, b) in enumerate(taken[:choices]) if not (a and b)]
+    if schedule is None or run.replays != replays or launches != replays \
+            or (choosing and (not choices or one_way)):
+        fail(f"{what}: {run.replays} replays in {launches} graph launches, {choices} choices; "
+             f"choices that took one branch only: {one_way[:8]} (counts {taken[:8]})")
+    return taken[:choices]
 
 
 def param_cast_counter(torch, params):
@@ -3602,15 +3815,19 @@ def graph_detectors(torch, cfg, model, name, dtype, graphs=(True,)):
             for graph in graphs]
 
 
-def phase_graph_paths(torch, np, cfg, model, frames, inputs):
+def phase_graph_paths(torch, np, cfg, model, frames, inputs, cond_inputs):
     """11a: per path of ``GRAPH_PATHS``, in fp32 (TF32 off) and bf16, the
     captured step against the eager step over the 8 frames: the same bits
-    (slates, telemetry, carried states). In bf16 also: the launches the
-    card ran (the wrappers' counts less those recorded at capture, plus the
-    replays'), the parameter casts recorded into the graphs, the
-    hand-written kernels that one replay's profiler rows name, the step
-    times eager and captured in turns (CUDA events), each one's card time
-    and idle share, and ``process_batch`` on the host clock."""
+    (slates, telemetry, carried states). The choosing paths
+    (``CHOOSING_PATHS``) run over ``cond_inputs``; each of their replays is
+    one graph launch under the sync debug mode "error", every choice took
+    both branches by the counters on the card, and the launches the replays
+    ran equal the eager step's over the same frames. In bf16 also: the
+    launches the card ran (the wrappers' counts less those recorded at
+    capture, plus the replays'), the parameter casts recorded into the
+    graphs, the hand-written kernels that one replay's profiler rows name,
+    the step times eager and captured in turns (CUDA events), each one's
+    card time and idle share, and ``process_batch`` on the host clock."""
     from torch.profiler import ProfilerActivity, profile
 
     from sast_tpu_torch import graphs
@@ -3623,6 +3840,8 @@ def phase_graph_paths(torch, np, cfg, model, frames, inputs):
     capture = graphs.Schedule.capture
     for name, (_, _, _, looped) in GRAPH_PATHS.items():
         res = out[name] = {}
+        choosing = name in CHOOSING_PATHS
+        path_inputs = cond_inputs if choosing else inputs
         for dtype in ("float32", "bfloat16"):
             eager, captured = graph_detectors(torch, cfg, model, name, dtype, (False, True))
             mode = param_cast_counter(torch, list(captured.model.parameters()))
@@ -3634,9 +3853,16 @@ def phase_graph_paths(torch, np, cfg, model, frames, inputs):
             graphs.Schedule.capture = counting
             try:
                 with looped_kernel(looped):
-                    run_e = run_steps(torch, eager, inputs)
-                    reset_counters()
-                    run_c = run_steps(torch, captured, inputs)
+                    if choosing:
+                        run_e, counts_e = choosing_run(torch, eager, path_inputs, quiet=False)
+                        counts_e = {k: v for k, v in counts_e.items() if v}
+                        reset_counters()
+                        with graph_launches() as launched:
+                            run_c, _ = choosing_run(torch, captured, path_inputs, quiet=True)
+                    else:
+                        run_e = run_steps(torch, eager, path_inputs)
+                        reset_counters()
+                        run_c = run_steps(torch, captured, path_inputs)
                     counts = read_counters()
             finally:
                 graphs.Schedule.capture = capture
@@ -3647,12 +3873,24 @@ def phase_graph_paths(torch, np, cfg, model, frames, inputs):
             launches = executed_launches(counts, [captured])
             step = captured.steps[0].run
             res[dtype] = dict(launches={k: v for k, v in launches.items() if v},
-                              recorded=dict(step.recorded), replayed=dict(step.replayed),
+                              recorded=dict(step.recorded), replayed=dict(+step.replayed),
                               replays=step.replays,
                               graphs=len(step.schedule.items) if step.schedule else 0,
                               param_casts=mode.n)
             if mode.n:
                 fail(f"graph {name} {dtype}: {mode.n} parameter casts recorded into the graphs")
+            if choosing:
+                taken = one_launch_check(step, len(path_inputs) - 1, launched.n,
+                                         f"graph {name} {dtype}")
+                if res[dtype]["replayed"] != counts_e:
+                    fail(f"graph {name} {dtype}: the replays ran {res[dtype]['replayed']}, the "
+                         f"eager step over the same frames {counts_e}")
+                res[dtype].update(taken=taken, eager_launches=counts_e)
+                log(f"graph {name} {dtype}: {len(path_inputs) - 1} replays, one launch each, "
+                    f"no host read (sync debug mode error); {len(taken)} choices, each an IF "
+                    f"node with an else body, each took both branches (first / second counts "
+                    f"on the card {taken}); the replays ran the eager step's launches "
+                    f"{counts_e}")
             if dtype == "float32":
                 del eager, captured
                 torch.cuda.empty_cache()
@@ -3722,13 +3960,15 @@ def phase_graph_paths(torch, np, cfg, model, frames, inputs):
     return out
 
 
-def phase_graph_deployment(torch, np, cfg, model, inputs):
+def phase_graph_deployment(torch, np, cfg, model, inputs, cond_inputs):
     """11b: the captured mesh of two replicas on the one card against its
-    eager mesh; a loaded artifact (default path, and the threshold
-    configuration whose layers choose on the card), captured, against the
-    captured live detector, and the parameter casts left in its graph; new
-    weights loaded into a captured detector that has stepped, against a
-    fresh detector on those weights."""
+    eager mesh; a loaded artifact (default path, and the gather and
+    threshold configurations whose layers choose on the card, over
+    ``cond_inputs``: each replay one graph launch, every choice both
+    branches), captured, against the captured live detector, and the
+    parameter casts left in its graph; new weights loaded into a captured
+    detector that has stepped, against a fresh detector on those
+    weights."""
     from sast_tpu_torch import export
     from sast_tpu_torch.models.detector import build_detector
     from sast_tpu_torch.serving import StreamingDetector
@@ -3746,9 +3986,12 @@ def phase_graph_deployment(torch, np, cfg, model, inputs):
     res["mesh_replays"] = [s.run.replays for s in meshes[True].steps]
     log(f"graph mesh {MESH}: captured = eager bit for bit over {len(inputs)} frames")
     del meshes
-    for name in ("default", "threshold_0.5"):
+    for name in ("default", "gather_0.5", "threshold_0.5"):
+        choosing = name in CHOOSING_PATHS
+        name_inputs = cond_inputs if choosing else inputs
         (live,) = graph_detectors(torch, cfg, model, name, "bfloat16")
-        live_run = run_steps(torch, live, inputs)
+        with graph_launches() as live_launched:
+            live_run = run_steps(torch, live, name_inputs)
         # The artifact of this configuration that phase 8a or 10a exported
         # from the same weights (exported here where those did not run).
         blob, export_s = _MADE.get(f"artifact_{name}"), None
@@ -3758,11 +4001,17 @@ def phase_graph_deployment(torch, np, cfg, model, inputs):
             export_s = time.perf_counter() - t0
         art = export.ExportedStreamingDetector(blob)
         casts = export.parameter_casts(art.program)
-        art_run = run_steps(torch, art, inputs)
+        with graph_launches() as art_launched:
+            art_run = run_steps(torch, art, name_inputs)
         bad = same_bits(torch, live_run, art_run)
         if bad:
             fail(f"graph artifact {name}: the captured artifact differs from the captured live "
                  f"detector: {bad[:6]}")
+        if choosing:
+            for what, run, launched in (("live", live.steps[0].run, live_launched),
+                                        ("artifact", art._step.run, art_launched)):
+                one_launch_check(run, len(name_inputs) - 1, launched.n,
+                                 f"graph artifact {name} {what}")
         if name == "default" and casts:
             fail(f"graph artifact {name}: {casts} parameter casts left in the graph")
         pk, nk, _ = inputs[0]
@@ -3801,11 +4050,12 @@ def phase_eleven(torch, np):
     lanes, phase 8's weights and frames."""
     cfg, model, frames, resets = deployment_setup(torch, np)
     inputs = serving_inputs(torch, np, cfg, frames, resets)
+    cond_inputs = serving_inputs(torch, np, cfg, cond_frames(np, cfg, frames), resets)
     t0 = time.perf_counter()
-    res = dict(paths=phase_graph_paths(torch, np, cfg, model, frames, inputs))
+    res = dict(paths=phase_graph_paths(torch, np, cfg, model, frames, inputs, cond_inputs))
     log(f"phase 11a: captured paths ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    res["deployment"] = phase_graph_deployment(torch, np, cfg, model, inputs)
+    res["deployment"] = phase_graph_deployment(torch, np, cfg, model, inputs, cond_inputs)
     log(f"phase 11b: captured mesh, artifacts and new weights ok "
         f"({time.perf_counter() - t0:.1f} s)")
     return res
@@ -3819,7 +4069,9 @@ GRAPH_TURN_STEPS = 3  # train steps per timing turn (12a), E C C E
 # path -> (sparse_kernel_eval, kernel F, attention switches, backbone switches)
 EVAL_GRAPH_PATHS = {"default": (False, False, {}, {}), "sparse": (True, False, {}, {}),
                     "looped": (True, True, {}, {}), "fused": (False, False, {"fused_block": True}, {}),
-                    "fusion_off": (False, False, {}, {"fuse_stem_density": False})}
+                    "fusion_off": (False, False, {}, {"fuse_stem_density": False}),
+                    "gather_0.5": (False, False, {"gather_budget": 0.5}, {}),
+                    "threshold_0.5": (True, False, {"pallas_density_threshold": 0.5}, {})}
 EVAL_GRAPH_BATCHES = 3
 CACHE_GRAPH_STEPS = 3
 REGULARIZED_GRAPH_STEPS = 3
@@ -3932,12 +4184,32 @@ def graph_train_batches(torch, np, cfg):
     return out
 
 
+# name -> sparse_kernel, attention switches: the paths of 12a; the last two
+# choose their branch on the card, forward and backward.
+TRAIN_GRAPH_PATHS = (("sparse", True, {}), ("masked", False, {}),
+                     ("gather_0.5", False, {"gather_budget": 0.5}),
+                     ("threshold_0.5", True, {"pallas_density_threshold": 0.5}))
+
+
+def choosing_train_batches(np, batches):
+    """The batches of a choosing configuration's 12a run: phase 5's first
+    two, each after a copy of it without events (few windows kept: every
+    choice's first branch), so that the three replays take the second
+    branch, the first and the second again at every choice."""
+    first, second = batches[0], batches[1]
+    return [dict(first, ev_repr=np.zeros_like(first["ev_repr"])), first,
+            dict(second, ev_repr=np.zeros_like(second["ev_repr"])), second]
+
+
 def phase_graph_train(torch, np, card, work, batches, eager_card=None):
     """12a: ``fit`` over 4 steps at gen4-base (B 12, T 5, L 3, remat full) on
-    the sparse-kernel path (A, E, G, H) and the masked path, in fp32 and
-    bf16, captured (``graph=True``) against eager, from one seed and the
-    same batches, cuDNN and torch in their deterministic modes: every
-    logged metric and all that the step writes (parameters, BatchNorm
+    the sparse-kernel path (A, E, G, H), the masked path and the two
+    configurations whose layers choose on the card (``TRAIN_GRAPH_PATHS``;
+    their batches from ``choosing_train_batches``, each replay one graph
+    launch, every choice both branches by the counters on the card), in
+    fp32 and bf16, captured (``graph=True``) against eager, from one seed
+    and the same batches, cuDNN and torch in their deterministic modes:
+    every logged metric and all that the step writes (parameters, BatchNorm
     statistics, EMA copy, optimizer count and moments, LSTM states) bit for
     bit. Then, bf16, in the default modes: a fresh eager and a fresh
     captured trainer's first step (capture seconds, peak memory), ms/step in
@@ -3949,6 +4221,7 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
     the weights without moving their versions)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from sast_tpu_torch import graphs
     from sast_tpu_torch.config import get_config
     from sast_tpu_torch.data.batch import split_device_batch, to_device
     from sast_tpu_torch.models.detector import YoloXDetector
@@ -3956,9 +4229,11 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
     from sast_tpu_torch.training.steps import CapturedEvalStep, make_eval_step
     from sast_tpu_torch.utils.profiling import kernel_table
 
-    base = get_config("gen4", "base")
     res, launches = {}, {}
-    for name, sparse in (("sparse", True), ("masked", False)):
+    for name, sparse, attention in TRAIN_GRAPH_PATHS:
+        base = export_config(get_config("gen4", "base"), {}, attention)
+        choosing = bool(attention)
+        path_batches = choosing_train_batches(np, batches) if choosing else batches
         for dtype in ("float32", "bfloat16"):
             cfg = dataclasses.replace(base, model=dataclasses.replace(base.model,
                                                                       compute_dtype=dtype))
@@ -3966,21 +4241,24 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
                               device=DEVICE)
             twin = eager_twin(torch, trainer)
             with deterministic(torch):
-                rows_e = step_metrics(twin, batches)
+                rows_e = step_metrics(twin, path_batches)
                 state_e = written_state(torch, twin)
                 del twin
                 torch.cuda.empty_cache()
                 reset_counters()
-                rows_c = step_metrics(trainer._train, batches)
+                with graph_launches() as launched:
+                    rows_c = step_metrics(trainer._train, path_batches)
             torch.cuda.synchronize()
             counts = read_counters()
             state_c = written_state(torch, trainer._train)
             run = trainer._train.run
             if run.replays != TRAIN_GRAPH_STEPS - 1:
                 fail(f"graph train {name} {dtype}: {run.replays} replays")
+            taken = one_launch_check(run, TRAIN_GRAPH_STEPS - 1, launched.n,
+                                     f"graph train {name} {dtype}", choosing)
             for k, v in captured_launches(counts, [run]).items():
                 launches[k] = launches.get(k, 0) + v
-            replayed = dict(run.replayed)
+            replayed = dict(+run.replayed)
             del trainer, run
             torch.cuda.empty_cache()
             bad = [i for i, (a, b) in enumerate(zip(state_e, state_c)) if not torch.equal(a, b)]
@@ -3993,10 +4271,17 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
                                    "sparse_block_attn_bwd")):
                 fail(f"graph train {name} {dtype}: the replays ran {replayed}")
             res[f"{name}_{dtype}"] = dict(losses=[r["loss"] for r in rows_c],
-                                          replayed=replayed, tensors=len(state_c))
+                                          replayed=replayed, tensors=len(state_c),
+                                          graph_launches=launched.n)
+            if choosing:
+                res[f"{name}_{dtype}"].update(choices=len(taken),
+                                              first_taken=sum(t[0] for t in taken),
+                                              second_taken=sum(t[1] for t in taken))
             log(f"graph train {name} {dtype}: captured = eager bit for bit over "
                 f"{TRAIN_GRAPH_STEPS} steps ({len(state_c)} tensors, every metric; losses "
-                f"{[round(r['loss'], 5) for r in rows_c]}); the replays ran {replayed}")
+                f"{[round(r['loss'], 5) for r in rows_c]}); the replays ran {replayed}"
+                + (f"; one launch a replay, {len(taken)} choices (forward, recomputation and "
+                   f"backward), each both branches on the card" if choosing else ""))
             del state_e, state_c
             torch.cuda.empty_cache()
 
@@ -4021,13 +4306,15 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
             torch.cuda.synchronize()
             peak[graph] = dict(allocated=torch.cuda.max_memory_allocated() - before,
                                reserved=torch.cuda.max_memory_reserved(), first_step_s=first_s)
+        # E C C E; the choosing configurations, whose eager step reads the
+        # host at every choice, one turn each (E C).
         turns = {False: [], True: []}
-        for graph in (False, True, True, False):
+        for graph in (False, True) if choosing else (False, True, True, False):
             turns[graph].append(step_times(torch, lambda r=steps[graph]: r(dev_batch),
                                            GRAPH_TURN_STEPS))
         busy = {}
         for graph in (False, True):
-            if not graph and eager_card:
+            if not graph and eager_card and name in eager_card:
                 busy[graph] = dict(kernel_ms=eager_card[name]["card_ms"],
                                    hand_written=eager_card[name]["hand_written_kernels_ms"])
                 continue
@@ -4053,7 +4340,7 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
             f"{[round(t[0], 3) for t in turns[False]]} (host {[round(t[1], 3) for t in turns[False]]})"
             f", captured {[round(t[0], 3) for t in turns[True]]} (host "
             f"{[round(t[1], 3) for t in turns[True]]}); card ms eager "
-            f"{busy[False]['kernel_ms']:.3f}{' (phase 5)' if eager_card else ''} / captured "
+            f"{busy[False]['kernel_ms']:.3f}{' (phase 5)' if eager_card and name in eager_card else ''} / captured "
             f"{busy[True]['kernel_ms']:.3f}, idle share "
             f"{timing['eager']['idle_share']:.3f} / {timing['captured']['idle_share']:.3f}; peak "
             f"allocated above the first step's start, GiB {timing['eager']['peak_allocated_gib']:.3f} / "
@@ -4097,10 +4384,11 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
 
 def phase_graph_eval(torch, np, card, batches):
     """12b: the eval step at gen4-base (B 12, T 5, L 3, bf16) on the default,
-    sparse, looped and fused paths and with the stem's density fusion off
-    (kernel B), captured against eager over 3 batches
-    with the LSTM states carried: detections and states bit for bit; ms per
-    batch in turns E C C E (CUDA events)."""
+    sparse, looped and fused paths, with the stem's density fusion off
+    (kernel B) and on the two configurations whose layers choose on the
+    card, captured against eager over 3 batches with the LSTM states
+    carried: detections and states bit for bit, each replay one graph
+    launch; ms per batch in turns E C C E (CUDA events)."""
     from sast_tpu_torch.config import get_config
     from sast_tpu_torch.data.batch import split_device_batch
     from sast_tpu_torch.models.detector import YoloXDetector, build_detector
@@ -4121,7 +4409,8 @@ def phase_graph_eval(torch, np, card, batches):
             outs = {}
             for graph, run in runs.items():
                 reset_counters()
-                outs[graph] = [{k: v.clone() for k, v in run(b).items()} for b in batches]
+                with graph_launches() as launched:
+                    outs[graph] = [{k: v.clone() for k, v in run(b).items()} for b in batches]
                 counts = read_counters()
                 outs[graph].append([t.clone() for hc in run.states for t in hc])
             bad = [i for i, (a, b) in enumerate(zip(outs[False], outs[True]))
@@ -4129,6 +4418,8 @@ def phase_graph_eval(torch, np, card, batches):
                               (zip(a, b) if isinstance(a, list) else ((a[k], b[k]) for k in a)))]
             if bad:
                 fail(f"graph eval {name}: captured differs from eager at {bad}")
+            one_launch_check(runs[True].run, len(batches) - 1, launched.n, f"graph eval {name}",
+                             choosing=False)
             for k, v in captured_launches(counts, [runs[True].run]).items():
                 launches[k] = launches.get(k, 0) + v
             turns = {False: [], True: []}
@@ -4333,6 +4624,7 @@ def phase_graph_world(torch, np, card, work):
         same, bad, rows, replays = captured_against_eager(trainer, dp_batches(np, cfg), mesh)
         del trainer
         torch.cuda.empty_cache()
+        dist.barrier()
     finally:
         dist.destroy_process_group()
     if not same or replays != DP_STEPS - 1:
@@ -4349,13 +4641,14 @@ def phase_twelve(torch, np, card, eager_card=None):
     its scratch directory under ``OUT_DIR`` removed at the end.
     ``eager_card``: phase 5's card time of the eager B 12 step by path
     (``card_ms``, ``hand_written_kernels_ms``), which 12a then does not
-    profile again."""
+    profile again. Phase 10b runs in its own process beside 12c-12e; its
+    result is ``out["clis"]``."""
     import tempfile
 
     from sast_tpu_torch.config import get_config
 
     work = Path(tempfile.mkdtemp(prefix="phase12_", dir=OUT_DIR))
-    out = {}
+    out, clis = {}, None
     t0 = time.perf_counter()
     batches = graph_train_batches(torch, np, get_config("gen4", "base"))
     log(f"phase 12: {len(batches)} train batches made in {time.perf_counter() - t0:.1f} s")
@@ -4365,11 +4658,20 @@ def phase_twelve(torch, np, card, eager_card=None):
                                ("fit", phase_graph_fit, (work,)),
                                ("cache", phase_graph_cache, (work,)),
                                ("world", phase_graph_world, (work,))):
+            if name == "fit":
+                clis = start_clis(work)
+                start_fresh()
             t0 = time.perf_counter()
             out[name] = fn(torch, np, card, *args)
             out[name]["seconds"] = time.perf_counter() - t0
             log(f"phase 12 {name}: ok ({out[name]['seconds']:.1f} s)")
+        out["clis"], clis = finish_clis(clis), None
+        finish_fresh()
     finally:
+        stop_fresh()
+        if clis is not None and clis[0].poll() is None:
+            clis[0].kill()
+            clis[0].wait()
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
     return out
@@ -4471,16 +4773,6 @@ def main() -> None:
 
     t0 = time.perf_counter()
     eight = phase_eight(torch, np)
-    # Launches on this slice's path: inside the loaded artifacts, counted
-    # from 0 per artifact over its frames, summed over the four artifacts.
-    for k in kernels:
-        n = sum(e["launches_artifact"].get(k["name"], 0) for e in eight["exports"].values())
-        if n:
-            k["launches_artifact"] = n
-    for name in ("stem_conv7x4", "density_ratio", "greedy_keep", "fused_window_block",
-                 "sparse_window_block", "sparse_window_block_looped"):
-        if not any(k["name"] == name and k.get("launches_artifact") for k in kernels):
-            fail(f"kernel {name} was not launched from inside an artifact")
     eight["seconds"] = time.perf_counter() - t0
     log(f"phase 8: export and serving lanes ok ({eight['seconds']:.1f} s)")
 
@@ -4501,18 +4793,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     ten = phase_ten(torch, np)
-    # Launches on this slice's path: inside the two artifacts whose layers
-    # choose on the card (each counted from 0 over its frames), and in the
-    # CLIs' runs (each counted from 0), summed.
-    for k in kernels:
-        n = sum(c["launches_artifact"].get(k["name"], 0) for c in ten["cond"].values())
-        if n:
-            k["launches_cond_artifact"] = n
-        n = sum(c["launches"].get(k["name"], 0) for c in ten["clis"].values())
-        if n:
-            k["launches_cli"] = n
     ten["seconds"] = time.perf_counter() - t0
-    log(f"phase 10: cond artifacts and measuring CLIs ok ({ten['seconds']:.1f} s)")
+    log(f"phase 10: cond artifacts ok ({ten['seconds']:.1f} s; the CLIs run beside phase 12)")
 
     t0 = time.perf_counter()
     eleven = phase_eleven(torch, np)
@@ -4544,7 +4826,26 @@ def main() -> None:
             fail(f"kernel {k['name']} was not launched by a captured train or eval step")
         k["launches_captured_train"] = n
     twelve["seconds"] = time.perf_counter() - t0
-    log(f"phase 12: captured train and eval steps ok ({twelve['seconds']:.1f} s)")
+    ten["clis"] = twelve.pop("clis")
+    # Launches inside the loaded artifacts of phases 8a (the four, each
+    # counted from 0 over its frames) and 10a (the two whose layers choose
+    # on the card), which fresh processes ran beside phase 12, and in the
+    # CLIs' runs (each counted from 0), summed.
+    for k in kernels:
+        for key, runs in (("launches_artifact", eight["exports"].values()),
+                          ("launches_cond_artifact", ten["cond"].values())):
+            n = sum(e["launches_artifact"].get(k["name"], 0) for e in runs)
+            if n:
+                k[key] = n
+        n = sum(c["launches"].get(k["name"], 0) for c in ten["clis"].values())
+        if n:
+            k["launches_cli"] = n
+    for name in ("stem_conv7x4", "density_ratio", "greedy_keep", "fused_window_block",
+                 "sparse_window_block", "sparse_window_block_looped"):
+        if not any(k["name"] == name and k.get("launches_artifact") for k in kernels):
+            fail(f"kernel {name} was not launched from inside an artifact")
+    log(f"phase 12: captured train and eval steps ok, and phase 10b beside it "
+        f"({twelve['seconds']:.1f} s)")
 
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
                   training=training, fit_validate=fit_validate, phase7=seven, phase8=eight,
@@ -4576,4 +4877,7 @@ def print_result(kernels, smi: str, kind: str, count: int) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--clis"]:
+        clis_main(*sys.argv[2:4])
+    else:
+        main()

@@ -41,6 +41,7 @@ KERNELS: Dict[str, tuple] = {
     "sparse_fwd": (),
     "mlp_bwd": (),
     "attn_bwd": (),
+    "cond": (),
 }
 
 

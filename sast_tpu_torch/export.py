@@ -144,7 +144,8 @@ def parameter_casts(program) -> int:
 class _CondInterpreter(torch.fx.Interpreter):
     """Runs a loaded program's graph node by node, each cond node through
     ``graphs.choose``: eagerly one host read of its predicate, and in a
-    captured step a choice between its two branches captured as graphs."""
+    captured step a conditional node over its two branches captured as
+    graphs, which takes the branch on the card."""
 
     def call_function(self, target, args, kwargs):
         if target is torch.ops.higher_order.cond:
@@ -166,7 +167,8 @@ class ExportedStreamingDetector:
     (``graphs.CapturedStep``; JAX jits the loaded artifact's call,
     sast_tpu/export.py:125). A program whose layers choose their branch on
     the card runs through an interpreter that hands each cond node to
-    ``graphs.choose``, captured in segments as the live detector is.
+    ``graphs.choose``, captured as one graph with conditional nodes as the
+    live detector is.
     ``graph=False`` runs the program eagerly."""
 
     def __init__(self, blob_or_path: Union[bytes, str], graph: bool = True):

@@ -11,21 +11,23 @@ body that reads and writes static buffers:
   ``Schedule``; later calls replay it. The body writes the carried state
   back into its buffers (``copy_``), which is what donation gives JAX. With
   ``graph`` off, or on the CPU, the same body runs eagerly every time.
-- ``Schedule``: the graphs of one capture, sharing one memory pool, replayed
-  in the order they were captured. A body without a data-dependent choice
-  is one graph. At each choice (``choose``) the running graph ends, each
-  branch is captured as a graph of its own writing into one output, and the
-  next graph begins; a replay reads that choice's 0-d predicate on the host
-  once and replays the branch it names: the eager step's host reads, one
-  per choosing layer, with no dispatch between them. (CUDA's conditional
-  graph nodes would take the branch on the card; the torch of this port
-  has no API for them.)
+- ``Schedule``: the graphs of one capture, sharing one memory pool. A body
+  without a data-dependent choice is one graph. At each choice (``choose``)
+  the running graph ends, each branch is captured as a graph of its own
+  writing into one output, and the next graph begins. At the end of the
+  capture the schedule assembles its graphs into one parent graph, in
+  capture order, where each choice is a kernel node that reads the 0-d
+  predicate on the card and a conditional node over the two branches
+  (``csrc/cond.cu``): a replay is one launch of that graph, and no
+  predicate crosses to the host (JAX's ``lax.cond`` inside one compiled
+  program). A node that the CUDA driver refuses makes the capture raise.
 - ``choose``: JAX's ``lax.cond`` for eager code: one host read of the
-  predicate, both branches during a warm-up, the schedule's branch graphs
-  during a capture.
-- ``run_together``: the replicas of a mesh, called together; their replays
-  are interleaved so that every card's graphs up to a choice are enqueued
-  before any card's predicate is read.
+  predicate, both branches during a warm-up, a choice of the schedule
+  during a capture. The schedule being captured is visible to every
+  thread, so that the backward of a captured train step, which autograd
+  runs on its own thread for a card, chooses inside the capture as well.
+- ``run_together``: the replicas of a mesh, called together: each replay is
+  one launch on its own card, all enqueued before any output is returned.
 - ``CapturedStep``: a step on its static inputs and carried state through
   ``Captured``: the serving step (``serving_step``; the live detector,
   ``serving.py``, and the loaded artifact, ``export.py``) and the train and
@@ -38,14 +40,20 @@ body that reads and writes static buffers:
   ``training/steps.py`` read them.
 - Launch counts: the kernels' wrappers count what they enqueue, and a
   replay runs no Python. Each graph keeps the counts recorded while it was
-  captured; ``Captured.recorded`` sums them over its captures and
-  ``Captured.replayed`` over the graphs it replayed, so the launches a card
-  ran are the wrappers' counts less ``recorded`` plus ``replayed``.
+  captured; ``Captured.recorded`` sums them over its captures.
+  ``Captured.replayed`` sums each segment's counts times the replays, and
+  each branch's counts times the times the card took it, which the
+  choice's kernel node counts on the card (read when ``replayed`` is asked
+  for, not at a replay); so the launches a card ran are the wrappers'
+  counts less ``recorded`` plus ``replayed``.
 
 Captured graphs read the tensors they were captured with: the weights in
 place (``models/layers.cached_copy`` rewrites the compute-dtype copies in
-place), and every tensor that crosses from one graph to the next is held by
-the schedule for as long as its graphs live. ``Captured`` watches the
+place), and the tensors that cross from one graph of a schedule to the next,
+which their Python holders keep while a later graph is captured that reads
+them. A block of the pool freed after its last reader's capture goes to a
+later graph, which replays after that reader: the graphs share one pool and
+replay in capture order. ``Captured`` watches the
 storage and version of the weights it was given, and the storage of the
 other state it is told of (an optimizer's moments, an EMA copy): a version
 change refreshes the copies before the next replay, a moved storage
@@ -59,8 +67,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import gc
-import threading
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,7 +79,14 @@ import torch.utils._pytree as pytree
 
 from sast_tpu_torch.packing import pack_event_batch
 
-_active = threading.local()
+class _Active:
+    """The schedule that ``choose`` consults: one per process, not per
+    thread (module docstring)."""
+
+    schedule: Optional["Schedule"] = None
+
+
+_active = _Active()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -89,36 +105,113 @@ def _since(before: Dict[str, int]) -> collections.Counter:
     return collections.Counter({k: now[k] - before[k] for k in now if now[k] != before[k]})
 
 
-def choose(pred: torch.Tensor, true_fn: Callable, false_fn: Callable, operands: Tuple):
+def choose(pred: torch.Tensor, true_fn: Callable, false_fn: Callable, operands: Tuple,
+           label: str = "a choice"):
     """``lax.cond(pred, true_fn, false_fn, *operands)`` outside a trace:
     eagerly one host read of the 0-d ``pred``; inside a ``Captured``
     warm-up both branches (the chosen result returned); inside its capture
-    a choice of the schedule. Each branch returns new tensors of one
-    structure, shapes and dtypes, and writes none of its operands."""
-    schedule = getattr(_active, "schedule", None)
+    a choice of the schedule, taken on the card at replay. Each branch
+    returns new tensors of one structure, shapes and dtypes, and writes none
+    of its operands. ``label`` names the choice's configuration in the
+    errors of a capture."""
+    schedule = _active.schedule
     if schedule is None:
         return true_fn(*operands) if bool(pred) else false_fn(*operands)
-    return schedule.choose(pred, true_fn, false_fn, operands)
+    return schedule.choose(pred, true_fn, false_fn, operands, label)
+
+
+# cudaGraphNodeType, by value (driver_types.h)
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "child graph", "empty", "event wait",
+              "event record", "external semaphore signal", "external semaphore wait",
+              "memory allocation", "memory free", "batch memory operation", "conditional")
+# The nodes of cond.cu's add_choice, by the stage it reports
+_STAGES = {1: "conditional handle", 2: "condition-setting kernel node",
+           3: "conditional (IF) node", 4: "child-graph node inside a conditional body"}
+
+
+def _cond_library(device: torch.device):
+    """``csrc/cond.cu``'s library for ``device``, its entries typed."""
+    return _typed_cond_library(device.index or 0)
+
+
+@functools.cache
+def _typed_cond_library(card: int):
+    import ctypes
+
+    from sast_tpu_torch import build
+
+    lib = build.load("cond", card)
+    ptr, ptrs, i32p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+    for name, args in (("sast_cond_graph_create", [ptrs]),
+                       ("sast_cond_node_types", [ptr, ctypes.POINTER(ctypes.c_longlong),
+                                                 ctypes.c_int]),
+                       ("sast_cond_add_segment", [ptr, ptrs, ptr]),
+                       ("sast_cond_add_choice", [ptr, ptrs, ptr, ptr, ptr, ptr, i32p]),
+                       ("sast_cond_instantiate", [ptr, ptrs, i32p]),
+                       ("sast_cond_launch", [ptr, ptr]),
+                       ("sast_cond_destroy", [ptr, ptr])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return lib
+
+
+def _node_types(graph: torch.cuda.CUDAGraph, device) -> collections.Counter:
+    """The nodes of a captured ``keep_graph`` graph (child graphs
+    included), by type name."""
+    import ctypes
+
+    lib = _cond_library(torch.device(device))
+    counts = (ctypes.c_longlong * len(NODE_TYPES))()
+    with torch.cuda.device(device):
+        rc = lib.sast_cond_node_types(ctypes.c_void_p(graph.raw_cuda_graph()), counts,
+                                      len(NODE_TYPES))
+    if rc:
+        raise RuntimeError(f"counting a graph's nodes: CUDA error {rc}")
+    return collections.Counter({NODE_TYPES[i]: n for i, n in enumerate(counts) if n})
+
+
+class _NoGenerator(torch.utils._python_dispatch.TorchDispatchMode):
+    """Refuses, by name, an operator that draws from torch's generator while
+    a schedule captures: the assembled graph bypasses ``CUDAGraph.replay``,
+    which advances the generator's offsets, so such a draw would repeat its
+    numbers at every replay."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if torch.Tag.nondeterministic_seeded in func.tags:
+            raise RuntimeError(f"{func} draws from torch's random generator inside a captured "
+                               "step; a replay of the assembled graph would repeat its numbers")
+        return func(*args, **(kwargs or {}))
 
 
 class Schedule:
-    """The graphs of one capture, replayed in capture order on the current
-    stream; the launches recorded at capture and run by replays are added to
-    the counters ``recorded`` and ``replayed``."""
+    """The graphs of one capture on ``device``, assembled at its end into one
+    parent graph whose choices are conditional nodes (``assemble``); a
+    replay is one launch of it on the current stream. The launches recorded
+    at capture are added to the counter ``recorded``; ``replayed()`` counts
+    those the replays ran."""
 
-    def __init__(self, recorded: collections.Counter, replayed: collections.Counter):
+    def __init__(self, recorded: collections.Counter, device):
+        self.device = torch.device(device)
         self.pool = torch.cuda.graph_pool_handle()
-        self.items: List[tuple] = []  # ("run", graph, counts) or ("choose", pred, true, false)
-        self.held: List[torch.Tensor] = []  # tensors that cross from one graph to the next
-        self.recorded, self.replayed = recorded, replayed
+        # ("run", graph, counts) or ("choose", pred, (graph, counts), (graph, counts), label)
+        self.items: List[tuple] = []
+        self.held: List[torch.Tensor] = []  # the predicates, which the set kernels read
+        self.recorded = recorded
+        self.replays = 0
+        self.taken: Optional[torch.Tensor] = None  # (choices, 2) int64: branch counts on the card
+        self._exec = None
         self._graph = None
         self._counts = None
         self.warming = False
 
     def _begin(self) -> None:
-        self._graph = torch.cuda.CUDAGraph()
+        # keep_graph: the graph is assembled into the parent, never
+        # instantiated alone. "relaxed": the backward of a train step runs
+        # on autograd's thread, so a graph may begin on one thread and end
+        # on another.
+        self._graph = torch.cuda.CUDAGraph(keep_graph=True)
         self._counts = launch_counts()
-        self._graph.capture_begin(pool=self.pool)
+        self._graph.capture_begin(pool=self.pool, capture_error_mode="relaxed")
 
     def _end(self) -> Tuple[torch.cuda.CUDAGraph, collections.Counter]:
         graph, self._graph = self._graph, None
@@ -139,18 +232,20 @@ class Schedule:
 
     def capture(self, body: Callable):
         """Capture ``body()`` (on the current stream, which must be a side
-        stream) and return its outputs: tensors of the pool that every
-        replay rewrites."""
+        stream), assemble the parent graph and return the body's outputs:
+        tensors of the pool that every replay rewrites."""
         self._begin()
         try:
-            out = body()
+            with _NoGenerator():
+                out = body()
             self.items.append(("run", *self._end()))
         except BaseException:
             self._abort()
             raise
+        self.assemble()
         return out
 
-    def choose(self, pred, true_fn, false_fn, operands):
+    def choose(self, pred, true_fn, false_fn, operands, label):
         if self.warming:
             taken = [true_fn(*operands), false_fn(*operands)]
             return taken[0] if bool(pred) else taken[1]
@@ -161,8 +256,8 @@ class Schedule:
             if any(t.untyped_storage().data_ptr() == o.untyped_storage().data_ptr() for o in ins):
                 raise ValueError("a branch of a captured choice returned a view of its operand")
         second, _ = self._branch(false_fn, operands, out)
-        self.items.append(("choose", pred, first, second))
-        self.held.extend([pred, *ins, *pytree.tree_leaves(out)])
+        self.items.append(("choose", pred, first, second, label))
+        self.held.append(pred)
         self._begin()
         return out
 
@@ -186,26 +281,98 @@ class Schedule:
             self._abort()
             raise
 
-    def replay(self):
-        """Replay every graph in order; at each choice, the branch its
-        predicate names. A generator: it yields before each predicate read,
-        so that a caller can enqueue other cards' graphs before this host
-        read waits for this card (``run_together``)."""
+    def assemble(self) -> None:
+        """The parent graph of the captured graphs, instantiated: each
+        segment a child-graph node, each choice a condition-setting kernel
+        node and an IF node with an else body over its branches
+        (``csrc/cond.cu``), one after another in capture order. Raises, naming the node
+        and the configuration, where the CUDA driver refuses a node; nothing is
+        then replayed."""
+        import ctypes
+
+        lib = _cond_library(self.device)
+        choices = [item for item in self.items if item[0] == "choose"]
+        what = ", ".join(dict.fromkeys(item[4] for item in choices)) or "no choice"
+        with torch.cuda.device(self.device):
+            self.taken = torch.zeros((max(len(choices), 1), 2), dtype=torch.int64,
+                                     device=self.device)
+            graph, tail = ctypes.c_void_p(), ctypes.c_void_p()
+            self._check(lib.sast_cond_graph_create(ctypes.byref(graph)), "creating the graph",
+                        what)
+            handles = [graph.value, None]  # the parent graph and its instance
+            # Not at exit: the CUDA driver frees a process's graphs with it.
+            weakref.finalize(self, _destroy, lib, handles, self.device).atexit = False
+            i = 0
+            for item in self.items:
+                if item[0] == "run":
+                    if _node_types(item[1], self.device):
+                        self._check(lib.sast_cond_add_segment(
+                            graph, ctypes.byref(tail), ctypes.c_void_p(item[1].raw_cuda_graph())),
+                            "adding a segment's child-graph node", what)
+                    continue
+                _, pred, (first, _), (second, _), label = item
+                stage = ctypes.c_int(0)
+                rc = lib.sast_cond_add_choice(
+                    graph, ctypes.byref(tail), ctypes.c_void_p(pred.data_ptr()),
+                    ctypes.c_void_p(self.taken[i].data_ptr()),
+                    ctypes.c_void_p(first.raw_cuda_graph()),
+                    ctypes.c_void_p(second.raw_cuda_graph()), ctypes.byref(stage))
+                if rc:
+                    bodies = sum((_node_types(g, self.device) for g in (first, second)),
+                                 collections.Counter())
+                    raise RuntimeError(
+                        f"the CUDA driver refused the {_STAGES.get(stage.value, 'node')} of the "
+                        f"choice {i} ({label}): CUDA error {rc}; the branches hold "
+                        f"{dict(bodies)}")
+                i += 1
+            exec_, node = ctypes.c_void_p(), ctypes.c_int(-1)
+            rc = lib.sast_cond_instantiate(graph, ctypes.byref(exec_), ctypes.byref(node))
+            if rc:
+                name = NODE_TYPES[node.value] if 0 <= node.value < len(NODE_TYPES) else "no"
+                raise RuntimeError(
+                    f"the CUDA driver refused to instantiate the step's graph ({what}): "
+                    f"CUDA error {rc} at a {name} node")
+            handles[1] = exec_.value
+            self._exec = exec_
+
+    @staticmethod
+    def _check(rc: int, what: str, config: str) -> None:
+        if rc:
+            raise RuntimeError(f"{what} of the step's graph ({config}): CUDA error {rc}")
+
+    def replay(self) -> None:
+        """One launch of the assembled graph on the current stream."""
+        import ctypes
+
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = _cond_library(self.device).sast_cond_launch(self._exec, ctypes.c_void_p(stream))
+        if rc:
+            raise RuntimeError(f"launching the step's graph: CUDA error {rc}")
+        self.replays += 1
+
+    def replayed(self) -> collections.Counter:
+        """The launches the replays ran: each segment's counts times the
+        replays, each branch's times the times the card took it (one read
+        of the counters on the card)."""
+        out: collections.Counter = collections.Counter()
+        taken = self.taken.tolist() if self.taken is not None else []
+        i = 0
         for item in self.items:
             if item[0] == "run":
-                graph, counts = item[1], item[2]
-            else:
-                _, pred, first, second = item
-                yield
-                graph, counts = first if bool(pred) else second
-            graph.replay()
-            self.replayed.update(counts)
+                for k, n in item[2].items():
+                    out[k] += n * self.replays
+                continue
+            for (_, counts), times in zip(item[2:4], taken[i]):
+                for k, n in counts.items():
+                    out[k] += n * times
+            i += 1
+        return out
 
     @contextlib.contextmanager
     def active(self, warming: bool):
         """Make this schedule the one ``choose`` consults."""
-        if getattr(_active, "schedule", None) is not None:
-            raise RuntimeError("a capture is already running on this thread")
+        if _active.schedule is not None:
+            raise RuntimeError("a capture is already running")
         _active.schedule, self.warming = self, warming
         try:
             yield
@@ -213,9 +380,17 @@ class Schedule:
             _active.schedule, self.warming = None, False
 
 
+def _destroy(lib, handles, device) -> None:
+    """Destroy a schedule's parent graph and its instance (``handles``)."""
+    import ctypes
+
+    with torch.cuda.device(device):
+        lib.sast_cond_destroy(*(ctypes.c_void_p(h) for h in handles))
+
+
 class Captured:
-    """``body()`` on static buffers of ``device``, replayed as captured CUDA
-    graphs (module docstring).
+    """``body()`` on static buffers of ``device``, replayed as one captured
+    CUDA graph (module docstring).
 
     ``body`` reads its inputs from buffers that the caller rewrites in place
     before each call and writes the carried state back into its own; it
@@ -241,29 +416,44 @@ class Captured:
         self.schedule: Optional[Schedule] = None
         self.outputs = None
         self.recorded: collections.Counter = collections.Counter()
-        self.replayed: collections.Counter = collections.Counter()
-        self.replays = 0
+        self._replayed: collections.Counter = collections.Counter()  # of earlier schedules
+        self._replays = 0
         self._watched: List[torch.Tensor] = []
         self._stamps: list = []
         self._state_ptrs: list = []
         self._switches: tuple = ()
 
+    @property
+    def replays(self) -> int:
+        return self._replays + (self.schedule.replays if self.schedule is not None else 0)
+
+    @property
+    def replayed(self) -> collections.Counter:
+        """The launches the replays of every capture ran (``Schedule.replayed``)."""
+        out = collections.Counter(self._replayed)
+        if self.schedule is not None:
+            out.update(self.schedule.replayed())
+        return out
+
     def __call__(self):
         (out,) = run_together([self])
         return out
 
-    def _steps(self):
-        """One call as a generator that yields before each of a replay's
-        predicate reads, and returns the call's outputs."""
+    def _drop(self) -> None:
+        """Forget the capture, keeping what its replays ran."""
+        self._replayed.update(self.schedule.replayed())
+        self._replays += self.schedule.replays
+        self.schedule = self.outputs = None
+
+    def _call(self):
         if not self.graph:
             return self.body()
         if self.schedule is not None and (self._switches != _kernel_switches(self.weights)
                                           or not self._weights_current()):
-            self.schedule = self.outputs = None
+            self._drop()
         if self.schedule is None:
             return self._warm_up_and_capture()
-        yield from self.schedule.replay()
-        self.replays += 1
+        self.schedule.replay()
         return self.outputs
 
     def _weights_current(self) -> bool:
@@ -277,18 +467,13 @@ class Captured:
             return True
         if [s[0] for s in stamps] != [s[0] for s in self._stamps]:
             return False
-        if any("_compute_copies" in m.__dict__
-                               for w in self.weights for m in w.modules()):
-            from sast_tpu_torch.models.layers import refresh_compute_copies
-
-            for module in self.weights:
-                refresh_compute_copies(module)
+        _refresh_copies(self.weights)
         self._stamps = stamps
         return True
 
     def _warm_up_and_capture(self):
         self._switches = _kernel_switches(self.weights)
-        schedule = Schedule(self.recorded, self.replayed)
+        schedule = Schedule(self.recorded, self.device)
         caller = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         with torch.cuda.device(self.device):
@@ -296,6 +481,11 @@ class Captured:
             with torch.cuda.stream(side):
                 with schedule.active(warming=True):
                     out = self.body()
+                # A warm-up that wrote the weights (a train step) left their
+                # compute-dtype copies stale: bring them up to date now, or
+                # the capture records their refresh into whichever branch
+                # first reads them, which a replay may not take.
+                _refresh_copies(self.weights)
                 torch.cuda.synchronize(self.device)
                 # Destroying a graph while a capture runs is refused and
                 # breaks the capture; the cycle collector would destroy the
@@ -316,6 +506,16 @@ class Captured:
         self._state_ptrs = [t.data_ptr() for t in self.state()] if self.state else []
         self.schedule = schedule
         return out
+
+
+def _refresh_copies(weights: Sequence[nn.Module]) -> None:
+    """Bring the compute-dtype copies of the weights in ``weights`` up to
+    date with them, in place (``models/layers.refresh_compute_copies``)."""
+    if any("_compute_copies" in m.__dict__ for w in weights for m in w.modules()):
+        from sast_tpu_torch.models.layers import refresh_compute_copies
+
+        for module in weights:
+            refresh_compute_copies(module)
 
 
 def _kernel_switches(weights: Sequence[nn.Module] = ()) -> tuple:
@@ -342,23 +542,16 @@ def bump_versions(tensors: Sequence[torch.Tensor]) -> None:
 
 
 def run_together(runs: Sequence[Captured]) -> list:
-    """Call every ``Captured`` of ``runs`` (the replicas of a mesh) and
-    return their outputs in order. The replays are interleaved: each run's
-    graphs are enqueued up to its next choice before any run reads a
-    predicate, so that the cards' work overlaps also where the step chooses
-    on the host. A warm-up, a capture or an eager call runs whole, in turn."""
-    steps = [run._steps() for run in runs]
-    outs: list = [None] * len(runs)
-    live = list(range(len(runs)))
-    while live:
-        for i in list(live):
-            device = runs[i].device
-            with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
-                try:
-                    next(steps[i])
-                except StopIteration as done:
-                    outs[i] = done.value
-                    live.remove(i)
+    """Call every ``Captured`` of ``runs`` (the replicas of a mesh), each on
+    its own card, and return their outputs in order. A replay is one launch
+    that reads nothing on the host, so every replica's step is enqueued
+    before any output is returned; a warm-up, a capture or an eager call
+    runs whole, in turn."""
+    outs = []
+    for run in runs:
+        device = run.device
+        with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+            outs.append(run._call())
     return outs
 
 

@@ -40,8 +40,10 @@ when the threshold is below 1) are a 0-d bool tensor on the layer's device,
 computed as JAX computes them (``branch_predicate``). Under a trace
 (``torch.export``) the layer emits a cond node on it (``choose``), JAX's
 ``lax.cond``; the eager step reads it back, one host synchronisation per
-such layer, and so does a captured step between its graphs
-(``graphs.Schedule``).
+such layer; a captured step takes it on the card, in a conditional graph
+node (``graphs.Schedule``). Under grad mode the choice is differentiable as
+JAX's ``cond`` is (``_Choice``): its backward chooses, on the same
+predicate, between the two branches' vector-Jacobian products.
 """
 
 from __future__ import annotations
@@ -209,19 +211,25 @@ class MaskedSparseAttention(nn.Module):
             return self.block_math(y, token_keep, dropout)
         return self.run_block(y, token_keep, win_keep)
 
-    def chooses_in_training(self) -> Optional[str]:
-        """The switch by which the training forward of this layer chooses
-        its branch on the card (``run_block``'s ``choose``), or None: a
-        gather budget in (0, 1), or the sparse kernel below a density
-        threshold of 1; never with Context Broadcasting, nor with a
-        regularizer on (the masked path then runs)."""
-        if self.enable_cb or self.drop_path > 0.0 or self.drop_mlp > 0.0:
+    def choice_switch(self) -> Optional[str]:
+        """The switch by which this layer chooses its branch from the scene
+        (``run_block``'s ``choose``), or None: a gather budget in (0, 1), or
+        the sparse kernel below a density threshold of 1; never with Context
+        Broadcasting (the masked path then runs)."""
+        if self.enable_cb:
             return None
         if 0.0 < self.gather_budget < 1.0:
             return f"attention.gather_budget={self.gather_budget}"
         if self.gather_budget <= 0.0 and self.sparse_kernel and self.density_threshold < 1.0:
             return f"attention.pallas_density_threshold={self.density_threshold}"
         return None
+
+    def chooses_in_training(self) -> Optional[str]:
+        """``choice_switch`` of the training forward: None also with a
+        regularizer on (the masked path then runs)."""
+        if self.drop_path > 0.0 or self.drop_mlp > 0.0:
+            return None
+        return self.choice_switch()
 
     def run_block(self, y: torch.Tensor, token_keep: torch.Tensor,
                   win_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -319,11 +327,10 @@ def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Ca
            operands: Tuple[torch.Tensor, ...]) -> torch.Tensor:
     """JAX's ``lax.cond(pred, true_fn, false_fn)`` on ``layer``'s branches:
     under a trace (the non-strict ``torch.export``) a cond node, so that the
-    program picks the branch on its device; otherwise ``graphs.choose``:
-    eagerly one host read of ``pred``, and in a captured step a choice
-    between two captured branches (``graphs.Schedule``). (Eager
-    ``torch.cond`` compiles the branches with dynamo and reads the host all
-    the same.)
+    program picks the branch on its device; under grad mode ``_Choice``, the
+    differentiable choice; otherwise ``graphs.choose``: eagerly one host
+    read of ``pred``, and in a captured step a conditional node that takes
+    the branch on the card (``graphs.Schedule``).
 
     The node is made by the cond operator itself, whose branches the export
     traces once: ``torch.cond`` would first trace them with dynamo as well,
@@ -332,7 +339,11 @@ def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Ca
     operands, bound to the layer by ``torch.func.functional_call``: the
     lifting that dynamo does for ``torch.cond``."""
     if not torch.compiler.is_compiling():
-        return graphs.choose(pred, true_fn, false_fn, operands)
+        if torch.is_grad_enabled():
+            params = _Choice.lifted(layer)
+            if operands[0].requires_grad or any(p.requires_grad for p in params):
+                return _Choice.apply((layer, true_fn, false_fn), pred, *operands, *params)
+        return graphs.choose(pred, true_fn, false_fn, operands, layer.choice_switch())
     names, tensors = zip(*layer.named_parameters(), *layer.named_buffers())
 
     def lifted(fn: Callable) -> Callable:
@@ -345,6 +356,66 @@ def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Ca
 
     return torch.ops.higher_order.cond(pred, lifted(true_fn), lifted(false_fn),
                                        (*operands, *tensors))
+
+
+class _Choice(torch.autograd.Function):
+    """``lax.cond`` under ``jax.grad``: the forward is ``graphs.choose``
+    over the two branches; the backward is ``graphs.choose`` on the saved
+    predicate over the two branches' vector-Jacobian products, which return
+    the gradients of ``y`` and of the layer's parameters that the branches
+    read (``lifted``; zeros where a branch does not read one). Eagerly each
+    is one host read; in a captured train step each is a conditional node
+    on the card, the backward's too (autograd runs it on its own thread for
+    a card, which sees the capture's schedule, ``graphs._active``).
+
+    A vector-Jacobian product runs its branch again under grad mode from
+    the saved inputs, on the layer's own fp32 parameters (their casts to
+    the compute dtype are taken in the graph, ``models/layers.
+    compute_copy``), so the gradients land on those parameters; the sparse
+    kernel's branch takes kernels G and H through its own autograd
+    function (``ops/sparse_block._SparseBlockFn``)."""
+
+    @staticmethod
+    def lifted(layer: nn.Module) -> list:
+        """The parameters the branches read: all but the first norm's,
+        which the layer applies before it chooses."""
+        return [p for name, p in layer.named_parameters() if not name.startswith("norm1.")]
+
+    @staticmethod
+    def forward(ctx, fns, pred, y, token_keep, win_keep, *params):
+        layer, true_fn, false_fn = fns
+        ctx.fns = fns
+        ctx.save_for_backward(pred, y, token_keep, win_keep)
+        return graphs.choose(pred, true_fn, false_fn, (y, token_keep, win_keep),
+                             layer.choice_switch())
+
+    @staticmethod
+    def backward(ctx, g):
+        layer, true_fn, false_fn = ctx.fns
+        pred, y, token_keep, win_keep = ctx.saved_tensors
+        params = _Choice.lifted(layer)
+        wants_y = ctx.needs_input_grad[2]
+        wrt = [i for i, p in enumerate(params) if ctx.needs_input_grad[5 + i]]
+
+        def vjp(fn: Callable) -> Callable:
+            def branch(y, token_keep, win_keep, g):
+                with torch.enable_grad():
+                    y_in = y.detach().requires_grad_(wants_y)
+                    out = fn(y_in, token_keep, win_keep)
+                    leaves = ([y_in] if wants_y else []) + [params[i] for i in wrt]
+                    grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+                return tuple(torch.zeros_like(t) if d is None else d
+                             for d, t in zip(grads, leaves))
+            return branch
+
+        grads = list(graphs.choose(pred, vjp(true_fn), vjp(false_fn),
+                                   (y, token_keep, win_keep, g.contiguous()),
+                                   f"the backward of {layer.choice_switch()}"))
+        dy = grads.pop(0) if wants_y else None
+        dparams = [None] * len(params)
+        for i, d in zip(wrt, grads):
+            dparams[i] = d
+        return (None, None, dy, None, None, *dparams)
 
 
 class _Branch(nn.Module):

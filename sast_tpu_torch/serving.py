@@ -129,10 +129,10 @@ class StreamingDetector:
     of the model, copied once here, and its lanes' carried state, and
     captures its step on its own card. A batch is one upload per device;
     every device's step is launched before any result is fetched, so the
-    cards' work overlaps. Where the step chooses on the host (a gather
-    budget below 1, the sparse kernel's threshold below 1), the replicas'
-    replays are interleaved: every card's graphs up to a choice are enqueued
-    before any card's predicate is read. Eagerly one thread dispatches the
+    cards' work overlaps: a replay is one graph launch, also where layers
+    choose their branch (a gather budget below 1, the sparse kernel's
+    threshold below 1), which the card takes in a conditional node. Eagerly
+    one thread dispatches the
     replicas one after another, so a host-paced step gains little from a
     second card. The slates come back concatenated in lane order, and
     ``selected_tokens`` is the mean over the devices of their batch

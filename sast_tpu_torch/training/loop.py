@@ -101,12 +101,11 @@ class Trainer:
     With ``mesh`` the trainer runs on ``mesh.device``.
 
     ``graph`` (default on) captures the train and eval steps on a card
-    (module docstring). A configuration whose layers choose their branch on
-    the card in training, or a gloo world, cannot capture the train step:
-    the first training step refuses it by name (``steps.refuse_capture``),
-    and it trains with ``graph=False``. Such a trainer still validates
-    through the captured eval step, which splits its graphs at each choice
-    as serving does.
+    (module docstring); a layer that chooses its branch on the card is a
+    conditional node of the captured step, in training and in validation. A
+    gloo world cannot capture the train step: the first training step
+    refuses it by name (``steps.refuse_capture``), and it trains with
+    ``graph=False``.
     ``train_step`` and ``_eval_step`` are the step functions those bodies
     call (``make_train_step``'s and ``make_eval_step``'s); assigning either
     replaces it for the eager calls and for a capture to come.

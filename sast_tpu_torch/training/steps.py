@@ -39,9 +39,10 @@ JAX trainer's ``jax.jit(train_step, donate_argnums=(0, 2))`` and
 ``jax.jit(eval_step, donate_argnums=(2,))`` (sast_tpu/training/loop.py:
 90-99): the step on static batch buffers (``graphs.BatchBuffers``) with the
 carried LSTM states in buffers of their own, written back in place, and on
-a card captured as CUDA graphs after its first call (``graphs.Captured``):
-the first call is the real first step, run eagerly as the warm-up, and every
-later call replays it. The train step's whole update runs on the card (the
+a card captured as one CUDA graph after its first call (``graphs.Captured``;
+a layer that chooses its branch on the card is a conditional node of it,
+forward and backward): the first call is the real first step, run eagerly as
+the warm-up, and every later call replays it. The train step's whole update runs on the card (the
 optimizer's count and rate are tensors there, ``training/optimizer.py``;
 the dropout masks are hashed there from that count, ``models/layers``), so
 a replay is the next step. With ``graph`` off, or on the CPU, the same
@@ -66,7 +67,6 @@ from sast_tpu_torch import graphs
 from sast_tpu_torch.config import ExperimentConfig
 from sast_tpu_torch.models.backbone import LstmState, zero_states
 from sast_tpu_torch.models.detector import DTYPES, YoloXDetector, build_detector
-from sast_tpu_torch.models.sast import MaskedSparseAttention
 from sast_tpu_torch.models.head import inference_outputs
 from sast_tpu_torch.models.layers import DropoutKey
 from sast_tpu_torch.models.losses import yolox_loss
@@ -373,18 +373,12 @@ def make_inference_step(model: YoloXDetector, cfg: ExperimentConfig) -> Callable
     return infer_step
 
 
-def refuse_capture(model: YoloXDetector, mesh: Optional[dp.Mesh] = None) -> None:
-    """Raise, naming the reason, where the train step of ``model`` cannot be
-    captured as it runs eagerly: a layer that chooses its branch on the card
-    (the backward cannot be split at the choice; conditional graph nodes
-    would take it on the card, ROADMAP section 1 item 8), or a world whose
-    backend stages its collectives through the host (gloo)."""
-    for name, m in model.named_modules():
-        if isinstance(m, MaskedSparseAttention) and m.chooses_in_training():
-            raise ValueError(
-                f"{name} chooses its branch on the card ({m.chooses_in_training()}): a captured "
-                "train step cannot split its backward at a choice (conditional graph nodes, "
-                "ROADMAP section 1 item 8, are not ported); pass graph=False")
+def refuse_capture(mesh: Optional[dp.Mesh] = None) -> None:
+    """Raise, naming the reason, where the train step cannot be captured as
+    it runs eagerly: a world whose backend stages its collectives through
+    the host (gloo). A layer that chooses its branch on the card is captured
+    with its choice, forward and backward, as conditional graph nodes
+    (``graphs.Schedule``)."""
     if mesh is not None and dist.get_backend() == "gloo":
         raise ValueError("the gloo backend stages its collectives through the host and cannot "
                          "be captured in a CUDA graph; pass graph=False, or use nccl")
@@ -438,8 +432,7 @@ class CapturedTrainStep(_OnBuffers):
     tensors in the layout above) loads the batch into the buffers, runs one
     step and returns its metrics: 0-d tensors on the card, which the next
     call rewrites. On a card with ``graph`` on, the first call refuses a
-    configuration that chooses on the card or a gloo world
-    (``refuse_capture``) before it touches the card."""
+    gloo world (``refuse_capture``) before it touches the card."""
 
     def __init__(self, fns: Dict[str, Callable], state: TrainState, cfg: ExperimentConfig,
                  device, graph: bool = True, mesh: Optional[dp.Mesh] = None):
@@ -465,7 +458,7 @@ class CapturedTrainStep(_OnBuffers):
 
     def __call__(self, batch) -> Dict[str, torch.Tensor]:
         if self.step is None and self.graph and self.device.type == "cuda":
-            refuse_capture(self.state.model, self.mesh)
+            refuse_capture(self.mesh)
         self._load(batch)
         optimizer = self.state.optimizer
         count, replays = optimizer.count, self.run.replays
@@ -486,9 +479,10 @@ class CapturedEvalStep(_OnBuffers):
     replayed as captured CUDA graphs on a card, as the serving step is:
     ``step(batch)`` loads the batch into the buffers, runs the step with the
     LSTM states carried in ``states`` and returns the detections, which the
-    next call rewrites. A layer that chooses its branch on the card splits
-    the capture at the choice (``graphs.Schedule``); the attention path is
-    that of ``model``'s switches at the call (``graphs._kernel_switches``)."""
+    next call rewrites. A layer that chooses its branch on the card is a
+    conditional node of the captured graph (``graphs.Schedule``); the
+    attention path is that of ``model``'s switches at the call
+    (``graphs._kernel_switches``)."""
 
     def __init__(self, fns: Dict[str, Callable], model: YoloXDetector, cfg: ExperimentConfig,
                  device, graph: bool = True):

@@ -135,8 +135,9 @@ def _frame(model, detect: bool, x: torch.Tensor, states, acc: torch.Tensor):
 
 class CapturedFrame:
     """One frame of ``streaming_chunk`` on static buffers of ``x``'s card
-    (the input, the carried state, ``acc``), captured as CUDA graphs at its
-    first run (``graphs.Captured``; the weights read in place)."""
+    (the input, the carried state, ``acc``), captured as one CUDA graph at
+    its first run (``graphs.Captured``; the weights read in place; a layer
+    that chooses its branch on the card is a conditional node of it)."""
 
     def __init__(self, model, detect: bool, x: torch.Tensor, states):
         with torch.inference_mode(False):

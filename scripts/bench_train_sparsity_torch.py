@@ -9,10 +9,9 @@ CapturedTrainStep``, the trainer's default, as the JAX script times the
 jitted step), timed on the host clock to the card's end: after one untimed
 step (on the first density, the warm-up and the capture), the best of 3
 loops of ``--iters`` steps, each loop ended by a synchronise. ``--eager``
-times the same step run eagerly. A path whose layers choose their branch
-on the card (``gather``: the backward cannot be split at a choice, ROADMAP
-section 1 item 8) is timed eagerly, and each row names every path's mode
-(``modes``). The paths (``--paths``; the JAX script's names ``xla``,
+times the same step run eagerly; each row names every path's mode
+(``modes``). The ``gather`` path's layers choose their branch on the card,
+forward and backward, as conditional nodes of the captured graph. The paths (``--paths``; the JAX script's names ``xla``,
 ``pallas`` and ``gather`` are accepted for them):
 
 - ``masked``: the masked torch-op attention (plain autograd);
@@ -88,7 +87,6 @@ def main(argv=None) -> None:
         CapturedTrainStep,
         create_train_state,
         make_train_step,
-        refuse_capture,
     )
     from train_torch import parse_overrides
 
@@ -112,14 +110,8 @@ def main(argv=None) -> None:
             bb, attention=dataclasses.replace(bb.attention, gather_budget=budget))))
         state, model = create_train_state(c, seed=args.seed, sparse_kernel=sparse_kernel,
                                           device=device)
-        graph = not args.eager
-        try:
-            refuse_capture(model)
-        except ValueError as why:
-            print(f"# {name}: timed eagerly: {why}", file=sys.stderr)
-            graph = False
         steps[name] = CapturedTrainStep({"train": make_train_step(model, c)}, state, c, device,
-                                        graph=graph)
+                                        graph=not args.eager)
 
     info = profiling.card_info(device)
     print(f"# card: {info['smi'] or info['kind']}")

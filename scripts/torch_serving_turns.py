@@ -18,12 +18,22 @@ host work per kernel call shows), the host CPU time of this process per
 step over the same calls (``time.process_time``, which a busy neighbour on
 the host moves less than the wall clock), and a digest of the step's
 detections and telemetry (the same digest on two trees means the same
-bits). Only the public API that both sides of a comparison share is used.
+bits; of the second step, a captured step's first replay). Only the public
+API that both sides of a comparison share is used.
+
+``--paths`` picks the paths, by name: the four above (the default), or
+``captured_default``, ``captured_gather_0.5`` and ``captured_threshold_0.5``,
+the captured step (the detector's default on a card) on the default path
+and on the two configurations whose attention layers choose their branch
+on the card (``attention.gather_budget`` 0.5; the sparse kernel below
+``attention.pallas_density_threshold`` 0.5), timed the same way after the
+capture.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import importlib.util
 import json
@@ -34,6 +44,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 PATHS = ("masked", "sparse", "looped", "fused")
+# name -> (attention switches, sparse_kernel): the captured step's paths
+CAPTURED = {"captured_default": ({}, False),
+            "captured_gather_0.5": ({"gather_budget": 0.5}, False),
+            "captured_threshold_0.5": ({"pallas_density_threshold": 0.5}, True)}
 
 
 def main() -> None:
@@ -41,7 +55,13 @@ def main() -> None:
     ap.add_argument("--root", default=str(HERE), help="checkout whose sast_tpu_torch is timed")
     ap.add_argument("--tag", default="", help="name of the checkout in the output")
     ap.add_argument("--out", default=None, help="file the JSON line is appended to")
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help=f"comma-separated, of {', '.join(PATHS + tuple(CAPTURED))}")
     args = ap.parse_args()
+    paths = [n for n in args.paths.split(",") if n]
+    unknown = [n for n in paths if n not in PATHS and n not in CAPTURED]
+    if unknown:
+        sys.exit(f"torch_serving_turns: unknown paths {unknown}")
     import numpy as np
     import torch
 
@@ -53,7 +73,7 @@ def main() -> None:
     spec.loader.exec_module(smoke)
     from sast_tpu_torch import build
     from sast_tpu_torch.config import get_config
-    from sast_tpu_torch.models.detector import build_detector
+    from sast_tpu_torch.models.detector import YoloXDetector, build_detector
     from sast_tpu_torch.ops import sparse_block
     from sast_tpu_torch.packing import pack_event_batch
     from sast_tpu_torch.serving import StreamingDetector
@@ -74,14 +94,25 @@ def main() -> None:
     model = build_detector(cfg.model, seed=0, device="cuda")
     record = dict(tag=args.tag, root=str(Path(args.root).resolve()), card=card,
                   torch=torch.__version__)
-    for name in PATHS:
-        if name == "masked":
+    for name in paths:
+        if name in CAPTURED:
+            switches, sparse_kernel = CAPTURED[name]
+            cfg_p = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, backbone=dataclasses.replace(
+                    cfg.model.backbone, attention=dataclasses.replace(
+                        cfg.model.backbone.attention, **switches))))
+            model_p = YoloXDetector(cfg_p.model)
+            model_p.load_state_dict(model.state_dict())
+            det = StreamingDetector(cfg_p, model_p, max_events=E, num_streams=S,
+                                    sparse_kernel=sparse_kernel)
+        elif name == "masked":
             det = StreamingDetector(cfg, model, max_events=E, num_streams=S)
         else:
             det = smoke.path_detector(cfg, model, name, E, S)
         sparse_block.MODEL_USES_LOOPED = name == "looped"
         try:
-            dets, tel = det.step(pk, nk, no_reset)
+            det.step(pk, nk, no_reset)  # a captured step's warm-up and capture
+            dets, tel = det.step(pk, nk, no_reset)  # and its first replay
             h_ = hashlib.sha256()
             for t in [dets[k] for k in sorted(dets)] + [tel]:
                 h_.update(t.contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())

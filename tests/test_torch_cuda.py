@@ -503,6 +503,46 @@ def _graph_run(det, frames):
     return outs, [t.cpu() for hc in states for t in hc]
 
 
+@pytest.fixture
+def launched(monkeypatch):
+    """Counts the calls of the conditional-graph library's launch entry
+    (``csrc/cond.cu`` ``sast_cond_launch``, one ``cudaGraphLaunch`` each):
+    the list's length."""
+    from sast_tpu_torch import graphs
+
+    real, calls = graphs._cond_library, []
+
+    class Counting:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self.lib, name)
+
+        def sast_cond_launch(self, *args):
+            calls.append(args)
+            return self.lib.sast_cond_launch(*args)
+
+    monkeypatch.setattr(graphs, "_cond_library", lambda device: Counting(real(device)))
+    return calls
+
+
+def _quiet_run(det, frames):
+    """``_graph_run`` with every frame after the first (the warm-up and the
+    capture) under the sync debug mode "error": a replay that read the
+    host (a predicate, ``.item()``, a pageable copy) would raise."""
+    det.reset()
+    outs = [det.process_batch(frames[0], reset=[False, False])]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs += [det.process_batch(f, reset=[False, i == 2]) for i, f in enumerate(frames)
+                 if i > 0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    states = det.states if det.mesh is None else [hc for r in det.states for hc in r]
+    return outs, [t.cpu() for hc in states for t in hc]
+
+
 def _assert_same_bits(a, b):
     (outs_a, states_a), (outs_b, states_b) = a, b
     for i, (x, y) in enumerate(zip(outs_a, outs_b)):
@@ -559,19 +599,13 @@ def test_captured_mesh_is_the_eager_mesh(dev):
     assert [s.run.replays for s in dets[1].steps] == [3, 3]
 
 
-def test_captured_choice_takes_both_branches(dev):
-    """``gather_budget`` 0.5: empty frames keep few windows (the gathered
-    branch), full ones every window (the masked branch). The captured step
-    is one graph more per choosing layer and each choice's two branches,
-    and equals the eager step bit for bit; the eager run took both
-    branches."""
+def _spy_branches(names):
+    """Record which of the attention layer's branches ``names`` ran, in
+    order; returns the log and a function that takes the spies out."""
     from sast_tpu_torch.models.sast import MaskedSparseAttention
 
-    cfg = _graph_config(gather_budget=0.5)
-    eager, captured = _graph_detectors(cfg)
-    frames = _graph_frames(5, empty=(0, 3))
     taken = []
-    originals = {b: getattr(MaskedSparseAttention, b) for b in ("gathered", "masked")}
+    originals = {b: getattr(MaskedSparseAttention, b) for b in names}
 
     def spy(branch):
         def run(self, *args, **kw):
@@ -581,16 +615,130 @@ def test_captured_choice_takes_both_branches(dev):
 
     for b in originals:
         setattr(MaskedSparseAttention, b, spy(b))
+
+    def restore():
+        for b, fn in originals.items():
+            setattr(MaskedSparseAttention, b, fn)
+    return taken, restore
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("switch", ["gather", "threshold"])
+def test_captured_choice_takes_both_branches(dev, launched, switch, dtype):
+    """``gather_budget`` 0.5, or the sparse kernel below a density
+    threshold of 0.5: empty frames keep few windows (the first branch), full
+    ones every window (the masked branch). The captured step is one graph:
+    a segment per choosing layer and one more, each choice a conditional
+    node over its two branches; every replay is one launch that reads
+    nothing on the host (the sync debug mode "error"), and it equals the
+    eager step bit for bit; the eager run took both branches, and so did
+    the replays by the counters on the card."""
+    import dataclasses
+
+    from sast_tpu_torch.models.sast import MaskedSparseAttention
+
+    cfg = _graph_config(**({"gather_budget": 0.5} if switch == "gather"
+                           else {"pallas_density_threshold": 0.5}))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+    eager, captured = _graph_detectors(cfg, sparse_kernel=switch == "threshold")
+    frames = _graph_frames(6, empty=(0, 3))
+    first = "gathered" if switch == "gather" else "kernel"
+    taken, restore = _spy_branches((first, "masked"))
     try:
         ref = _graph_run(eager, frames)
     finally:
-        for b, fn in originals.items():
-            setattr(MaskedSparseAttention, b, fn)
-    assert set(taken) == {"gathered", "masked"}
-    _assert_same_bits(ref, _graph_run(captured, frames))
+        restore()
+    assert set(taken) == {first, "masked"}
+    _assert_same_bits(ref, _quiet_run(captured, frames))
+    run = captured.steps[0].run
     layers = sum(isinstance(m, MaskedSparseAttention) for m in captured.model.modules())
-    kinds = [item[0] for item in captured.steps[0].run.schedule.items]
+    kinds = [item[0] for item in run.schedule.items]
     assert kinds.count("choose") == layers and kinds.count("run") == layers + 1
+    assert run.replays == len(launched) == 5
+    counts = run.schedule.taken.cpu()
+    assert counts.sum() == 5 * layers and counts[:, 0].sum() > 0 and counts[:, 1].sum() > 0
+
+
+def test_branch_counters_are_the_eager_choices(dev):
+    """The counters on the card of a captured gather-0.5 step, per choosing
+    layer and branch, equal the branches the eager step took over the same
+    frames after the first (the warm-up's); the launches the replays ran
+    (``replayed``) are the segments' counts times the replays plus each
+    branch's times its counter."""
+    import collections
+
+    from sast_tpu_torch import graphs
+
+    cfg = _graph_config(gather_budget=0.5)
+    eager, captured = _graph_detectors(cfg)
+    frames = _graph_frames(6, empty=(1, 4))
+    _graph_run(captured, frames)
+    taken = []
+    choose = graphs.choose
+
+    def spy(pred, *args, **kw):
+        taken.append(bool(pred))
+        return choose(pred, *args, **kw)
+
+    eager.reset()
+    eager.process_batch(frames[0], reset=[False, False])
+    graphs.choose = spy
+    try:
+        for i, f in enumerate(frames[1:], 1):
+            eager.process_batch(f, reset=[False, i == 2])
+    finally:
+        graphs.choose = choose
+    run = captured.steps[0].run
+    layers = run.schedule.taken.shape[0]
+    assert len(taken) == 5 * layers
+    per_layer = np.zeros((layers, 2), np.int64)
+    for j, first in enumerate(taken):
+        per_layer[j % layers, 0 if first else 1] += 1
+    np.testing.assert_array_equal(run.schedule.taken.cpu().numpy(), per_layer)
+    want = collections.Counter()
+    i = 0
+    for item in run.schedule.items:
+        if item[0] == "run":
+            want.update({k: n * run.replays for k, n in item[2].items()})
+            continue
+        for (_, counts), times in zip(item[2:4], per_layer[i]):
+            want.update({k: n * int(times) for k, n in counts.items()})
+        i += 1
+    assert run.replayed == +want and run.replayed["greedy_keep"] == run.replays
+
+
+def test_refused_conditional_node_raises_by_name(dev, monkeypatch):
+    """A conditional node that the CUDA driver refuses (here a ``cond.cu``
+    entry that reports CUDA error 801, ``cudaErrorNotSupported``, for the
+    conditional node) makes the capture raise, naming the node and the
+    configuration; nothing is replayed, and the next call captures again
+    and raises again: there is no replay through host reads."""
+    from sast_tpu_torch import graphs
+
+    real = graphs._cond_library
+
+    class Refusing:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self.lib, name)
+
+        @staticmethod
+        def sast_cond_add_choice(graph, tail, pred, counts, first, second, stage):
+            stage._obj.value = 3
+            return 801
+
+    monkeypatch.setattr(graphs, "_cond_library", lambda device: Refusing(real(device)))
+    _, captured = _graph_detectors(_graph_config(gather_budget=0.5))
+    frames = _graph_frames(2, empty=(0,))
+    captured.reset()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=r"conditional \(IF\) node of the choice 0 "
+                           r"\(attention\.gather_budget=0\.5.*CUDA error 801"):
+            captured.process_batch(frames[0], reset=[False, False])
+        run = captured.steps[0].run
+        assert run.schedule is None and run.replays == 0
 
 
 def test_captured_step_sees_new_weights(dev):
@@ -615,9 +763,11 @@ def test_captured_step_sees_new_weights(dev):
     assert captured.steps[0].run.schedule is schedule
 
 
-def test_captured_mesh_interleaves_choices(dev):
-    """``gather_budget`` 0.5 over two replicas on one card: the replays
-    interleave at each choice and give the same bits as the eager mesh."""
+def test_captured_mesh_interleaves_choices(dev, launched):
+    """``gather_budget`` 0.5 over two replicas on one card: each replica's
+    replay is one launch of its own graph, both enqueued before any slate is
+    read, with no host read (the sync debug mode "error"), and the same bits
+    as the eager mesh."""
     from sast_tpu_torch.models.detector import build_detector
     from sast_tpu_torch.serving import StreamingDetector
 
@@ -626,8 +776,9 @@ def test_captured_mesh_interleaves_choices(dev):
                               max_events=4000, num_streams=2, mesh=("cuda:0", "cuda:0"),
                               graph=g) for g in (False, True)]
     frames = _graph_frames(5, empty=(0, 3))
-    _assert_same_bits(_graph_run(dets[0], frames), _graph_run(dets[1], frames))
+    _assert_same_bits(_graph_run(dets[0], frames), _quiet_run(dets[1], frames))
     assert [s.run.replays for s in dets[1].steps] == [4, 4]
+    assert len(launched) == 8
     assert all("choose" in [item[0] for item in s.run.schedule.items] for s in dets[1].steps)
 
 
@@ -780,38 +931,62 @@ def test_captured_eval_after_captured_train_steps(deterministic, tmp_path):
         assert torch.equal(a, b)
 
 
-def test_choosing_trainer_validates_captured_and_refuses_captured_training(deterministic,
-                                                                           tmp_path):
-    """A gather budget of 0.5 (its layers choose on the card): a trainer
-    with ``graph`` on builds, and its eval step captures, split at each
-    choice, with the detections and carried states of the eager eval step
-    bit for bit; only its first train step refuses, by name."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("switch", ["gather", "threshold"])
+def test_choosing_trainer_trains_captured_bit_for_bit(deterministic, launched, tmp_path, switch,
+                                                      dtype):
+    """A gather budget of 0.5, or the sparse kernel below a density
+    threshold of 0.5 (their layers choose on the card), in fp32 and bf16
+    (whose weights' compute copies the warm-up's update leaves stale before
+    the capture): ``fit`` over 4 steps
+    with ``graph`` on equals ``graph`` off bit for bit (every logged metric,
+    parameters, statistics, EMA, optimizer state and LSTM states), the
+    forward's and the backward's choices conditional nodes of one graph,
+    each replay one launch; the batches without events keep few windows, so
+    the replays took both branches (the counters on the card). Its eval
+    step, captured after training, equals the eager eval step: the
+    detections and the carried states."""
     import dataclasses
 
     from sast_tpu_torch.data.batch import split_device_batch
     from sast_tpu_torch.training.loop import Trainer
     from sast_tpu_torch.training.steps import CapturedEvalStep
 
-    cfg = _train_config()
+    cfg = _train_config(dtype)
     bb = cfg.model.backbone
-    bb = dataclasses.replace(bb, attention=dataclasses.replace(bb.attention, gather_budget=0.5))
+    att = {"gather_budget": 0.5} if switch == "gather" else {"pallas_density_threshold": 0.5}
+    bb = dataclasses.replace(bb, attention=dataclasses.replace(bb.attention, **att))
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb))
-    batches = _train_batches(cfg, 2)
-    trainer = Trainer(cfg, str(tmp_path / "run"))
+    batches = _train_batches(cfg, 4)
+    for b in batches[1::2]:
+        b["ev_repr"] = np.zeros_like(b["ev_repr"])
+    runs = [Trainer(cfg, str(tmp_path / f"g{g}"), log_every=1,
+                    sparse_kernel_train=switch == "threshold", graph=g) for g in (False, True)]
+    for trainer in runs:
+        trainer.fit(batches, max_steps=4)
+    assert _logged(tmp_path / "gFalse") == _logged(tmp_path / "gTrue")
+    for i, (a, b) in enumerate(zip(_written(runs[0]), _written(runs[1]))):
+        assert torch.equal(a, b), f"tensor {i}"
+    run = runs[1]._train.run
+    assert run.replays == len(launched) == 3
+    kinds = [item[0] for item in run.schedule.items]
+    assert kinds.count("choose") > 0 and kinds.count("run") == kinds.count("choose") + 1
+    counts = run.schedule.taken.cpu()
+    assert counts[:, 0].sum() > 0 and counts[:, 1].sum() > 0
+    if switch == "threshold":
+        assert all(run.replayed[k] > 0 for k in
+                   ("sparse_window_block", "sparse_block_mlp_bwd", "sparse_block_attn_bwd"))
+    trainer = runs[1]
     run = trainer._eval_run()
     ref_run = CapturedEvalStep(trainer._fns, trainer.model, cfg, "cuda", graph=False)
-    for batch in batches:
+    for batch in batches[:3]:
         batch = split_device_batch(batch)[0]
         got, want = run(batch), ref_run(batch)
         for k in want:
             assert torch.equal(got[k], want[k]), k
     for a, b in zip([t for hc in run.states for t in hc], [t for hc in ref_run.states for t in hc]):
         assert torch.equal(a, b)
-    assert run.run.replays == 1
-    assert "choose" in [item[0] for item in run.run.schedule.items]
-    with pytest.raises(ValueError, match=r"gather_budget=0\.5.*item 8.*graph=False"):
-        trainer.fit(batches, max_steps=1)
-    assert trainer.state.step == 0 and trainer._train.step is None
+    assert run.run.replays == len(launched) - 3 == 2
 
 
 def test_captured_fit_resumes_bit_for_bit(deterministic, tmp_path):

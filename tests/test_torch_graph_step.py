@@ -11,6 +11,7 @@ weights, and under training; the artifact with its weights baked in the
 compute dtype. The capture itself needs a card (tests/test_torch_cuda.py).
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -338,17 +339,19 @@ def test_captured_frame_needs_a_card():
 
 
 class _Schedule:
-    """Stands in for a captured ``graphs.Schedule``: two graphs around one
-    choice, each replay step written to ``log``."""
+    """Stands in for a captured ``graphs.Schedule``: a replay is one launch,
+    written to ``log``."""
 
     def __init__(self, name, log):
         self.name, self.log = name, log
+        self.replays = 0
 
     def replay(self):
-        self.log.append(f"{self.name} graph 1")
-        yield
-        self.log.append(f"{self.name} reads its predicate")
-        self.log.append(f"{self.name} graph 2")
+        self.log.append(f"{self.name} launch")
+        self.replays += 1
+
+    def replayed(self):
+        return collections.Counter({"stem_conv7x4": self.replays})
 
 
 def _replaying(name, log):
@@ -361,15 +364,20 @@ def _replaying(name, log):
 
 
 def test_replicas_enqueue_their_graphs_before_any_predicate_read():
-    """``graphs.run_together`` enqueues every replica's graphs up to its
-    choice before any replica reads its predicate, and returns each one's
-    outputs in order."""
+    """``graphs.run_together`` replays each replica as one launch (its
+    choices are conditional nodes, taken on the card), every replica's
+    launch enqueued before any output is returned; an eager replica runs
+    its body in turn; the outputs come back in order, and each replica
+    counts its replay and the launches it ran."""
     from sast_tpu_torch import graphs
 
     log = []
-    assert graphs.run_together([_replaying("a", log), _replaying("b", log)]) == ["a", "b"]
-    assert log == ["a graph 1", "b graph 1", "a reads its predicate", "a graph 2",
-                   "b reads its predicate", "b graph 2"]
+    eager = graphs.Captured(lambda: log.append("c body") or "c", "cpu")
+    runs = [_replaying("a", log), _replaying("b", log), eager]
+    assert graphs.run_together(runs) == ["a", "b", "c"]
+    assert log == ["a launch", "b launch", "c body"]
+    assert [r.replays for r in runs] == [1, 1, 0]
+    assert runs[0].replayed == collections.Counter({"stem_conv7x4": 1})
 
 
 @pytest.mark.parametrize("change", ["looped", "none"])
@@ -385,7 +393,6 @@ def test_captured_graphs_follow_the_kernel_switch(change):
     run._warm_up_and_capture = lambda: log.append("captured") or "new"
     with looped_kernel(change == "looped"):
         out = run()
-    assert (out, log) == (("new", ["captured"]) if change == "looped" else
-                          ("a", ["a graph 1", "a reads its predicate", "a graph 2"]))
+    assert (out, log) == (("new", ["captured"]) if change == "looped" else ("a", ["a launch"]))
     assert run.replays == (change != "looped")
     assert graphs._kernel_switches() == (False,)

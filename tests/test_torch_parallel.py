@@ -67,13 +67,29 @@ def _free_port() -> int:
 
 def _rank_entry(rank, fn, port, out_dir, args):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=WORLD)
+    store = dist.TCPStore("127.0.0.1", port, WORLD, is_master=rank == 0)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=WORLD)
     try:
         result = fn(dp.make_mesh("cpu"), *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
-    finally:
+    except BaseException:
         dist.destroy_process_group()
+        raise
+    leave_together(store)
+
+
+def leave_together(store) -> None:
+    """Tear a world down so that no rank leaves while another is still in
+    it: a barrier, so that no collective is in flight when a rank closes its
+    connections; then each rank destroys its process group and counts
+    itself out on the store, and rank 0, whose process serves the store,
+    keeps it until every rank has counted itself out."""
+    rank = dist.get_rank()
+    dist.barrier()
+    dist.destroy_process_group()
+    store.add("left", 1)
+    while rank == 0 and store.add("left", 0) < WORLD:
+        time.sleep(0.01)
 
 
 def _spawn(fn, tmp_path, *args):

@@ -360,34 +360,40 @@ def _choosing(attention):
 @pytest.mark.parametrize("attention, sparse, switch", [
     (dict(gather_budget=0.5), False, "attention.gather_budget=0.5"),
     (dict(pallas_density_threshold=0.5), True, "attention.pallas_density_threshold=0.5"),
-], ids=["gather", "threshold"])
-def test_graph_refuses_a_configuration_that_chooses_on_the_card(attention, sparse, switch):
-    """A layer that chooses its branch on the card in training cannot be
-    captured: on a card with ``graph=True`` the first train call refuses
-    it, naming the layer, the switch and ROADMAP item 8, before it touches
-    the card (building the step refuses nothing: a trainer that only
-    validates captures its eval step, which splits at the choice);
-    ``graph=False`` takes it, and so does the CPU (eager); a gather budget
-    of 1 and the default threshold choose nothing."""
+    (dict(gather_budget=1.0), False, None),
+    (dict(), True, None),
+], ids=["gather", "threshold", "gather-1.0", "threshold-1.0"])
+def test_graph_takes_a_configuration_that_chooses_on_the_card(attention, sparse, switch,
+                                                              monkeypatch):
+    """A layer that chooses its branch on the card in training is captured
+    with its choice: ``refuse_capture`` refuses nothing without a gloo
+    world, and building the captured train step on a card refuses nothing.
+    The body a card captures (eager here) takes every choice through
+    ``graphs.choose``, forward and backward, labelled by the layer's switch,
+    and trains to finite metrics; a gather budget of 1 and the default
+    threshold choose nothing."""
     cfg = _choosing(attention)
     model = build_detector(cfg.model, seed=0, device="cpu", sparse_kernel=sparse)
+    t_steps.refuse_capture()
     state = t_steps.train_state_for(model, cfg)
     fns = {"train": t_steps.make_train_step(model, cfg), "eval": t_steps.make_eval_step(model, cfg)}
-    batch = split_device_batch(_batches(cfg)[0])[0]
-    run = t_steps.CapturedTrainStep(fns, state, cfg, "cuda", graph=True)
-    t_steps.CapturedEvalStep(fns, model, cfg, "cuda", graph=True)
-    for _ in range(2):
-        with pytest.raises(ValueError, match=r"backbone\..*attn .*" + switch.replace(".", r"\.")
-                           + r".*item 8.*graph=False"):
-            run(batch)
-        assert run.step is None and run.buffers is None and state.optimizer.count == 0
-    t_steps.CapturedTrainStep(fns, state, cfg, "cuda", graph=False)
+    t_steps.CapturedTrainStep(fns, state, cfg, "cuda", graph=True)
+    labels = []
+    choose = graphs.choose
+
+    def spy(pred, true_fn, false_fn, operands, label="a choice"):
+        labels.append(label)
+        return choose(pred, true_fn, false_fn, operands, label)
+
+    monkeypatch.setattr(graphs, "choose", spy)
     run = t_steps.CapturedTrainStep(fns, state, cfg, "cpu", graph=True)
-    metrics = run(batch)
-    assert np.isfinite(float(metrics["loss"]))
-    for plain in (dict(gather_budget=1.0), dict()):
-        t_steps.refuse_capture(build_detector(_choosing(plain).model, seed=0, device="cpu",
-                                              sparse_kernel=True))
+    metrics = run(split_device_batch(_batches(cfg)[0])[0])
+    assert np.isfinite(float(metrics["loss"])) and state.optimizer.count == 1
+    if switch is None:
+        assert labels == []
+    else:
+        assert set(labels) == {switch, f"the backward of {switch}"}
+        assert labels.count(switch) == 2 * labels.count(f"the backward of {switch}") > 0
 
 
 def test_graph_refuses_a_gloo_world(tmp_path):
@@ -409,6 +415,7 @@ def test_graph_refuses_a_gloo_world(tmp_path):
             run(split_device_batch(_batches(cfg)[0])[0])
         assert run.step is None
         t_steps.CapturedTrainStep(fns, state, cfg, "cuda", graph=False, mesh=mesh)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

@@ -15,8 +15,9 @@ batch as ``train.py`` scales it: ``lr * sqrt(batch_size_train * N / 8)``.
 on the card (one process); ``--profile-steps FIRST:LAST`` records a
 ``torch.profiler`` trace of those steps into ``<workdir>/trace``. On a
 card the train and eval steps run as captured CUDA graphs, as ``train.py``
-runs its jitted steps; ``--eager`` runs them eagerly (a gloo world, or a
-configuration whose layers choose their branch on the card, needs it).
+runs its jitted steps (a layer that chooses its branch on the card as a
+conditional node of the graph); ``--eager`` runs them eagerly (a gloo world
+needs it).
 
 Examples:
     python train_torch.py --dataset gen1 --size base --data /data/gen1 \
@@ -96,8 +97,7 @@ def main(argv=None):
                     "must fit; sast_tpu_torch/data/device_cache.py)")
     ap.add_argument("--eager", action="store_true",
                     help="run the train and eval steps eagerly instead of as captured CUDA "
-                    "graphs (Trainer(graph=False)); a configuration whose layers choose their "
-                    "branch on the card trains so")
+                    "graphs (Trainer(graph=False)); a gloo world trains so")
     ap.add_argument("--profile-steps", metavar="FIRST:LAST", default=None,
                     help="record a torch.profiler trace of these training steps (inclusive) "
                     "into <workdir>/trace; view with TensorBoard or Perfetto")
