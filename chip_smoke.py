@@ -225,6 +225,7 @@ Exits non-zero, printing no result, without a card or outside a checkout.
 from __future__ import annotations
 
 import atexit
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -1324,7 +1325,7 @@ def phase_attention_paths(torch, np, cfg, model, det_masked, frames, masked_outs
         looped = name in ATTENTION_PATHS and ATTENTION_PATHS[name][2]
         sparse_block.MODEL_USES_LOOPED, default = looped, sparse_block.MODEL_USES_LOOPED
         try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
                     det.step(pk, nk, no_reset)
                 torch.cuda.synchronize()
@@ -1487,6 +1488,29 @@ def training_batches(torch, np, cfg):
     return _MADE["training_batches"]
 
 
+def flop_count(torch):
+    """A dispatch mode that sums, in ``.total``, the FLOPs of the operators
+    it sees by ``FlopCounterMode``'s formulas (``torch.utils.flop_counter.
+    flop_registry``, where the kernels' operators register theirs): the
+    same count without ``FlopCounterMode``'s tracking of modules, which
+    costs about a B 12 eager step's time again."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class FlopCount(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.total += formula(*args, **kwargs, out_val=out)
+            return out
+
+    return FlopCount()
+
+
 def phase_training(torch, np, card):
     """``Trainer.fit`` at gen4-base width on the sparse-kernel and the masked
     path, then fp32 steps on the card against the CPU at a cut size."""
@@ -1573,7 +1597,9 @@ def phase_training(torch, np, card):
             trainer.state, lstm, _ = trainer.train_step(trainer.state, b, lstm)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / len(dev_batches[2:]) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # The card's activity only: recording the host's operators too takes
+        # about 10 s of an eager B 12 step, and only kernel rows are read.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             trainer.train_step(trainer.state, dev_batches[-1], lstm)
             torch.cuda.synchronize()
         table = kernel_table(prof)
@@ -3919,7 +3945,7 @@ def phase_graph_paths(torch, np, cfg, model, frames, inputs, cond_inputs):
                 if missing or not want:
                     fail(f"graph {name}: one replay ran {sorted(ran)}, its profiler rows name "
                          f"{sorted(named['hand_written'])}; missing {sorted(missing)}")
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(3):
                         eager.step(pk, nk, no_reset)
                     torch.cuda.synchronize()
@@ -3965,10 +3991,10 @@ def phase_graph_deployment(torch, np, cfg, model, inputs, cond_inputs):
     eager mesh; a loaded artifact (default path, and the gather and
     threshold configurations whose layers choose on the card, over
     ``cond_inputs``: each replay one graph launch, every choice both
-    branches), captured, against the captured live detector, and the
-    parameter casts left in its graph; new weights loaded into a captured
-    detector that has stepped, against a fresh detector on those
-    weights."""
+    branches), captured, against the captured live detector, and no
+    parameter cast left in its graph or its branches; new weights loaded
+    into a captured detector that has stepped, against a fresh detector on
+    those weights."""
     from sast_tpu_torch import export
     from sast_tpu_torch.models.detector import build_detector
     from sast_tpu_torch.serving import StreamingDetector
@@ -4012,8 +4038,9 @@ def phase_graph_deployment(torch, np, cfg, model, inputs, cond_inputs):
                                         ("artifact", art._step.run, art_launched)):
                 one_launch_check(run, len(name_inputs) - 1, launched.n,
                                  f"graph artifact {name} {what}")
-        if name == "default" and casts:
-            fail(f"graph artifact {name}: {casts} parameter casts left in the graph")
+        if casts:
+            fail(f"graph artifact {name}: {casts} parameter casts left in the graph or its "
+                 f"branches")
         pk, nk, _ = inputs[0]
         no_reset = torch.zeros(STREAMS, dtype=torch.bool, device=DEVICE)
         turns = [cuda_ms(torch, lambda d=d: d.step(pk, nk, no_reset), iters=20, warmup=3)
@@ -4065,7 +4092,7 @@ def phase_eleven(torch, np):
 # Phase 12: train and validate as JAX's jitted and donated steps do.
 
 TRAIN_GRAPH_STEPS = 4  # fit steps of each captured-against-eager run (12a)
-GRAPH_TURN_STEPS = 3  # train steps per timing turn (12a), E C C E
+GRAPH_TURN_STEPS = 3  # train steps per timing turn (12a), E C
 # path -> (sparse_kernel_eval, kernel F, attention switches, backbone switches)
 EVAL_GRAPH_PATHS = {"default": (False, False, {}, {}), "sparse": (True, False, {}, {}),
                     "looped": (True, True, {}, {}), "fused": (False, False, {"fused_block": True}, {}),
@@ -4201,22 +4228,73 @@ def choosing_train_batches(np, batches):
             dict(second, ev_repr=np.zeros_like(second["ev_repr"])), second]
 
 
+@contextlib.contextmanager
+def branch_forwards():
+    """The forward calls of the attention layers' branch functions
+    (``masked``, ``gathered``, ``kernel`` of ``models/sast.
+    MaskedSparseAttention``) made while a ``graphs.Schedule`` captured, by
+    the graph they were captured into (the ``id`` of its
+    ``torch.cuda.CUDAGraph``)."""
+    from sast_tpu_torch import graphs
+    from sast_tpu_torch.models.sast import MaskedSparseAttention
+
+    counts = collections.Counter()
+    saved = {n: getattr(MaskedSparseAttention, n) for n in ("masked", "gathered", "kernel")}
+
+    def spy(orig):
+        def branch(self, *args, **kw):
+            schedule = graphs._active.schedule
+            if schedule is not None and not schedule.warming:
+                counts[id(schedule._graph)] += 1
+            return orig(self, *args, **kw)
+        return branch
+
+    for n, fn in saved.items():
+        setattr(MaskedSparseAttention, n, spy(fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(MaskedSparseAttention, n, fn)
+
+
+def replayed_branch_forwards(schedule, counts):
+    """The branch forwards a replay of ``schedule`` ran, on average: each
+    graph's captured calls (``branch_forwards``) times the replays that ran
+    it (a segment every replay, a branch as often as the card took it)."""
+    taken = schedule.taken.tolist()
+    total, i = 0, 0
+    for item in schedule.items:
+        if item[0] == "run":
+            total += counts[id(item[1])] * schedule.replays
+            continue
+        total += sum(counts[id(graph)] * n for (graph, _), n in zip(item[2:4], taken[i]))
+        i += 1
+    return total / schedule.replays
+
+
 def phase_graph_train(torch, np, card, work, batches, eager_card=None):
     """12a: ``fit`` over 4 steps at gen4-base (B 12, T 5, L 3, remat full) on
     the sparse-kernel path (A, E, G, H), the masked path and the two
     configurations whose layers choose on the card (``TRAIN_GRAPH_PATHS``;
     their batches from ``choosing_train_batches``, each replay one graph
-    launch, every choice both branches by the counters on the card), in
+    launch, every choice both branches by the counters on the card, and at
+    most two branch forwards a replay per layer and timestep, the forward's
+    and the recomputation's: ``branch_forwards``), in
     fp32 and bf16, captured (``graph=True``) against eager, from one seed
     and the same batches, cuDNN and torch in their deterministic modes:
     every logged metric and all that the step writes (parameters, BatchNorm
     statistics, EMA copy, optimizer count and moments, LSTM states) bit for
     bit. Then, bf16, in the default modes: a fresh eager and a fresh
     captured trainer's first step (capture seconds, peak memory), ms/step in
-    turns E C C E (CUDA events and host clock), the card's kernel time of
-    one step each (``torch.profiler``; the eager step's from phase 5's
-    profile of the same step where ``eager_card`` holds it, by path) and
-    the idle share; after more captured steps, the trainer's captured eval
+    turns E C (CUDA events and host clock), the card's kernel time of one
+    step each (``torch.profiler``; the eager step's from phase 5's profile
+    of the same step where ``eager_card`` holds it, by path), the idle
+    share, the FLOPs of one eager step (``flop_count``); each choosing
+    configuration's eager
+    peak within 0.3 GiB of the path it chooses against (masked for gather,
+    sparse for threshold), and the gather step's FLOPs at most 1.01 times
+    the masked one's; after more captured steps, the trainer's captured eval
     step against a fresh model holding the trained weights (a replay writes
     the weights without moving their versions)."""
     from torch.profiler import ProfilerActivity, profile
@@ -4225,6 +4303,7 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
     from sast_tpu_torch.config import get_config
     from sast_tpu_torch.data.batch import split_device_batch, to_device
     from sast_tpu_torch.models.detector import YoloXDetector
+    from sast_tpu_torch.models.sast import MaskedSparseAttention
     from sast_tpu_torch.training.loop import Trainer
     from sast_tpu_torch.training.steps import CapturedEvalStep, make_eval_step
     from sast_tpu_torch.utils.profiling import kernel_table
@@ -4246,7 +4325,7 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
                 del twin
                 torch.cuda.empty_cache()
                 reset_counters()
-                with graph_launches() as launched:
+                with graph_launches() as launched, branch_forwards() as captured_forwards:
                     rows_c = step_metrics(trainer._train, path_batches)
             torch.cuda.synchronize()
             counts = read_counters()
@@ -4256,6 +4335,18 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
                 fail(f"graph train {name} {dtype}: {run.replays} replays")
             taken = one_launch_check(run, TRAIN_GRAPH_STEPS - 1, launched.n,
                                      f"graph train {name} {dtype}", choosing)
+            if choosing:
+                # The branches' forwards per layer and timestep of a replay:
+                # the forward's and the recomputation's, none in a backward.
+                layers = sum(isinstance(m, MaskedSparseAttention) for m in trainer.model.modules())
+                T = path_batches[0]["ev_repr"].shape[0]
+                forwards = (replayed_branch_forwards(run.schedule, captured_forwards)
+                            if run.schedule is not None else 0.0)
+                forwards_per = forwards / (layers * T)
+                if forwards_per > 2:
+                    fail(f"graph train {name} {dtype}: a replay runs {forwards_per} branch forwards "
+                         f"per layer and timestep (more than the forward's and the "
+                         f"recomputation's)")
             for k, v in captured_launches(counts, [run]).items():
                 launches[k] = launches.get(k, 0) + v
             replayed = dict(+run.replayed)
@@ -4276,12 +4367,15 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
             if choosing:
                 res[f"{name}_{dtype}"].update(choices=len(taken),
                                               first_taken=sum(t[0] for t in taken),
-                                              second_taken=sum(t[1] for t in taken))
+                                              second_taken=sum(t[1] for t in taken),
+                                              branch_forwards_per_replay=forwards,
+                                              branch_forwards_per_layer_timestep=forwards_per)
             log(f"graph train {name} {dtype}: captured = eager bit for bit over "
                 f"{TRAIN_GRAPH_STEPS} steps ({len(state_c)} tensors, every metric; losses "
                 f"{[round(r['loss'], 5) for r in rows_c]}); the replays ran {replayed}"
                 + (f"; one launch a replay, {len(taken)} choices (forward, recomputation and "
-                   f"backward), each both branches on the card" if choosing else ""))
+                   f"backward), each both branches on the card; {forwards} branch forwards a "
+                   f"replay, {forwards_per} per layer and timestep" if choosing else ""))
             del state_e, state_c
             torch.cuda.empty_cache()
 
@@ -4306,22 +4400,27 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
             torch.cuda.synchronize()
             peak[graph] = dict(allocated=torch.cuda.max_memory_allocated() - before,
                                reserved=torch.cuda.max_memory_reserved(), first_step_s=first_s)
-        # E C C E; the choosing configurations, whose eager step reads the
-        # host at every choice, one turn each (E C).
+        # One turn each (E C): the eager step's time follows the host's pace.
         turns = {False: [], True: []}
-        for graph in (False, True) if choosing else (False, True, True, False):
+        for graph in (False, True):
             turns[graph].append(step_times(torch, lambda r=steps[graph]: r(dev_batch),
                                            GRAPH_TURN_STEPS))
+        # The card time of one step of each (the eager one from phase 5's
+        # profile where it has it; the card's activity only, as there), and
+        # the FLOPs of one more eager step, unprofiled (the kernels'
+        # operators count as their plain versions at full window density).
         busy = {}
         for graph in (False, True):
             if not graph and eager_card and name in eager_card:
                 busy[graph] = dict(kernel_ms=eager_card[name]["card_ms"],
                                    hand_written=eager_card[name]["hand_written_kernels_ms"])
                 continue
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 steps[graph](dev_batch)
                 torch.cuda.synchronize()
             busy[graph] = kernel_table(prof)
+        with flop_count(torch) as flops:
+            steps[False](dev_batch)
         timing = {}
         for graph, kind in ((False, "eager"), (True, "captured")):
             ev = sorted(t[0] for t in turns[graph])
@@ -4335,6 +4434,7 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
                 peak_reserved_gib=peak[graph]["reserved"] / 2 ** 30,
                 first_step_s=peak[graph]["first_step_s"])
         timing["capture_s"] = capture_s
+        timing["eager_tflop"] = flops.total / 1e12
         res[f"{name}_timing"] = timing
         log(f"graph train {name} bf16 on {card}: ms/step eager "
             f"{[round(t[0], 3) for t in turns[False]]} (host {[round(t[1], 3) for t in turns[False]]})"
@@ -4347,7 +4447,8 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
             f"{timing['captured']['peak_allocated_gib']:.3f} (reserved "
             f"{timing['eager']['peak_reserved_gib']:.3f} / "
             f"{timing['captured']['peak_reserved_gib']:.3f}); capture {capture_s} s, first step "
-            f"eager {peak[False]['first_step_s']:.3f} s / captured {peak[True]['first_step_s']:.3f} s")
+            f"eager {peak[False]['first_step_s']:.3f} s / captured {peak[True]['first_step_s']:.3f} s"
+            f"; {timing['eager_tflop']:.4f} TFLOP an eager step")
         if name == "sparse":
             # Item 4's trap: the eval step captured, then captured train
             # steps, then the eval step replayed: a fresh model's bits.
@@ -4378,6 +4479,26 @@ def phase_graph_train(torch, np, card, work, batches, eager_card=None):
             del fresh, ref_run, run
         del steps, trainer
         torch.cuda.empty_cache()
+    # Each choosing configuration beside the path it chooses against: what
+    # its forward keeps for the backward is the taken branch's residuals of
+    # one timestep, as on that path, so its eager peak stays within 0.3 GiB
+    # of that path's; a gather step computes no more than the masked one.
+    for chooser, plain in (("gather_0.5", "masked"), ("threshold_0.5", "sparse")):
+        a, b = res[f"{chooser}_timing"], res[f"{plain}_timing"]
+        beside = {f"{kind}_peak_gib": [a[kind]["peak_allocated_gib"], b[kind]["peak_allocated_gib"]]
+                  for kind in ("eager", "captured")}
+        beside["eager_tflop"] = [a["eager_tflop"], b["eager_tflop"]]
+        beside["card_ms"] = {kind: [a[kind]["card_ms"], b[kind]["card_ms"]]
+                             for kind in ("eager", "captured")}
+        res[f"{chooser}_beside_{plain}"] = beside
+        log(f"graph train {chooser} beside {plain} (bf16 on {card}): {beside}")
+        if beside["eager_peak_gib"][0] > beside["eager_peak_gib"][1] + 0.3:
+            fail(f"graph train {chooser}: the eager step's peak, {beside['eager_peak_gib'][0]:.3f} "
+                 f"GiB above its start, exceeds the {plain} path's "
+                 f"{beside['eager_peak_gib'][1]:.3f} by more than 0.3 GiB")
+        if chooser == "gather_0.5" and beside["eager_tflop"][0] > 1.01 * beside["eager_tflop"][1]:
+            fail(f"graph train {chooser}: {beside['eager_tflop'][0]:.4f} TFLOP an eager step "
+                 f"against the masked path's {beside['eager_tflop'][1]:.4f}")
     res["launches"] = launches
     return res
 

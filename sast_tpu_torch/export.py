@@ -6,13 +6,14 @@ tensorize, recurrent backbone, head, NMS) traced by ``torch.export`` into
 one ``ExportedProgram`` and saved with ``torch.export.save``:
 
 - the **weights are baked** into the artifact (they are the program's
-  parameters and buffers, saved beside its graph); each parameter that the
-  step only ever reads cast to one dtype (the compute dtype: conv and dense
-  kernels, most biases) is stored cast, so the graph holds no cast of a
-  parameter, as JAX bakes its weights in as constants of the compute dtype
-  (sast_tpu/export.py:72-76). Parameters read at their own dtype anywhere
-  (norm scales, the block kernels' fp32 vectors, BatchNorm statistics) stay
-  as they are, and so do those that only the branches of a cond node read;
+  parameters and buffers, saved beside its graph), and the graph and the
+  branches of its cond nodes hold no cast of a parameter, as JAX bakes its
+  weights in as constants of the compute dtype (sast_tpu/export.py:72-76):
+  a parameter that the step only ever reads cast to one dtype (conv and
+  dense kernels, most biases) is stored cast; one read both at its own
+  dtype (norm scales, the block kernels' fp32 vectors, BatchNorm
+  statistics) and cast (the masked branch's biases beside the kernel's)
+  gets a second parameter of the cast values (``bake_compute_weights``);
 - the carried LSTM state, the packed events, the valid counts and the reset
   mask stay **runtime inputs**;
 - the hand-written kernels stand in the graph as the operators
@@ -103,42 +104,143 @@ def export_streaming_detector(det, path=None) -> bytes:
     return blob
 
 
+def _is_cast(node: torch.fx.Node) -> bool:
+    return node.target is torch.ops.aten.to.dtype and len(node.args) == 2 and not node.kwargs
+
+
+def _reach(gm: torch.fx.GraphModule, node: torch.fx.Node, via=None) -> list:
+    """``(graph module, node, via)`` for ``node`` in ``gm`` and for each
+    placeholder that stands for it in the branches of the cond nodes that
+    take it as an operand, recursively; ``via`` is the ``(graph module,
+    cond node)`` through which a branch receives it (None in ``gm``)."""
+    out = [(gm, node, via)]
+    for user in node.users:
+        if user.target is not torch.ops.higher_order.cond:
+            continue
+        for i, operand in enumerate(user.args[3]):
+            if operand is not node:
+                continue
+            for branch in user.args[1:3]:
+                sub = getattr(gm, branch.target)
+                holder = [n for n in sub.graph.nodes if n.op == "placeholder"][i]
+                out += _reach(sub, holder, (gm, user))
+    return out
+
+
+def _uses(reach) -> list:
+    """The ``(graph module, node)`` of every use of what ``reach`` lists,
+    other than the cond nodes that pass it into their branches."""
+    return [(gm, u) for gm, node, _ in reach for u in node.users
+            if u.target is not torch.ops.higher_order.cond or node not in u.args[3]]
+
+
+def _add_parameter(program, after: torch.fx.Node, fqn: str, value: torch.Tensor,
+                   val) -> torch.fx.Node:
+    """A new parameter ``fqn`` holding ``value`` (``val``: its fake tensor):
+    its placeholder after the parameter placeholder ``after`` and its input
+    spec after ``after``'s."""
+    from torch.export.graph_signature import InputKind, InputSpec, TensorArgument
+
+    with program.graph.inserting_after(after):
+        node = program.graph.placeholder(fqn.replace(".", "_"))
+    node.meta["val"] = val
+    specs = program.graph_signature.input_specs
+    at = next(i for i, spec in enumerate(specs) if spec.arg.name == after.name)
+    specs.insert(at + 1, InputSpec(kind=InputKind.PARAMETER, arg=TensorArgument(name=node.name),
+                                   target=fqn, persistent=None))
+    program.state_dict[fqn] = torch.nn.Parameter(value, requires_grad=False)
+    return node
+
+
 def bake_compute_weights(program) -> int:
-    """Store each parameter of ``program`` whose every use in its graph is a
-    cast to one dtype cast to that dtype, and drop the casts (in place).
-    Returns how many were baked. The values are those the casts computed, so
-    the program's results keep their bits."""
-    names = program.graph_signature.inputs_to_parameters
-    baked = 0
-    for node in list(program.graph.nodes):
-        if node.op != "placeholder" or node.name not in names:
-            continue
-        users = list(node.users)
-        if not users or any(u.target is not torch.ops.aten.to.dtype or len(u.args) != 2
-                            or u.kwargs for u in users):
-            continue
-        dtypes = {u.args[1] for u in users}
+    """Bake the parameters of ``program`` into the dtypes its graph and the
+    branches of its cond nodes read them in, and drop every cast of a
+    parameter there (in place):
+
+    - a cast to the parameter's own dtype, which returns its input, goes;
+    - a parameter whose every other use is a cast to one dtype is stored in
+      that dtype;
+    - a parameter also read at its own dtype keeps it, and each dtype it is
+      cast to gets a parameter of its own, ``<name>_<dtype>``, which enters
+      the branches that read it as a new operand of their cond nodes.
+
+    Returns how many parameters were baked (stored cast or given a cast
+    twin). The values are those the casts computed, so the program's
+    results keep their bits."""
+    names = dict(program.graph_signature.inputs_to_parameters)
+    params = [n for n in program.graph.nodes if n.op == "placeholder" and n.name in names]
+    modules = [m for m in program.graph_module.modules() if isinstance(m, torch.fx.GraphModule)]
+    baked, made = 0, {}
+    for node in list(params):
         fqn = names[node.name]
         held = program.state_dict[fqn]
-        if len(dtypes) != 1 or held.dtype in dtypes:
+        reach = _reach(program.graph_module, node)
+        for gm, use in _uses(reach):
+            if _is_cast(use) and use.args[1] == held.dtype:
+                use.replace_all_uses_with(use.args[0])
+                gm.graph.erase_node(use)
+        uses = _uses(reach)
+        casts = {}
+        for gm, use in uses:
+            if _is_cast(use):
+                casts.setdefault(use.args[1], []).append((gm, use))
+        if not casts:
             continue
-        (dtype,) = dtypes
-        program.state_dict[fqn] = torch.nn.Parameter(held.detach().to(dtype), requires_grad=False)
-        node.meta["val"] = node.meta["val"].to(dtype)
-        for u in users:
-            u.replace_all_uses_with(node)
-            program.graph.erase_node(u)
         baked += 1
-    program.graph_module.recompile()
+        if len(casts) == 1 and sum(map(len, casts.values())) == len(uses):
+            ((dtype, _),) = casts.items()
+            program.state_dict[fqn] = torch.nn.Parameter(held.detach().to(dtype),
+                                                         requires_grad=False)
+            for _, holder, _ in reach:
+                holder.meta["val"] = holder.meta["val"].to(dtype)
+            for gm, use in casts[dtype]:
+                use.replace_all_uses_with(use.args[0])
+                gm.graph.erase_node(use)
+            continue
+        via = {gm: v for gm, _, v in reach}
+        for dtype, cast_uses in casts.items():
+            twin = _add_parameter(program, params[-1], f"{fqn}_{str(dtype).split('.')[-1]}",
+                                  held.detach().to(dtype), node.meta["val"].to(dtype))
+            params.append(twin)
+            for gm, use in cast_uses:
+                value = twin if via[gm] is None else _operand_in(program, twin, gm, via[gm], made)
+                use.replace_all_uses_with(value)
+                gm.graph.erase_node(use)
+    for gm in modules:
+        gm.recompile()
     return baked
 
 
+def _operand_in(program, value: torch.fx.Node, sub: torch.fx.GraphModule, via,
+                made: dict) -> torch.fx.Node:
+    """``value``, a placeholder of the top graph, inside the branch graph
+    ``sub`` of the cond node that ``via`` (``_reach``'s) names: a new last
+    operand of that cond node and a new last placeholder of both its
+    branches, made once (``made``). Cond nodes of the top graph only."""
+    gm, cond = via
+    if gm is not program.graph_module:
+        raise NotImplementedError("a parameter cast inside a cond node nested in a branch")
+    key = (cond, value)
+    if key not in made:
+        cond.args = (*cond.args[:3], type(cond.args[3])([*cond.args[3], value]))
+        made[key] = {}
+        for branch in cond.args[1:3]:
+            graph = getattr(gm, branch.target).graph
+            last = [n for n in graph.nodes if n.op == "placeholder"][-1]
+            with graph.inserting_after(last):
+                holder = graph.placeholder(value.name)
+            holder.meta["val"] = value.meta["val"]
+            made[key][branch.target] = holder
+    return made[key][next(b.target for b in cond.args[1:3] if getattr(gm, b.target) is sub)]
+
+
 def parameter_casts(program) -> int:
-    """How many nodes of ``program``'s graph cast a parameter directly."""
+    """How many nodes of ``program``'s graph, and of the branches of its cond
+    nodes, cast a parameter directly."""
     names = program.graph_signature.inputs_to_parameters
     return sum(1 for node in program.graph.nodes
                if node.op == "placeholder" and node.name in names
-               for u in node.users if u.target is torch.ops.aten.to.dtype)
+               for _, use in _uses(_reach(program.graph_module, node)) if _is_cast(use))
 
 
 class _CondInterpreter(torch.fx.Interpreter):

@@ -42,15 +42,18 @@ computed as JAX computes them (``branch_predicate``). Under a trace
 ``lax.cond``; the eager step reads it back, one host synchronisation per
 such layer; a captured step takes it on the card, in a conditional graph
 node (``graphs.Schedule``). Under grad mode the choice is differentiable as
-JAX's ``cond`` is (``_Choice``): its backward chooses, on the same
-predicate, between the two branches' vector-Jacobian products.
+JAX's ``cond`` is under ``linearize`` (``_Choice``): its forward records the
+taken branch's autograd graph with its residuals, and its backward chooses,
+on the same predicate, between the two branches' backward passes over those
+graphs; no branch runs its forward in the backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -323,6 +326,12 @@ def branch_predicate(win_keep: torch.Tensor, limit: int) -> torch.Tensor:
     return win_keep.sum(dtype=torch.int32) <= limit
 
 
+def branch_parameters(layer: nn.Module) -> List[Tuple[str, nn.Parameter]]:
+    """The parameters, by name, that ``layer``'s branches read: all but the
+    first norm's, which the layer applies before it chooses."""
+    return [(name, p) for name, p in layer.named_parameters() if not name.startswith("norm1.")]
+
+
 def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
            operands: Tuple[torch.Tensor, ...]) -> torch.Tensor:
     """JAX's ``lax.cond(pred, true_fn, false_fn)`` on ``layer``'s branches:
@@ -335,16 +344,18 @@ def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Ca
     The node is made by the cond operator itself, whose branches the export
     traces once: ``torch.cond`` would first trace them with dynamo as well,
     which takes most of an export's time. A branch graph may hold no tensor
-    of its own, so the layer's parameters and buffers enter each branch as
-    operands, bound to the layer by ``torch.func.functional_call``: the
-    lifting that dynamo does for ``torch.cond``."""
+    of its own, so the parameters that the branches read
+    (``branch_parameters``) enter each branch as operands, bound to the
+    layer by ``torch.func.functional_call``: the lifting that dynamo does
+    for ``torch.cond``."""
+    named = branch_parameters(layer)
     if not torch.compiler.is_compiling():
         if torch.is_grad_enabled():
-            params = _Choice.lifted(layer)
+            params = [p for _, p in named]
             if operands[0].requires_grad or any(p.requires_grad for p in params):
                 return _Choice.apply((layer, true_fn, false_fn), pred, *operands, *params)
         return graphs.choose(pred, true_fn, false_fn, operands, layer.choice_switch())
-    names, tensors = zip(*layer.named_parameters(), *layer.named_buffers())
+    names, tensors = zip(*named)
 
     def lifted(fn: Callable) -> Callable:
         call = _Branch(layer, fn)
@@ -358,59 +369,142 @@ def choose(layer: nn.Module, pred: torch.Tensor, true_fn: Callable, false_fn: Ca
                                        (*operands, *tensors))
 
 
-class _Choice(torch.autograd.Function):
-    """``lax.cond`` under ``jax.grad``: the forward is ``graphs.choose``
-    over the two branches; the backward is ``graphs.choose`` on the saved
-    predicate over the two branches' vector-Jacobian products, which return
-    the gradients of ``y`` and of the layer's parameters that the branches
-    read (``lifted``; zeros where a branch does not read one). Eagerly each
-    is one host read; in a captured train step each is a conditional node
-    on the card, the backward's too (autograd runs it on its own thread for
-    a card, which sees the capture's schedule, ``graphs._active``).
-
-    A vector-Jacobian product runs its branch again under grad mode from
-    the saved inputs, on the layer's own fp32 parameters (their casts to
-    the compute dtype are taken in the graph, ``models/layers.
-    compute_copy``), so the gradients land on those parameters; the sparse
-    kernel's branch takes kernels G and H through its own autograd
-    function (``ops/sparse_block._SparseBlockFn``)."""
+class _Entry(torch.autograd.Function):
+    """``y`` (detached) as the input of a branch's recorded graph: a view of
+    it that requires grad through a 0-element ``anchor``, so that the graph
+    reaches ``y``'s gradient at this node's output edge, holds no edge into
+    the graph that made ``y``, and does not hold ``y`` (a leaf made from
+    ``y`` would be held by its gradient accumulator, an activation kept
+    across the scan). Its backward never runs: the choice's backward stops
+    at that edge."""
 
     @staticmethod
-    def lifted(layer: nn.Module) -> list:
-        """The parameters the branches read: all but the first norm's,
-        which the layer applies before it chooses."""
-        return [p for name, p in layer.named_parameters() if not name.startswith("norm1.")]
+    def forward(ctx, y, anchor):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("a choice's branch graph was differentiated past its input")
+
+
+def _slot_hooks(outer) -> Tuple[torch.autograd.graph.saved_tensors_hooks, list]:
+    """Saved-tensor hooks for a branch run inside ``_Choice.forward`` under
+    the hooks ``outer`` that were active around it (non-reentrant
+    checkpointing's: the first forward packs a handle and keeps no tensor,
+    the recomputation refills the handles in pack order). Each tensor is
+    packed by ``outer`` into a slot, and the slots are returned with the
+    hooks. ``_resolve`` unpacks every slot with ``outer`` in the graph task
+    of the choice's own backward; the branch's graph is then differentiated
+    in a nested graph task, whose unpacks read the slots. Checkpointing
+    would take a nested graph task's unpack for a new backward and run the
+    timestep's forward once more."""
+    slots = []
+
+    def pack(x):
+        slot = [outer[0](x), None]
+        slots.append(slot)
+        return slot
+
+    def unpack(slot):
+        if slot[1] is None:
+            raise RuntimeError("a residual of a choice's branch was read before the choice's "
+                               "backward unpacked it, or twice")
+        value, slot[1] = slot[1], None
+        return value
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack), slots
+
+
+def _resolve(outer, slots: list) -> None:
+    for slot in slots:
+        slot[1], slot[0] = outer[1](slot[0]), None
+    slots.clear()
+
+
+class _Choice(torch.autograd.Function):
+    """``lax.cond`` under ``jax.grad``, as JAX linearizes it: the forward is
+    ``graphs.choose`` over the two branches, each run under grad mode on
+    ``y`` (``_Entry``) and on the layer's own fp32 parameters (their casts
+    to the compute dtype are taken in the graph, ``models/layers.
+    compute_copy``), so that the branch's autograd graph and its residuals
+    are recorded; the output leaves the Function detached. The backward is
+    ``graphs.choose`` on the saved predicate over the two branches' backward
+    passes over those graphs (``torch.autograd.grad`` from the output's
+    gradient edge to ``y``'s and to the parameters that the branches read,
+    ``branch_parameters``; zeros where a branch does not read one); no
+    branch runs its forward there. The sparse kernel's branch keeps its own
+    residuals and takes kernels G and H in its backward
+    (``ops/sparse_block._SparseBlockFn``).
+
+    Eagerly each choice is one host read and only the taken branch's graph
+    exists. In a captured train step both branches are captured, so both
+    graphs exist; a replay writes the taken branch's residuals and the
+    backward's conditional node reads only those: JAX's ``cond`` under
+    ``linearize`` outputs the union of both branches' residuals.
+    Autograd runs a card's backward on its own thread, which sees the
+    capture's schedule (``graphs._active``).
+
+    Under checkpointing (``training/steps.py``) the first forward records
+    only handles (``_slot_hooks``), the recomputation fills them, and the
+    backward unpacks them in its own graph task before it differentiates
+    the branch: the branches run twice per timestep, as JAX's remat runs
+    them, and nothing of a branch is held across the scan."""
 
     @staticmethod
     def forward(ctx, fns, pred, y, token_keep, win_keep, *params):
         layer, true_fn, false_fn = fns
-        ctx.fns = fns
-        ctx.save_for_backward(pred, y, token_keep, win_keep)
-        return graphs.choose(pred, true_fn, false_fn, (y, token_keep, win_keep),
-                             layer.choice_switch())
+        outer = torch._C._autograd._top_saved_tensors_default_hooks(True)
+        wants_y = ctx.needs_input_grad[2]
+        recorded = {}
+
+        def record(i: int, fn: Callable) -> Callable:
+            def branch(y, token_keep, win_keep):
+                hooks, slots = _slot_hooks(outer) if outer is not None else (None, [])
+                with torch.enable_grad(), hooks or contextlib.nullcontext():
+                    y_in = y
+                    if wants_y:
+                        anchor = torch.empty(0, device=y.device, requires_grad=True)
+                        y_in = _Entry.apply(y.detach(), anchor)
+                    out = fn(y_in, token_keep, win_keep)
+                recorded[i] = (torch.autograd.graph.get_gradient_edge(out),
+                               torch.autograd.graph.get_gradient_edge(y_in) if wants_y else None,
+                               slots)
+                return out.detach()
+            return branch
+
+        out = graphs.choose(pred, record(0, true_fn), record(1, false_fn),
+                            (y, token_keep, win_keep), layer.choice_switch())
+        ctx.layer, ctx.recorded, ctx.outer = layer, recorded, outer
+        ctx.save_for_backward(pred)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        layer, true_fn, false_fn = ctx.fns
-        pred, y, token_keep, win_keep = ctx.saved_tensors
-        params = _Choice.lifted(layer)
+        layer, recorded, outer = ctx.layer, ctx.recorded, ctx.outer
+        ctx.recorded = ctx.outer = None
+        (pred,) = ctx.saved_tensors
+        if outer is not None:
+            for _, _, slots in recorded.values():
+                _resolve(outer, slots)
+        params = [p for _, p in branch_parameters(layer)]
         wants_y = ctx.needs_input_grad[2]
         wrt = [i for i, p in enumerate(params) if ctx.needs_input_grad[5 + i]]
+        switch = layer.choice_switch()
 
-        def vjp(fn: Callable) -> Callable:
-            def branch(y, token_keep, win_keep, g):
-                with torch.enable_grad():
-                    y_in = y.detach().requires_grad_(wants_y)
-                    out = fn(y_in, token_keep, win_keep)
-                    leaves = ([y_in] if wants_y else []) + [params[i] for i in wrt]
-                    grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
-                return tuple(torch.zeros_like(t) if d is None else d
-                             for d, t in zip(grads, leaves))
+        def backward_of(i: int) -> Callable:
+            def branch(g):
+                if i not in recorded:
+                    raise RuntimeError(f"the backward of {switch} takes a branch whose forward "
+                                       "recorded no graph")
+                out_edge, y_edge, _ = recorded[i]
+                leaves = ([y_edge] if wants_y else []) + [params[j] for j in wrt]
+                grads = torch.autograd.grad(out_edge, leaves, g, allow_unused=True)
+                like = ([g] if wants_y else []) + [params[j] for j in wrt]
+                return tuple(torch.zeros_like(t) if d is None else d for d, t in zip(grads, like))
             return branch
 
-        grads = list(graphs.choose(pred, vjp(true_fn), vjp(false_fn),
-                                   (y, token_keep, win_keep, g.contiguous()),
-                                   f"the backward of {layer.choice_switch()}"))
+        grads = list(graphs.choose(pred, backward_of(0), backward_of(1), (g.contiguous(),),
+                                   f"the backward of {switch}"))
         dy = grads.pop(0) if wants_y else None
         dparams = [None] * len(params)
         for i, d in zip(wrt, grads):

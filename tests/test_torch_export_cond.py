@@ -10,11 +10,16 @@ one ``torch.cond`` node per such layer, the loaded artifact equals the live
 detector bit for bit over frames that drive every layer's predicate both
 ways (an empty first frame keeps few windows, the next ones many), and it
 matches the JAX package's artifact of the same configuration (its Pallas
-kernel in interpret mode, as tests/test_torch_paths.py runs it).
+kernel in interpret mode, as tests/test_torch_paths.py runs it). The
+weights are baked through the branches: no cast of a parameter is left in
+the graph or in a branch, in fp32 and in bf16, where the threshold
+configuration's masked branch casts the biases that its kernel branch
+reads in fp32.
 """
 
 import collections
 import dataclasses
+import io
 from functools import partial
 
 import jax
@@ -30,7 +35,7 @@ from sast_tpu.export import export_streaming_detector as j_export
 from sast_tpu.serving import StreamingDetector as JStreamingDetector
 from sast_tpu_torch import export
 from sast_tpu_torch.config import get_test_config
-from sast_tpu_torch.models.detector import YoloXDetector
+from sast_tpu_torch.models.detector import YoloXDetector, build_detector
 from sast_tpu_torch.models.sast import MaskedSparseAttention, density_limit, gather_size
 from sast_tpu_torch.serving import StreamingDetector
 from sast_tpu_torch.weights import load_jax_variables
@@ -189,3 +194,54 @@ def test_artifact_matches_the_jax_artifact(artifact, monkeypatch):
         for k in ("boxes", "scores", "obj_conf", "cls_conf"):
             np.testing.assert_allclose(ot[k], np.asarray(oj[k]), rtol=1e-5, atol=1e-4,
                                        err_msg=f"frame {i} {k}")
+
+
+def test_no_parameter_cast_in_the_graph_or_its_branches(artifact):
+    """``export.parameter_casts``, which counts inside the cond nodes'
+    branches, reads 0 on the loaded artifact: the casts of a parameter to
+    its own dtype (fp32 here) are gone from the branches as from the
+    graph."""
+    assert export.parameter_casts(artifact["artifact"].program) == 0
+
+
+def _top_level_casts(program):
+    names = program.graph_signature.inputs_to_parameters
+    return sum(1 for n in program.graph.nodes if n.op == "placeholder" and n.name in names
+               for u in n.users if u.target is torch.ops.aten.to.dtype)
+
+
+def test_baked_branches_in_bfloat16_keep_the_bits(monkeypatch):
+    """bf16, the threshold configuration: the program exported without the
+    bake casts parameters inside its branches, which ``parameter_casts``
+    counts beside the graph's own; baked, it holds none, stores the
+    matrices in bf16, gives each bias and LayerScale vector that the masked
+    branch casts and the kernel branch reads in fp32 a bf16 twin, and its
+    artifact, smaller, steps the live detector's bits over the frames."""
+    attention, sparse_kernel, _ = CONFIGS["threshold-0.5"]
+    cfg = _config(get_test_config, attention)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    live = StreamingDetector(cfg, build_detector(cfg.model, seed=0, device="cpu"), max_events=EVENTS,
+                             num_streams=2, device="cpu", sparse_kernel=sparse_kernel)
+    frames = _frames()
+    want = _run(live, frames)
+    live.reset()
+    bake, programs = export.bake_compute_weights, []
+    monkeypatch.setattr(export, "bake_compute_weights", lambda p: programs.append(p) or 0)
+    unbaked = len(export.export_streaming_detector(live))
+    (program,) = programs
+    top = _top_level_casts(program)
+    assert top > 0 and export.parameter_casts(program) > top
+    assert bake(program) > 0
+    assert export.parameter_casts(program) == 0
+    kept = program.state_dict
+    twins = [k for k in kept if k.endswith("_bfloat16")]
+    assert twins and all(kept[k].dtype == torch.bfloat16 for k in twins)
+    assert all(kept[k.removesuffix("_bfloat16")].dtype == torch.float32 for k in twins)
+    assert all(kept[k].dtype == torch.bfloat16 for k in kept if k.endswith("qkv.kernel"))
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    assert len(buf.getvalue()) < unbaked
+    art = export.ExportedStreamingDetector(buf.getvalue())
+    assert export.parameter_casts(art.program) == 0
+    _assert_same(_run(art, frames), want, "bf16 threshold")
+
