@@ -4978,12 +4978,7 @@ def main() -> None:
 
 
 def print_result(kernels, smi: str, kind: str, count: int) -> None:
-    """The kernels line, the card line and, last, the ok line. The timer
-    registry is emptied first: its exit-time table would land after the
-    last line."""
-    from sast_tpu_torch.utils import timers
-
-    timers.reset()
+    """The kernels line, the card line and, last, the ok line."""
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # Kernels redesigned since their first port; launches on phases 6-10.

@@ -52,6 +52,7 @@ import sast_tpu_torch.ops.sparse_block  # noqa: F401  (sparse_block_fwd, sparse_
 import sast_tpu_torch.ops.stem_conv  # noqa: F401  (stem_conv7x4, stem_conv_density7x4)
 from sast_tpu_torch import graphs
 from sast_tpu_torch.graphs import SERVING_INPUTS, Staging, serving_step
+from sast_tpu_torch.utils import timers
 
 ARTIFACT_NAME = "streaming_step.pt2"
 
@@ -333,10 +334,12 @@ class ExportedStreamingDetector:
         """One frame window per lane -> batched detections (the contract of
         ``StreamingDetector.process_batch``; both pack with
         ``packing.pack_event_batch`` and move the batch through page-locked
-        buffers on a card)."""
-        ((dets, p_tel),) = self._staging.batch(frames, reset, lambda *batch: [self._run(batch)])
-        return {k: v.numpy().copy() for k, v in dets.items()} | {
-            "selected_tokens": p_tel.numpy().copy()}
+        buffers on a card; the same spans and counters)."""
+        with timers.span("serve.batch"):
+            ((dets, p_tel),) = self._staging.batch(frames, reset,
+                                                   lambda *batch: [self._run(batch)])
+            return {k: v.numpy().copy() for k, v in dets.items()} | {
+                "selected_tokens": p_tel.numpy().copy()}
 
     def process_events(self, x: np.ndarray, y: np.ndarray, p: np.ndarray,
                        t: np.ndarray) -> Dict[str, np.ndarray]:

@@ -78,6 +78,7 @@ import torch.nn as nn
 import torch.utils._pytree as pytree
 
 from sast_tpu_torch.packing import pack_event_batch
+from sast_tpu_torch.utils import timers
 
 class _Active:
     """The schedule that ``choose`` consults: one per process, not per
@@ -634,32 +635,45 @@ class Staging:
         self.packed = torch.zeros((lanes, max_events, 4), dtype=torch.int32, pin_memory=pinned)
         self.n = torch.zeros((lanes,), dtype=torch.int32, pin_memory=pinned)
         self.reset = torch.zeros((lanes,), dtype=torch.bool, pin_memory=pinned)
+        self.upload_bytes = sum(t.nbytes for t in (self.packed, self.n, self.reset))
         self.down = None
 
     def batch(self, frames, reset, launch):
         """Pack ``frames`` and ``reset`` (None: no lane) into the upload
         buffers, ``launch(packed, n_events, reset)`` (each replica's
         ``(dets, p_tel)`` on its device), copy those down and wait once.
-        Returns the download buffers, which the next batch rewrites."""
+        Returns the download buffers, which the next batch rewrites.
+
+        Spans (``utils/timers``): ``serve.pack``, ``serve.launch`` (the
+        uploads, every replica's step and the downloads enqueued) and
+        ``serve.wait``; counters ``serve.events`` (the events packed) and
+        ``serve.upload_bytes`` (the whole upload: every lane's budget of
+        events, the counts and the resets)."""
         lanes, max_events = self.packed.shape[:2]
-        pack_event_batch(frames, lanes, max_events, out=(self.packed.numpy(), self.n.numpy()))
-        self.reset.numpy()[:] = False if reset is None else np.asarray(reset, bool)
-        with torch.no_grad():
-            outs = launch(self.packed, self.n, self.reset)
-        if self.down is None:
-            self.down = [pytree.tree_map(
-                lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=self.pinned), o)
-                for o in outs]
-        events = []
-        for host, out in zip(self.down, outs):
-            for h, d in zip(pytree.tree_leaves(host), pytree.tree_leaves(out)):
-                h.copy_(d, non_blocking=self.pinned)
-            if self.pinned:
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(pytree.tree_leaves(out)[0].device))
-                events.append(event)
-        for event in events:
-            event.synchronize()
+        with timers.span("serve.pack"):
+            pack_event_batch(frames, lanes, max_events, out=(self.packed.numpy(), self.n.numpy()))
+            self.reset.numpy()[:] = False if reset is None else np.asarray(reset, bool)
+        if timers.tracing():
+            timers.count("serve.events", int(self.n.sum()))
+            timers.count("serve.upload_bytes", self.upload_bytes)
+        with timers.span("serve.launch"):
+            with torch.no_grad():
+                outs = launch(self.packed, self.n, self.reset)
+            if self.down is None:
+                self.down = [pytree.tree_map(
+                    lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=self.pinned), o)
+                    for o in outs]
+            events = []
+            for host, out in zip(self.down, outs):
+                for h, d in zip(pytree.tree_leaves(host), pytree.tree_leaves(out)):
+                    h.copy_(d, non_blocking=self.pinned)
+                if self.pinned:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(pytree.tree_leaves(out)[0].device))
+                    events.append(event)
+        with timers.span("serve.wait"):
+            for event in events:
+                event.synchronize()
         return self.down
 
 
@@ -681,7 +695,8 @@ class BatchBuffers:
     nothing for a tensor that is the buffer itself (a producer gathered into
     it, ``data/device_cache.py``). The copies run on the current stream
     after the work queued before them, so a step still reading the previous
-    batch finishes first."""
+    batch finishes first. ``load`` is ``wait`` then ``fill``, which the
+    captured train step calls one by one, each in a span of its own."""
 
     def __init__(self, like: Dict, device):
         self.device = torch.device(device)
@@ -697,9 +712,20 @@ class BatchBuffers:
             for k, v in batch.items())
 
     def load(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        self.wait()
+        self.fill(batch)
+        return self.tensors
+
+    def wait(self) -> None:
+        """Block until the previous batch's copies from the staging ran."""
         if self._copied is not None:
             self._copied.synchronize()
             self._copied = None
+
+    def fill(self, batch: Dict) -> None:
+        """``load`` after ``wait``: each host array into its page-locked
+        staging buffer and a copy from there enqueued (on the CPU, into the
+        buffer itself), each tensor on the card into its buffer."""
         staged = False
         for k, value in batch.items():
             buf = self.tensors[k]
@@ -722,4 +748,3 @@ class BatchBuffers:
         if staged:
             self._copied = torch.cuda.Event()
             self._copied.record(torch.cuda.current_stream(self.device))
-        return self.tensors

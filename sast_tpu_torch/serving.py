@@ -38,6 +38,7 @@ from sast_tpu_torch.models.detector import (
 )
 from sast_tpu_torch.models.head import inference_outputs
 from sast_tpu_torch.ops.nms import postprocess
+from sast_tpu_torch.utils import timers
 from sast_tpu_torch.utils.padding import InputPadder, padding_token_mask
 
 
@@ -249,13 +250,15 @@ class StreamingDetector:
         On a card the events are packed into page-locked buffers, each
         device's lanes are copied up asynchronously, every device's step is
         launched, and the slates come back through page-locked buffers with
-        one wait.
+        one wait. The call is the span ``serve.batch`` (``utils/timers``),
+        around ``graphs.Staging.batch``'s spans and counters.
         """
-        host = self._staging.batch(frames, reset, lambda *batch: self._launch(
-            [tuple(t[self._lanes(i)] for t in batch) for i in range(len(self.steps))]))
-        out = {k: np.concatenate([d[k].numpy() for d, _ in host]) for k in host[0][0]}
-        tel = (host[0][1].numpy().copy() if len(host) == 1 else
-               np.mean(np.stack([p.numpy() for _, p in host]), axis=0, dtype=np.float32))
+        with timers.span("serve.batch"):
+            host = self._staging.batch(frames, reset, lambda *batch: self._launch(
+                [tuple(t[self._lanes(i)] for t in batch) for i in range(len(self.steps))]))
+            out = {k: np.concatenate([d[k].numpy() for d, _ in host]) for k in host[0][0]}
+            tel = (host[0][1].numpy().copy() if len(host) == 1 else
+                   np.mean(np.stack([p.numpy() for _, p in host]), axis=0, dtype=np.float32))
         return out | {"selected_tokens": tel}
 
     def process_events(

@@ -68,6 +68,7 @@ from sast_tpu_torch.training.steps import (
     make_eval_step,
     make_train_step,
 )
+from sast_tpu_torch.utils import timers
 from sast_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 from sast_tpu_torch.utils.viz import render_detection_frame, render_gradflow, save_png
 
@@ -376,7 +377,10 @@ class Trainer:
         training steps ``first`` to ``last`` (inclusive, counted from 1 over
         the run, so a resumed run inside the window records its rest) into
         ``<workdir>/trace``, one file per rank, each step a
-        ``train_step <n>`` range. At each log point the gradient norms
+        ``train_step <n>`` range around the step, the card cache's next
+        gather and a log point's read of the metrics, with the step's spans
+        (``fit.wait``, ``fit.stage``, ``fit.launch``; ``utils/timers``)
+        inside it. At each log point the gradient norms
         (``grad_norm/<component>`` and ``grad_norm``, as ``total``) join the
         gradient-flow history of this call, which each validation draws to
         ``<workdir>/viz/gradflow.png`` (on rank 0). Returns the last logged
@@ -405,14 +409,17 @@ class Trainer:
                 with (torch.profiler.record_function(f"train_step {step + 1}")
                       if profiler is not None else contextlib.nullcontext()):
                     metrics = self._train(device_batch)
-                if hasattr(train_batches, "gather_into"):  # the card cache's next gather
-                    train_batches.gather_into(self._train.buffers.tensors["ev_repr"])
-                step += 1
+                    if hasattr(train_batches, "gather_into"):  # the card cache's next gather
+                        train_batches.gather_into(self._train.buffers.tensors["ev_repr"])
+                    step += 1
+                    logged = step % self.log_every == 0 or step == 1
+                    if logged:
+                        with timers.span("fit.wait"):  # the read waits for the card
+                            metrics = {k: float(v) for k, v in metrics.items()}
                 if profiler is not None and step >= prof_last:
                     self._stop_trace(profiler)
                     profiler = None
-                if step % self.log_every == 0 or step == 1:
-                    metrics = {k: float(v) for k, v in metrics.items()}  # waits for the card
+                if logged:
                     sn = self.p_smooth.update(metrics.pop("P"))
                     dt = (time.time() - t_last) / min(self.log_every, step)
                     t_last = time.time()

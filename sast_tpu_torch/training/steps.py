@@ -73,6 +73,7 @@ from sast_tpu_torch.models.losses import yolox_loss
 from sast_tpu_torch.ops.nms import postprocess
 from sast_tpu_torch.parallel import mesh as dp
 from sast_tpu_torch.training.optimizer import OptaxAdamW, build_optimizer
+from sast_tpu_torch.utils import timers
 from sast_tpu_torch.utils.padding import InputPadder, padding_token_mask
 
 REMAT_POLICIES = ("dots", "none", "full")
@@ -400,14 +401,14 @@ class _OnBuffers:
         self.buffers: Optional[graphs.BatchBuffers] = None
         self.step: Optional[graphs.CapturedStep] = None
 
-    def _load(self, batch) -> None:
+    def _buffers_for(self, batch) -> graphs.BatchBuffers:
         if self.buffers is None or not self.buffers.matches(batch):
             self.buffers = graphs.BatchBuffers(batch, self.device)
             B = self.buffers.tensors["ev_repr"].shape[1]
             states = zero_states(self.cfg.model.backbone, B,
                                  DTYPES[self.cfg.model.compute_dtype], self.device)
             self.step = self._captured(self.buffers.tensors, states)
-        self.buffers.load(batch)
+        return self.buffers
 
     def _captured(self, inputs, states) -> graphs.CapturedStep:
         raise NotImplementedError
@@ -432,7 +433,13 @@ class CapturedTrainStep(_OnBuffers):
     tensors in the layout above) loads the batch into the buffers, runs one
     step and returns its metrics: 0-d tensors on the card, which the next
     call rewrites. On a card with ``graph`` on, the first call refuses a
-    gloo world (``refuse_capture``) before it touches the card."""
+    gloo world (``refuse_capture``) before it touches the card. A call's
+    spans (``utils/timers``): ``fit.wait`` (for the previous batch's copies
+    from the staging), ``fit.stage`` (the batch into the page-locked
+    staging, its copies up enqueued) and ``fit.launch`` (the step, the
+    version bumps). On a card the step's graph is larger than the card's
+    queue of commands, so its launch blocks while the card runs the
+    previous step: that wait lies inside ``fit.launch``."""
 
     def __init__(self, fns: Dict[str, Callable], state: TrainState, cfg: ExperimentConfig,
                  device, graph: bool = True, mesh: Optional[dp.Mesh] = None):
@@ -459,18 +466,23 @@ class CapturedTrainStep(_OnBuffers):
     def __call__(self, batch) -> Dict[str, torch.Tensor]:
         if self.step is None and self.graph and self.device.type == "cuda":
             refuse_capture(self.mesh)
-        self._load(batch)
-        optimizer = self.state.optimizer
-        count, replays = optimizer.count, self.run.replays
-        metrics = self.step()
-        # One call is one update: the warm-up's (its capture runs no step)
-        # or the replay's, whose Python did not run.
-        optimizer.count = count + 1
-        if self.run.replays != replays:
-            written = [*self.state.model.parameters(), *self.state.model.buffers()]
-            if self.state.ema_params is not None:
-                written += list(self.state.ema_params.values())
-            graphs.bump_versions(written)
+        buffers = self._buffers_for(batch)
+        with timers.span("fit.wait"):
+            buffers.wait()
+        with timers.span("fit.stage"):
+            buffers.fill(batch)
+        with timers.span("fit.launch"):
+            optimizer = self.state.optimizer
+            count, replays = optimizer.count, self.run.replays
+            metrics = self.step()
+            # One call is one update: the warm-up's (its capture runs no
+            # step) or the replay's, whose Python did not run.
+            optimizer.count = count + 1
+            if self.run.replays != replays:
+                written = [*self.state.model.parameters(), *self.state.model.buffers()]
+                if self.state.ema_params is not None:
+                    written += list(self.state.ema_params.values())
+                graphs.bump_versions(written)
         return metrics
 
 
@@ -499,5 +511,5 @@ class CapturedEvalStep(_OnBuffers):
 
     @torch.no_grad()
     def __call__(self, batch) -> Dict[str, torch.Tensor]:
-        self._load(batch)
+        self._buffers_for(batch).load(batch)
         return self.step()

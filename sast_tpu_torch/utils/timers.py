@@ -1,43 +1,127 @@
-"""Wall-clock timer registry and profiler helpers (port of
-sast_tpu/utils/timers.py).
+"""The port's tracing: spans and counters inside its serving and training
+loops, and wall-clock timers (port of sast_tpu/utils/timers.py).
 
-``Timer`` measures host spans; ``DeviceTimer`` also waits, on exit, for the
-card of every CUDA tensor in ``block_on`` (the counterpart of JAX's
-``block_until_ready`` on a pytree), so its span holds that work. Both record
-into one registry per process, which ``timer_stats`` summarises and which is
-printed to stdout when the process exits, unless it is empty. A program
-whose last line of stdout means something (``chip_smoke.py``) empties it
-with ``reset`` first. ``trace`` records a ``torch.profiler`` trace.
+``span(name)`` and ``count(name, n)`` sit at the host runtime's boundaries
+(``serve.*``: ``process_batch`` of the live detector and of a loaded
+artifact, through ``graphs.Staging.batch``) and at the trainer's (``fit.*``:
+``training/loop.Trainer.fit`` and ``training/steps.CapturedTrainStep``).
+They record only while tracing is on: while a ``torch.profiler`` records,
+or after ``set_spans(True)``. Off, a span is one test of a flag that
+returns a shared no-op context, and a counter is the same test: neither
+calls ``torch.profiler.record_function``, which costs microseconds a call
+even with no profiler running. On, a span adds its ``time.perf_counter``
+duration to the registry and, while a profiler records, opens a
+``record_function`` range of its name: the span then sits on the
+profiler's timeline, on the clock of the card's kernels and copies, inside
+the range that encloses it. A counter adds ``n``.
+
+``Timer`` measures a host span whatever the switch says; ``DeviceTimer``
+also waits, on exit, for the card of every CUDA tensor in ``block_on`` (the
+counterpart of JAX's ``block_until_ready`` on a pytree), so its span holds
+that work. Everything records into one registry per process that keeps,
+by name, running aggregates (count, total, max); ``timer_stats`` reads it
+and ``reset`` empties it. Nothing is printed. Spans are recorded from the
+host thread that drives the loop: the registry takes no lock.
 """
 
 from __future__ import annotations
 
-import atexit
-import contextlib
 import time
-from collections import defaultdict
 from typing import Dict, List
 
 import torch
+import torch.autograd.profiler as _profiler
 import torch.utils._pytree as pytree
 
-_CUMULATIVE: Dict[str, List[float]] = defaultdict(list)
-_ENABLED = True
+_ON = False
+# name -> [count, total, max]: seconds for spans and timers, units for counters.
+_SPANS: Dict[str, List[float]] = {}
+_COUNTS: Dict[str, List[float]] = {}
 
 
-def set_enabled(flag: bool) -> None:
-    global _ENABLED
-    _ENABLED = flag
+def set_spans(flag: bool) -> None:
+    """Record spans and counters without a profiler (True), or only while
+    one records (False, the default)."""
+    global _ON
+    _ON = bool(flag)
+
+
+def tracing() -> bool:
+    """Whether spans and counters record now."""
+    return _ON or _profiler._is_profiler_enabled
 
 
 def reset() -> None:
-    """Empty the registry: nothing is printed at exit until a timer records
-    again."""
-    _CUMULATIVE.clear()
+    """Empty the registry."""
+    _SPANS.clear()
+    _COUNTS.clear()
+
+
+def _add(table: Dict[str, List[float]], name: str, value) -> None:
+    row = table.get(name)
+    if row is None:
+        table[name] = [1, value, value]
+        return
+    row[0] += 1
+    row[1] += value
+    if value > row[2]:
+        row[2] = value
+
+
+class _Off:
+    """The span with tracing off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _add(_SPANS, self.name, seconds)
+        return False
+
+
+def span(name: str):
+    """``with span(name):`` records the body's host time under ``name``
+    while tracing is on (module docstring)."""
+    if not (_ON or _profiler._is_profiler_enabled):
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if _ON or _profiler._is_profiler_enabled:
+        _add(_COUNTS, name, n)
 
 
 class Timer:
-    """Host wall-clock span timer: ``with Timer('name'): ...``."""
+    """Host wall-clock span timer: ``with Timer('name'): ...``; records
+    whether or not tracing is on."""
 
     def __init__(self, timer_name: str = ""):
         self.name = timer_name
@@ -48,8 +132,7 @@ class Timer:
         return self
 
     def __exit__(self, *exc):
-        if _ENABLED:
-            _CUMULATIVE[self.name].append(time.perf_counter() - self._t0)
+        _add(_SPANS, self.name, time.perf_counter() - self._t0)
 
 
 class DeviceTimer(Timer):
@@ -69,57 +152,12 @@ class DeviceTimer(Timer):
         super().__exit__(*exc)
 
 
-class TimerDummy:
-    """No-op stand-in (the reference default on the hot path)."""
-
-    def __init__(self, *a, **k):
-        ...
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        ...
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """A ``torch.profiler`` trace of the body into ``log_dir`` (the CPU, and
-    the card where CUDA is available), written when the body ends; the
-    profiler is the context's value."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-        activities=activities, on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)
-    ) as prof:
-        yield prof
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-
-
 def timer_stats() -> Dict[str, Dict[str, float]]:
-    out = {}
-    for name, spans in _CUMULATIVE.items():
-        if not spans:
-            continue
-        out[name] = {
-            "count": len(spans),
-            "total_s": sum(spans),
-            "mean_ms": 1000.0 * sum(spans) / len(spans),
-            "max_ms": 1000.0 * max(spans),
-        }
+    """By name: a span's or timer's ``count``, ``total_s``, ``mean_ms`` and
+    ``max_ms``; a counter's ``count`` (of additions), ``total`` and
+    ``max``."""
+    out = {name: {"count": n, "total_s": total, "mean_ms": 1e3 * total / n, "max_ms": 1e3 * top}
+           for name, (n, total, top) in _SPANS.items()}
+    out.update({name: {"count": n, "total": total, "max": top}
+                for name, (n, total, top) in _COUNTS.items()})
     return out
-
-
-@atexit.register
-def _print_timing_info() -> None:
-    stats = timer_stats()
-    if not stats:
-        return
-    print("== Timing statistics ==")
-    for name, s in sorted(stats.items()):
-        print(
-            f"  {name:32s} n={s['count']:<6d} mean={s['mean_ms']:.2f}ms "
-            f"total={s['total_s']:.2f}s"
-        )

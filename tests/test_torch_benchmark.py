@@ -71,13 +71,14 @@ def _clustered(seed, batch=1):
 
 def test_timers_record_spans_and_reset_empties_the_registry():
     """The counterpart of tests/test_utils.py's timer test: host spans, a
-    DeviceTimer over CPU tensors (nothing to wait for), the dummy; reset
-    empties the registry."""
+    DeviceTimer over CPU tensors (nothing to wait for), a span with tracing
+    off (the dummy's place: nothing recorded); reset empties the
+    registry."""
     with timers.Timer("unit_test_timer"):
         time.sleep(0.01)
     with timers.DeviceTimer("unit_test_device", block_on={"a": [torch.ones(4)]}):
         pass
-    with timers.TimerDummy("ignored"):
+    with timers.span("ignored"):
         pass
     stats = timers.timer_stats()
     assert stats["unit_test_timer"]["count"] == 1 and stats["unit_test_timer"]["mean_ms"] >= 10
@@ -87,18 +88,20 @@ def test_timers_record_spans_and_reset_empties_the_registry():
 
 
 def test_chip_smoke_last_line_stays_last_after_a_timer():
-    """A process that timed something prints the timer table at exit;
-    ``chip_smoke.print_result`` empties the registry first, so its ok line
-    stays the last line of stdout."""
+    """A process that timed something, with a timer and with spans switched
+    on, prints nothing at exit: ``chip_smoke.print_result``'s ok line stays
+    the last line of stdout, the registry left as it was."""
     prog = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
-            "from sast_tpu_torch.utils.timers import Timer\n"
-            "with Timer('t'): pass\n{tail}")
+            "from sast_tpu_torch.utils import timers\n"
+            "timers.set_spans(True)\n"
+            "with timers.Timer('t'), timers.span('s'): timers.count('c', 3)\n"
+            "assert set(timers.timer_stats()) == {{'t', 's', 'c'}}\n{tail}")
     def run(tail):
         out = subprocess.run([sys.executable, "-c", prog.format(root=str(ROOT), tail=tail)],
                              capture_output=True, text=True, timeout=120, check=True)
         return out.stdout.strip().splitlines()
 
-    assert "Timing statistics" in run("print('last')")[-2]  # the table would come after
+    assert run("print('last')") == ["last"]  # no table after it
     lines = run("chip_smoke.print_result([], 'H100, 700 W', 'NVIDIA H100 80GB HBM3', 1)")
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}

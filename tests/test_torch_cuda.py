@@ -1011,3 +1011,45 @@ def test_captured_fit_resumes_bit_for_bit(deterministic, tmp_path):
     for i, (a, b) in enumerate(zip(_written(whole), _written(resumed))):
         assert torch.equal(a, b), f"tensor {i}"
     assert whole._train.run.replays == 3 and resumed._train.run.replays == 1
+
+
+def test_serve_spans_share_the_cards_clock(dev, tmp_path):
+    """Under the profiler, a replayed gen4-base step of 2 lanes of up to
+    200,000 events: the upload's first copy to the card begins inside the
+    program's ``serve.launch`` span, and the step's last kernel ends before
+    ``serve.wait`` ends. The spans lie on the clock of the card's work."""
+    import json
+
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.models.detector import build_detector
+    from sast_tpu_torch.serving import StreamingDetector
+
+    cfg = get_config("gen4", "base")
+    det = StreamingDetector(cfg, build_detector(cfg.model, seed=0, device="cuda"),
+                            max_events=200_000, num_streams=2)
+    rng = np.random.RandomState(0)
+    h, w = cfg.dataset.resolution_hw
+
+    def frames():
+        return [dict(x=rng.randint(0, w, n), y=rng.randint(0, h, n), p=rng.randint(0, 2, n),
+                     t=np.sort(rng.randint(0, 50_000, n))) for n in (100_000, 150_000)]
+
+    for _ in range(2):  # the warm-up and capture, then a replay
+        det.process_batch(frames())
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        det.process_batch(frames())
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("serve.")}
+    assert set(spans) == {"serve.batch", "serve.pack", "serve.launch", "serve.wait"}
+    uploads = [e["ts"] for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    kernels = [e["ts"] + e["dur"] for e in events if e.get("cat") == "kernel"]
+    assert uploads and kernels
+    launch, wait = spans["serve.launch"], spans["serve.wait"]
+    assert launch[0] <= min(uploads) <= launch[1], (launch, sorted(uploads))
+    assert max(kernels) <= wait[1], (wait, max(kernels))
