@@ -51,7 +51,7 @@ import sast_tpu_torch.ops.nms_keep  # noqa: F401  (sast_tpu_torch::greedy_keep)
 import sast_tpu_torch.ops.sparse_block  # noqa: F401  (sparse_block_fwd, sparse_block_looped)
 import sast_tpu_torch.ops.stem_conv  # noqa: F401  (stem_conv7x4, stem_conv_density7x4)
 from sast_tpu_torch import graphs
-from sast_tpu_torch.graphs import SERVING_INPUTS, Staging, serving_step
+from sast_tpu_torch.graphs import Staging, load_packed, serving_step
 from sast_tpu_torch.utils import timers
 
 ARTIFACT_NAME = "streaming_step.pt2"
@@ -321,23 +321,18 @@ class ExportedStreamingDetector:
         events, (S,) counts and (S,) resets on the artifact's device ->
         (detections, selected-token telemetry), tensors of their own;
         carries the state."""
-        dets, p_tel = self._run((packed, n_events, reset))
+        load_packed(self._step, packed, n_events, reset)
+        dets, p_tel = self._step()
         return {k: v.clone() for k, v in dets.items()}, p_tel.clone()
-
-    def _run(self, inputs):
-        step = self._step
-        for k, t in zip(SERVING_INPUTS, inputs):
-            step.inputs[k].copy_(t, non_blocking=True)
-        return step()
 
     def process_batch(self, frames, reset: "np.ndarray | None" = None) -> Dict[str, np.ndarray]:
         """One frame window per lane -> batched detections (the contract of
         ``StreamingDetector.process_batch``; both pack with
-        ``packing.pack_event_batch`` and move the batch through page-locked
+        ``packing.pack_event_fields`` and move the batch through page-locked
         buffers on a card; the same spans and counters)."""
         with timers.span("serve.batch"):
-            ((dets, p_tel),) = self._staging.batch(frames, reset,
-                                                   lambda *batch: [self._run(batch)])
+            ((dets, p_tel),) = self._staging.batch(frames, reset, [self._step],
+                                                   lambda: [self._step()])
             return {k: v.numpy().copy() for k, v in dets.items()} | {
                 "selected_tokens": p_tel.numpy().copy()}
 

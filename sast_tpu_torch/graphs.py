@@ -32,7 +32,9 @@ body that reads and writes static buffers:
   ``Captured``: the serving step (``serving_step``; the live detector,
   ``serving.py``, and the loaded artifact, ``export.py``) and the train and
   eval steps (``training/steps.py``). ``Staging``: the page-locked host
-  buffers of a serving batch's upload and of its slate's download.
+  buffers of a serving batch's upload and of its slate's download; the
+  upload is the events field by field with no padding, which the serving
+  step unpacks on the card (``unpack_events``).
 - ``BatchBuffers``: a training or evaluation batch's static buffers on the
   card, filled from page-locked staging (host arrays) or by a copy on the
   card, unless a producer wrote straight into them
@@ -77,7 +79,7 @@ import torch
 import torch.nn as nn
 import torch.utils._pytree as pytree
 
-from sast_tpu_torch.packing import pack_event_batch
+from sast_tpu_torch.packing import FIELDS, pack_event_fields
 from sast_tpu_torch.utils import timers
 
 class _Active:
@@ -599,7 +601,20 @@ class CapturedStep:
         return self.run()
 
 
-SERVING_INPUTS = ("packed", "n_events", "reset")
+def unpack_events(events: torch.Tensor, n_events: torch.Tensor, start: torch.Tensor,
+                  max_events: int) -> torch.Tensor:
+    """``packing.pack_event_batch``'s (S, E, 4) int32 events from a
+    field-major layout on the device: ``events`` (4, S * E + 1) int32 whose
+    last column is zero, ``n_events`` (S,) and ``start`` (S,), the column of
+    each lane's first event. Row ``r`` of lane ``i`` is column ``start_i +
+    r``, and a row at or past its lane's count reads the zero column. No
+    host read, so it is captured with the step."""
+    S = n_events.shape[0]
+    rows = torch.arange(max_events, device=events.device)
+    cols = torch.where(rows < n_events[:, None], start.long()[:, None] + rows,
+                       events.shape[1] - 1)
+    return (events.index_select(1, cols.view(-1)).view(len(FIELDS), S, max_events)
+            .permute(1, 2, 0).contiguous())
 
 
 def serving_step(fn, init_states, lanes: int, max_events: int, device, graph: bool = True,
@@ -607,58 +622,99 @@ def serving_step(fn, init_states, lanes: int, max_events: int, device, graph: bo
     """A serving step ``fn(states, packed, n_events, reset) -> (dets,
     new_states, p_tel)`` (a ``StreamingStep``, or an exported program's
     module) for ``lanes`` lanes of ``max_events`` events as a
-    ``CapturedStep``, without grad: its static inputs are the packed
-    events, counts and resets (``SERVING_INPUTS``), and a call returns
-    ``(dets, p_tel)``."""
+    ``CapturedStep``, without grad: its static inputs are the events field
+    by field (``events``: (4, lanes x max_events) and a zero column), the
+    column of each lane's first event (``start``), the counts and the
+    resets. ``Staging`` fills them compact, lanes back to back
+    (``pack_event_fields``), and ``load_packed`` from (S, E, 4). The step
+    unpacks the events into ``fn``'s (S, E, 4) first (``unpack_events``),
+    and a call returns ``(dets, p_tel)``."""
     device = torch.device(device)
-    inputs = {"packed": torch.zeros((lanes, max_events, 4), dtype=torch.int32, device=device),
+    inputs = {"events": torch.zeros((len(FIELDS), lanes * max_events + 1), dtype=torch.int32,
+                                    device=device),
+              "start": torch.zeros((lanes,), dtype=torch.int32, device=device),
               "n_events": torch.zeros((lanes,), dtype=torch.int32, device=device),
               "reset": torch.zeros((lanes,), dtype=torch.bool, device=device)}
 
     @torch.no_grad()
     def step(states, inputs):
-        dets, new_states, p_tel = fn(states, *(inputs[k] for k in SERVING_INPUTS))
+        packed = unpack_events(inputs["events"], inputs["n_events"], inputs["start"],
+                               max_events)
+        dets, new_states, p_tel = fn(states, packed, inputs["n_events"], inputs["reset"])
         return new_states, (dets, p_tel)
 
     return CapturedStep(step, init_states, inputs, device, graph, weights)
 
 
+def load_packed(step: CapturedStep, packed: torch.Tensor, n_events: torch.Tensor,
+                reset: torch.Tensor) -> None:
+    """Write a batch in ``pack_event_batch``'s (S, E, 4) layout into a
+    serving step's static inputs: the events by one transposing copy, each
+    lane's E rows in place (lane ``i`` starts at column ``i * E``), and the
+    counts and resets, asynchronously where the sources allow it."""
+    S, E, F = packed.shape
+    step.inputs["events"][:, :-1].view(F, S, E).copy_(packed.permute(2, 0, 1),
+                                                      non_blocking=True)
+    step.inputs["start"].copy_(torch.arange(0, S * E, E, dtype=torch.int32,
+                                            device=packed.device), non_blocking=True)
+    step.inputs["n_events"].copy_(n_events, non_blocking=True)
+    step.inputs["reset"].copy_(reset, non_blocking=True)
+
+
 class Staging:
-    """Host buffers of a detector's batches: the packed upload and the
-    slate's download, page-locked on a card so that both copies run
-    asynchronously. A batch waits once, for the download of every replica's
-    slate; each upload runs before it on the same stream, so the upload
-    buffers are free to refill when ``batch`` returns."""
+    """Host buffers of a detector's batches: the compact upload
+    (``pack_event_fields``) and the slate's download, page-locked on a card
+    so that both copies run asynchronously. A batch waits once, for the
+    download of every replica's slate; each upload runs before it on the
+    same stream, so the upload buffers are free to refill when ``batch``
+    returns."""
 
     def __init__(self, lanes: int, max_events: int, pinned: bool):
         self.pinned = pinned
-        self.packed = torch.zeros((lanes, max_events, 4), dtype=torch.int32, pin_memory=pinned)
+        self.events = torch.zeros((len(FIELDS), lanes * max_events), dtype=torch.int32,
+                                  pin_memory=pinned)
         self.n = torch.zeros((lanes,), dtype=torch.int32, pin_memory=pinned)
+        self.start = torch.zeros((lanes,), dtype=torch.int32, pin_memory=pinned)
         self.reset = torch.zeros((lanes,), dtype=torch.bool, pin_memory=pinned)
-        self.upload_bytes = sum(t.nbytes for t in (self.packed, self.n, self.reset))
         self.down = None
 
-    def batch(self, frames, reset, launch):
+    def batch(self, frames, reset, steps: Sequence[CapturedStep], run):
         """Pack ``frames`` and ``reset`` (None: no lane) into the upload
-        buffers, ``launch(packed, n_events, reset)`` (each replica's
-        ``(dets, p_tel)`` on its device), copy those down and wait once.
-        Returns the download buffers, which the next batch rewrites.
+        buffers; copy each replica's share into its serving step's static
+        inputs (``steps`` in lane order, each taking as many lanes): its
+        lanes' events, one contiguous range of each field, the column of
+        each of its lanes' first event in that range, and its counts and
+        resets; then ``run()`` (each replica's ``(dets, p_tel)`` on its
+        device), copy those down and wait once. Returns the download
+        buffers, which the next batch rewrites.
 
         Spans (``utils/timers``): ``serve.pack``, ``serve.launch`` (the
         uploads, every replica's step and the downloads enqueued) and
         ``serve.wait``; counters ``serve.events`` (the events packed) and
-        ``serve.upload_bytes`` (the whole upload: every lane's budget of
-        events, the counts and the resets)."""
-        lanes, max_events = self.packed.shape[:2]
+        ``serve.upload_bytes`` (the bytes the uploads enqueued: 16 an
+        event, and 9 a lane for the starts, counts and resets)."""
+        n, per = self.n.numpy(), len(self.n) // len(steps)
         with timers.span("serve.pack"):
-            pack_event_batch(frames, lanes, max_events, out=(self.packed.numpy(), self.n.numpy()))
+            total = pack_event_fields(frames, self.events.numpy(), n)
             self.reset.numpy()[:] = False if reset is None else np.asarray(reset, bool)
-        if timers.tracing():
-            timers.count("serve.events", int(self.n.sum()))
-            timers.count("serve.upload_bytes", self.upload_bytes)
+            for i in range(len(steps)):
+                part = slice(i * per, (i + 1) * per)
+                self.start.numpy()[part] = np.cumsum(n[part]) - n[part]
         with timers.span("serve.launch"):
+            start, sent = 0, 0
+            for i, step in enumerate(steps):
+                part = slice(i * per, (i + 1) * per)
+                m = int(n[part].sum())
+                for row, host in zip(step.inputs["events"], self.events):
+                    row[:m].copy_(host[start:start + m], non_blocking=True)
+                for k, host in (("start", self.start), ("n_events", self.n),
+                                ("reset", self.reset)):
+                    step.inputs[k].copy_(host[part], non_blocking=True)
+                    sent += host[part].nbytes
+                sent += m * self.events.shape[0] * self.events.element_size()
+                start += m
             with torch.no_grad():
-                outs = launch(self.packed, self.n, self.reset)
+                outs = run()
             if self.down is None:
                 self.down = [pytree.tree_map(
                     lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=self.pinned), o)
@@ -671,6 +727,9 @@ class Staging:
                     event = torch.cuda.Event()
                     event.record(torch.cuda.current_stream(pytree.tree_leaves(out)[0].device))
                     events.append(event)
+        if timers.tracing():
+            timers.count("serve.events", total)
+            timers.count("serve.upload_bytes", sent)
         with timers.span("serve.wait"):
             for event in events:
                 event.synchronize()

@@ -1,7 +1,11 @@
 """Host-side event packing for the serving runtime (numpy-only).
 
 The port's copy of ``sast_tpu/packing.py``: one frame of raw events becomes
-rows of a static ``(E, 4)`` int32 upload.
+rows of a static ``(E, 4)`` int32 upload (``pack_events``,
+``pack_event_batch``). The serving runtime's own upload is
+``pack_event_fields``: the same events field by field and lane after lane,
+with no padding, which the serving step unpacks into ``pack_event_batch``'s
+``(S, E, 4)`` on the device (``graphs.unpack_events``).
 """
 
 from __future__ import annotations
@@ -68,3 +72,32 @@ def pack_event_batch(
             f["x"], f["y"], f["p"], f["t"], max_events, out=packed[i]
         )
     return packed, n
+
+
+FIELDS = ("x", "y", "p", "t")
+
+
+def pack_event_fields(frames: List[Dict[str, np.ndarray]], events: np.ndarray,
+                      n: np.ndarray) -> int:
+    """Pack one frame dict per lane into ``events`` ((4, S * E) int32, one
+    row per field of ``FIELDS``) and ``n`` ((S,) int32), field-major and
+    compact: lane ``i``'s events lie in every row at ``[o_i, o_i + n_i)``,
+    ``o_i`` the sum of the counts before it, so the batch's events are the
+    first ``n.sum()`` columns; the columns past them keep what they held.
+    Each field of each lane is one contiguous copy, cast to int32 as
+    ``pack_event_batch`` casts it. Returns the number of events packed.
+    """
+    S = n.shape[0]
+    max_events = events.shape[1] // S
+    if len(frames) != S:
+        raise ValueError(f"{len(frames)} frames for {S} streams")
+    start = 0
+    for i, f in enumerate(frames):
+        m = int(f["x"].size)
+        if m > max_events:
+            raise ValueError(f"{m} events exceed budget {max_events}")
+        for row, key in zip(events, FIELDS):
+            row[start:start + m] = f[key][:m]
+        n[i] = m
+        start += m
+    return start

@@ -4,8 +4,9 @@ sast_tpu/serving.py).
 Per frame, on the device: the stacked-histogram scatter-add of the packed
 events, the bottom/right pad to the model resolution, the recurrent
 backbone with carried LSTM state, PAFPN, head, decode and fixed-budget NMS.
-The host ships one (S, E, 4) int32 upload per batch of frames (one per
-device with ``mesh=``) and fetches one fixed-size slate of detections with a
+The host ships one upload per batch of frames (one per device with
+``mesh=``): the events field by field with no padding, which the step
+unpacks into (S, E, 4) int32 first (``graphs.unpack_events``); it fetches one fixed-size slate of detections with a
 validity mask. The recurrent state stays on the device between frames; a
 per-lane ``reset`` mask zeroes it inside the step.
 
@@ -28,7 +29,7 @@ import torch.nn as nn
 
 from sast_tpu_torch.config import ExperimentConfig
 from sast_tpu_torch.data.representations import stacked_histogram
-from sast_tpu_torch.graphs import SERVING_INPUTS, Staging, run_together, serving_step
+from sast_tpu_torch.graphs import Staging, load_packed, run_together, serving_step
 from sast_tpu_torch.models.backbone import zero_states
 from sast_tpu_torch.models.detector import (
     DTYPES,
@@ -208,14 +209,10 @@ class StreamingDetector:
     def _lanes(self, i: int) -> slice:
         return slice(i * self.lanes_per_replica, (i + 1) * self.lanes_per_replica)
 
-    def _launch(self, inputs):
-        """Copy each replica's (packed, n_events, reset) into its step's
-        static inputs (asynchronously) and launch every replica's step before
-        any result is read (``graphs.run_together``); returns the
-        per-replica (dets, p_tel)."""
-        for step, source in zip(self.steps, inputs):
-            for k, t in zip(SERVING_INPUTS, source):
-                step.inputs[k].copy_(t, non_blocking=True)
+    def _run(self):
+        """Launch every replica's step on its static inputs before any
+        result is read (``graphs.run_together``); returns the per-replica
+        (dets, p_tel)."""
         return run_together([step.run for step in self.steps])
 
     @torch.no_grad()
@@ -223,11 +220,15 @@ class StreamingDetector:
         """One batch of frames on the device: (S, E, 4) int32 events, (S,)
         valid counts and (S,) bool resets -> (detections, selected-token
         telemetry), tensors of their own (the next step does not overwrite
-        them). Updates the carried state. With a mesh each device's lanes
-        are sliced out and copied to its step, and the results come back to
-        the first device."""
-        outs = self._launch([tuple(t[self._lanes(i)] for t in (packed, n_events, reset))
-                            for i in range(len(self.steps))])
+        them). Updates the carried state. The events are copied into the
+        step's static inputs field by field, each lane in place
+        (``graphs.load_packed``); with a mesh each device's lanes are sliced
+        out and copied to its step, and the results come back to the first
+        device."""
+        for i, step in enumerate(self.steps):
+            lanes = self._lanes(i)
+            load_packed(step, packed[lanes], n_events[lanes], reset[lanes])
+        outs = self._run()
         if self.mesh is None:
             ((dets, p_tel),) = outs
             return {k: v.clone() for k, v in dets.items()}, p_tel.clone()
@@ -247,15 +248,15 @@ class StreamingDetector:
         Returns arrays with a leading lane axis, plus the per-stage
         ``selected_tokens`` telemetry (batch aggregate).
 
-        On a card the events are packed into page-locked buffers, each
-        device's lanes are copied up asynchronously, every device's step is
-        launched, and the slates come back through page-locked buffers with
+        On a card the events are packed field by field, with no padding,
+        into page-locked buffers (``packing.pack_event_fields``), each
+        device's events, counts and resets are copied up asynchronously,
+        every device's step is launched (it unpacks the events first), and the slates come back through page-locked buffers with
         one wait. The call is the span ``serve.batch`` (``utils/timers``),
         around ``graphs.Staging.batch``'s spans and counters.
         """
         with timers.span("serve.batch"):
-            host = self._staging.batch(frames, reset, lambda *batch: self._launch(
-                [tuple(t[self._lanes(i)] for t in batch) for i in range(len(self.steps))]))
+            host = self._staging.batch(frames, reset, self.steps, self._run)
             out = {k: np.concatenate([d[k].numpy() for d, _ in host]) for k in host[0][0]}
             tel = (host[0][1].numpy().copy() if len(host) == 1 else
                    np.mean(np.stack([p.numpy() for _, p in host]), axis=0, dtype=np.float32))

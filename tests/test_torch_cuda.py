@@ -599,6 +599,70 @@ def test_captured_mesh_is_the_eager_mesh(dev):
     assert [s.run.replays for s in dets[1].steps] == [3, 3]
 
 
+UPLOAD_COUNTS = [(700, 4000), (4000, 20), (0, 900), (300, 0), (0, 0), (1200, 4000)]
+UPLOAD_RESETS = [[False, False], [True, False], [False, False], [False, True], [False, False],
+                 [True, True]]
+
+
+def _counted_frames(counts, seed=2):
+    """Frames of two lanes with the given event counts, in a camera
+    decoder's types (x, y uint16, p uint8, t int64)."""
+    rng = np.random.RandomState(seed)
+    return [[dict(x=rng.randint(0, 304, n).astype(np.uint16),
+                  y=rng.randint(0, 240, n).astype(np.uint16),
+                  p=rng.randint(0, 2, n).astype(np.uint8),
+                  t=np.sort(rng.randint(0, 50_000, n)).astype(np.int64) + i * 50_000)
+             for n in lanes] for i, lanes in enumerate(counts)]
+
+
+def test_captured_step_replays_varying_uploads_as_the_eager_step(dev):
+    """The captured detector's ``process_batch`` over batches whose lanes'
+    counts shrink, grow, hit 0 and hit the budget (the compact upload's
+    size changes at every replay) against the eager ``StreamingStep`` fed
+    ``pack_event_batch``'s (S, E, 4) directly: slates and carried states
+    bit for bit."""
+    from sast_tpu_torch.packing import pack_event_batch
+
+    eager, captured = _graph_detectors(_graph_config())
+    step = eager.replicas[0]
+    states = [tuple(t.clone() for t in hc) for hc in eager.states]
+    frames = _counted_frames(UPLOAD_COUNTS)
+    captured.reset()
+    for i, (f, reset) in enumerate(zip(frames, UPLOAD_RESETS)):
+        got = captured.process_batch(f, reset=reset)
+        packed, n = pack_event_batch(f, 2, 4000)
+        with torch.no_grad():
+            dets, states, tel = step(states, torch.from_numpy(packed).to(dev),
+                                     torch.from_numpy(n).to(dev), torch.tensor(reset, device=dev))
+        for k, v in dets.items():
+            np.testing.assert_array_equal(got[k], v.cpu().numpy(), err_msg=f"frame {i} {k}")
+        np.testing.assert_array_equal(got["selected_tokens"], tel.cpu().numpy())
+    for a, b in zip((t for hc in captured.states for t in hc), (t for hc in states for t in hc)):
+        assert torch.equal(a, b)
+    assert captured.steps[0].run.replays == len(UPLOAD_COUNTS) - 1
+
+
+def test_artifact_process_batch_is_the_live_detector(dev):
+    """A loaded artifact's ``process_batch``, captured on the card, against
+    its live detector's over the same varying uploads: slates and carried
+    states bit for bit."""
+    from sast_tpu_torch import export
+
+    def run(det):
+        det.reset()
+        outs = [det.process_batch(f, reset=r) for f, r in zip(frames, UPLOAD_RESETS)]
+        return outs, [t.cpu() for hc in det.states for t in hc]
+
+    _, live = _graph_detectors(_graph_config())
+    frames = _counted_frames(UPLOAD_COUNTS, seed=3)
+    want = run(live)
+    # Exported after the live detector stepped, as a deployment exports
+    # one: its sine embeddings are then constants on the card.
+    art = export.ExportedStreamingDetector(export.export_streaming_detector(live))
+    _assert_same_bits(want, run(art))
+    assert art._step.run.replays == len(UPLOAD_COUNTS) - 1
+
+
 def _spy_branches(names):
     """Record which of the attention layer's branches ``names`` ran, in
     order; returns the log and a function that takes the spies out."""

@@ -180,6 +180,34 @@ def test_mesh_is_two_detectors_bit_for_bit(meshed):
     assert not any(t.any() for t in pytree.tree_leaves(det.states))
 
 
+def test_mesh_uploads_uneven_replicas_bit_for_bit(meshed):
+    """Counts that leave one replica's events far more than the other's
+    (a lane at the budget, lanes empty, a whole replica empty): each
+    replica takes its own range of the compact upload, and the mesh still
+    equals two 2-lane detectors bit for bit, slates and carried states."""
+    from tests.test_torch_upload import batches
+
+    counts = [(EVENTS, 0, 7, 3), (0, 0, EVENTS, EVENTS), (5, EVENTS, 0, 0), (EVENTS, 1, 0, 900)]
+    resets = [None, np.array([False, True, True, False]), None, np.array([True] * 4)]
+    model = load_jax_variables(YoloXDetector(meshed["tcfg"].model), meshed["variables"])
+    det = StreamingDetector(meshed["tcfg"], model, max_events=EVENTS, num_streams=4,
+                            mesh=("cpu", "cpu"))
+    pairs = [StreamingDetector(meshed["tcfg"], model, max_events=EVENTS, num_streams=2,
+                               device="cpu") for _ in range(2)]
+    for i, (frames, reset) in enumerate(zip(batches(counts, seed=4), resets)):
+        got = det.process_batch(frames, reset=reset)
+        outs = [p.process_batch(frames[2 * r:2 * r + 2],
+                                reset=None if reset is None else reset[2 * r:2 * r + 2])
+                for r, p in enumerate(pairs)]
+        for k in outs[0]:
+            want = (np.mean([o[k] for o in outs], axis=0, dtype=np.float32)
+                    if k == "selected_tokens" else np.concatenate([o[k] for o in outs]))
+            np.testing.assert_array_equal(got[k], want, err_msg=f"batch {i} {k}")
+    for states, pair in zip(det.states, pairs):
+        for a, b in zip(pytree.tree_leaves(states), pytree.tree_leaves(pair.states)):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("streams,mesh", [(3, ("cpu", "cpu")), (2, ())])
 def test_mesh_must_be_tiled_by_the_lanes(meshed, streams, mesh):
     with pytest.raises(ValueError, match="must tile"):

@@ -95,7 +95,8 @@ def test_process_batch_spans_nest_on_the_profiler_timeline(detectors, tmp_path, 
     """Under the profiler every call is one ``serve.batch`` range with
     ``serve.pack``, ``serve.launch`` and ``serve.wait`` inside it in that
     order; each span counts the calls, ``serve.events`` the frames' events
-    and ``serve.upload_bytes`` the whole upload of every call."""
+    and ``serve.upload_bytes`` the bytes uploaded: 16 an event, and every
+    call's lane starts, counts and resets."""
     det = detectors[kind]
     frames = _frames()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -113,8 +114,9 @@ def test_process_batch_spans_nest_on_the_profiler_timeline(detectors, tmp_path, 
     stats = timers.timer_stats()
     for name in ("serve.batch",) + SERVE:
         assert stats[name]["count"] == CALLS
-    assert stats["serve.events"]["total"] == sum(d["x"].size for f in frames for d in f)
-    assert stats["serve.upload_bytes"]["total"] == CALLS * (2 * EVENTS * 16 + 2 * 4 + 2)
+    events = sum(d["x"].size for f in frames for d in f)
+    assert stats["serve.events"]["total"] == events
+    assert stats["serve.upload_bytes"]["total"] == 16 * events + CALLS * 2 * (4 + 4 + 1)
     assert stats["serve.batch"]["total_s"] >= sum(stats[n]["total_s"] for n in SERVE)
 
 
