@@ -148,7 +148,8 @@ def device_info(chips: int, memory_peak_bytes: int) -> Dict:
 
 
 def p95(values: List[float]) -> float:
-    return statistics.quantiles(values, n=100)[94]
+    """The 95th percentile; of a single value, that value."""
+    return statistics.quantiles(values, n=100)[94] if len(values) > 1 else values[0]
 
 
 class Clock:

@@ -61,7 +61,9 @@ class ReferenceDetector:
         return {k: v.cpu().numpy() for k, v in slate.items()}
 
 
-def serve_control(cell, seed: int, precision: str, device) -> Dict[str, float]:
+def serve_seen(cell, seed: int, precision: str, device) -> check_serve.Seen:
+    """The checked batches as the reference in ``precision`` serves them in
+    the program's place."""
     mix, gen = cell.mix, cell.generator()
     sizes = R.Sizes(cell.config)
     pool = gen.serve_pool(mix, sizes.sensor_hw, seed, device)
@@ -82,7 +84,12 @@ def serve_control(cell, seed: int, precision: str, device) -> Dict[str, float]:
                 seen.after_state[k] = [tuple(t.clone() for t in hc) for hc in det.states]
                 seen.kept[k] = dict(slate=out, frames=frames, reset=np.asarray(reset, bool))
         log(f"control: lanes {lanes} served through batch {first + 2} of {last}")
-    return seen.compare(cell, sizes, seed, device)
+    return seen
+
+
+def serve_control(cell, seed: int, precision: str, device) -> Dict[str, float]:
+    return serve_seen(cell, seed, precision, device).compare(cell, R.Sizes(cell.config), seed,
+                                                             device)
 
 
 def half_batch(loss_fn):

@@ -14,10 +14,10 @@ from perfbench.common import Cell, Clock
 from perfbench.run import per_layer, verdict
 
 
-def drive(spec_and_bench, name, trace=0, seed=2 ** 31 + 77):
+def drive(spec_and_bench, name, trace=0, seed=2 ** 31 + 77, seconds=0.3):
     spec, bench = spec_and_bench
     cell = Cell(name, spec, bench)
-    args = argparse.Namespace(workload=name, seed=seed, seconds=0.3, trace=trace)
+    args = argparse.Namespace(workload=name, seed=seed, seconds=seconds, trace=trace)
     result = cell.loop().run(cell, args, Clock(), torch.device("cpu"))
     correct, rows = verdict(cell.limits, result["checks"])
     return cell, result, correct

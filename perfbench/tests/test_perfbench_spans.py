@@ -3,7 +3,8 @@
 None where the registry holds nothing, the expected ms and % from a
 registry planted with known spans and counters, and a traced run whose
 last line of standard output is still the result once spans have
-recorded (nothing is printed at exit)."""
+recorded (nothing is printed at exit). The card's idle gaps named by the
+program's spans in a hand-built trace (``perfbench/trace.reduce``)."""
 
 import json
 import subprocess
@@ -64,6 +65,60 @@ def test_serve_readers_read_planted_spans(registry):
     assert got == pytest.approx({"host_pack_ms.serve": 9.0, "host_launch_ms.serve": 0.6,
                                  "host_wait_ms.serve": 21.0,
                                  "upload_useful_share.serve": 100 * 16 * 80_000 / (2 * upload)})
+
+
+@pytest.mark.parametrize("lanes, counts", [
+    (16, [200_000] * 16), (16, [20_000 + 12_000 * i for i in range(16)]), (32, [5_000] * 32),
+    (4, [0, 0, 0, 1]), (4, [0, 0, 0, 0])])
+def test_upload_share_of_the_compact_layout(registry, lanes, counts):
+    """The upload as it is enqueued: 16 bytes a filled event and 9 a lane
+    (its first column, count and reset): the share is 16 E / (16 E + 9 S),
+    under 100% on any batch, and 0 on one with no event."""
+    timers, _ = registry
+    timers.set_spans(True)
+    for _ in range(3):
+        with timers.span("serve.batch"):
+            timers.count("serve.events", sum(counts))
+            timers.count("serve.upload_bytes", 16 * sum(counts) + 9 * lanes)
+    share = reader("upload_useful_share.serve").read({}, None)
+    assert share == pytest.approx(100 * 16 * sum(counts) / (16 * sum(counts) + 9 * lanes))
+    assert 0 <= share < 100
+
+
+def _x(name, cat, ts, dur):
+    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+
+
+def test_idle_gaps_are_named_by_the_programs_spans():
+    """Two calls of 100 us (the harness's ``perfbench.call``). Call one:
+    kernels at 40-90 and 95-100 us, ``serve.batch`` over all of it and
+    ``serve.pack`` inside it at 0-40 (a ``cpu_op`` inside that), so its
+    first gap is ``serve.pack``, the innermost span, and its second
+    ``serve.batch``. Call two: a kernel at 140-190 and no span; its first
+    gap lies under a ``cudaMemcpyAsync`` and its last under nothing
+    (``python``). The card's busy time, the stretch and the kernels read
+    as before."""
+    from perfbench import trace
+
+    call = trace.ANNOTATION
+    events = [
+        _x(call, "user_annotation", 0, 100), _x(call, "user_annotation", 100, 100),
+        _x(call, "gpu_user_annotation", 0, 200),
+        _x("serve.batch", "user_annotation", 0, 100),
+        _x("serve.pack", "user_annotation", 0, 40),
+        _x("aten::copy_", "cpu_op", 10, 25),
+        _x("step", "kernel", 40, 50), _x("step", "kernel", 95, 5), _x("step", "kernel", 140, 50),
+        _x("cudaMemcpyAsync", "cuda_runtime", 100, 40),
+        _x("aten::copy_", "cpu_op", 150, 10),
+    ]
+    red = trace.reduce(events, 2)
+    assert red["window_s"] == pytest.approx(200e-6)
+    assert red["busy_s"] == pytest.approx(105e-6)
+    assert red["kernels"] == {"step": (pytest.approx(105e-6), 3)}
+    assert red["gaps"] == pytest.approx({"serve.pack": 40e-6, "serve.batch": 5e-6,
+                                         "cudaMemcpyAsync": 40e-6, "python": 10e-6})
+    assert sum(red["gaps"].values()) == pytest.approx(red["window_s"] - red["busy_s"])
+    assert trace.breakdown(red)["idle_gaps"][0] == ["serve.pack", pytest.approx(40e-6)]
 
 
 def test_train_readers_read_planted_spans(registry):

@@ -8,8 +8,11 @@ card, writes the trace as Chrome JSON into ``TMPDIR`` and reduces it:
 - ``window_s``: from the first call's start to the last call's end;
 - ``busy_s``: the union of the card's kernels, copies and sets within it;
 - ``kernels``: card seconds by kernel name, and the launches of each;
-- ``gaps``: the card's idle intervals, each named by the innermost host
-  operation under way at its middle (``python`` where none was);
+- ``gaps``: the card's idle intervals, each named at its middle by the
+  innermost of the program's spans then open (a ``record_function`` range
+  on the host, such as ``serve.pack``; the harness's own ``perfbench.call``
+  is not one), else by the innermost host operation under way (a
+  ``cpu_op`` or a ``cuda_*`` runtime call), else ``python``;
 - ``calls``: ``n``.
 """
 
@@ -82,6 +85,14 @@ def _union(intervals):
     return out
 
 
+def _innermost(rows, t: float):
+    """The name of the row (start, end, name) under way at ``t`` that
+    started last (of two that started together, the one that ends first),
+    or None."""
+    under = [r for r in rows if r[0] <= t <= r[1]]
+    return max(under, key=lambda r: (r[0], -r[1]))[2] if under else None
+
+
 def reduce(events, n: int) -> Dict:
     """Chrome trace events (times in microseconds) -> the stretch's readings."""
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
@@ -101,18 +112,20 @@ def reduce(events, n: int) -> Dict:
         row[0] += (b - a) * 1e-6
         row[1] += 1
     busy = _union(intervals)
-    host = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("ph") == "X" and (e.get("cat") == "cpu_op"
-                                                   or str(e.get("cat")).startswith("cuda_"))),
-                  key=lambda r: r[0])
+
+    def host(kind):
+        return [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                if e.get("ph") == "X" and kind(str(e.get("cat")), e.get("name"))]
+
+    program = host(lambda cat, name: cat == "user_annotation" and name != ANNOTATION)
+    ops = host(lambda cat, name: cat == "cpu_op" or cat.startswith("cuda_"))
     gaps: Dict[str, float] = defaultdict(float)
     edges = [lo] + [x for iv in busy for x in iv] + [hi]
     for a, b in zip(edges[0::2], edges[1::2]):
         if b <= a:
             continue
         mid = (a + b) / 2
-        under = [r for r in host if r[0] <= mid <= r[1]]
-        name = max(under, key=lambda r: r[0])[2] if under else "python"
+        name = _innermost(program, mid) or _innermost(ops, mid) or "python"
         gaps[name] += (b - a) * 1e-6
     return {"window_s": (hi - lo) * 1e-6, "busy_s": sum(b - a for a, b in busy) * 1e-6,
             "kernels": {k: (v[0], v[1]) for k, v in kernels.items()}, "gaps": dict(gaps),
