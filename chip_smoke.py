@@ -207,6 +207,21 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, each fatal on failure:
    at 0.1, and a world of one over NCCL (its all-reduces captured), each
    captured against eager, bit for bit.
 
+13. RVT-B (``MaxViTRNN``) on kernel D's RVT variant
+   (``ops/fused_block.rvt_window_block``). (a) The variant at the four
+   stage shapes of the gen4 serving step at 16 lanes (4096, 1024, 256 and
+   64 windows of 60 tokens, C 64-512, bf16, LayerScale 1) against its plain
+   version on the same inputs, on the update relative to its size (4e-3;
+   the plain version with float8 matrices must read above it), bit-equal to
+   its own second launch; timed beside the plain version, the port's
+   torch-op layer and the library version (``F.linear``,
+   ``F.scaled_dot_product_attention``), with its bound and its time per
+   launch. (b) The captured serving step of gen4 RVT-B at 16 lanes through
+   ``process_batch``: 8 launches of the variant a frame (the counters reset
+   just before), replays with no host read (sync debug mode "error"),
+   every token slot reported as attended, ms/step. Its row joins the kernel
+   table last (``launches``: those of (b)).
+
 Prints the kernel table as one JSON line (the rows of kernels redesigned
 since their first port carry ``redesigned``, what the redesign made of
 them; the first versions' times are in PERF.md; ``launches_artifact`` counts
@@ -254,6 +269,17 @@ BLOCK_SHAPES = ((1024, 64, 2), (256, 128, 4), (64, 256, 8), (16, 512, 16))
 BLOCK_HW = 60
 # The same layers in the gen4-base training step: B = 12 lanes.
 TRAIN_BLOCK_SHAPES = tuple((3 * M, C, heads) for M, C, heads in BLOCK_SHAPES)
+# (M windows, C) of one attention layer per stage of the gen4 RVT-B serving
+# step at the benchmark cell's 16 lanes; hw = 60, dim_head 32.
+RVT_LANES = 16
+RVT_SHAPES = ((4096, 64), (1024, 128), (256, 256), (64, 512))
+# Kernel D's RVT variant against its plain version, on the update relative
+# to its size. The two round at the same points and sum in another order,
+# which flips bf16 roundings: the gap grows with C, as the plain version
+# summed in fp64 against fp32 shows on the CPU (4.5e-4 at C 64 to 1.5e-3 at
+# C 512); the variant read 3.4e-4 to 2.0e-3 on an H100. The plain version
+# with float8 matrices reads about 0.06.
+RVT_GAP = 4e-3
 BWD_DENSITIES = (0.1, 0.4, 1.0, 0.0)
 TRAIN_STEPS = 4
 BLOCK_DENSITIES = (0.1, 0.4, 1.0)
@@ -1100,6 +1126,7 @@ def reset_counters():
     density.density_ratio.launches = 0
     nms_keep.greedy_keep.launches = 0
     fused_block.fused_window_block.launches = 0
+    fused_block.rvt_window_block.launches = 0
     sparse_block.sparse_window_block.launches = 0
     sparse_block.sparse_window_block_looped.launches = 0
     sparse_block.sparse_block_mlp_bwd.launches = 0
@@ -4798,6 +4825,196 @@ def phase_twelve(torch, np, card, eager_card=None):
     return out
 
 
+def rvt_update_gap(got, want, x):
+    """||(got - x) - (want - x)|| / ||want - x||: an RVT layer's update,
+    which a LayerScale keeps small beside x, compared relative to its size."""
+    d = want.float() - x.float()
+    return float(((got.float() - x.float()) - d).norm() / d.norm())
+
+
+def rvt_block_bound(M, C, inner):
+    """Least time of kernel D's RVT variant on ``M`` windows in bf16: tokens
+    read and written once, the four matrices in bf16 and the 11 C + inner
+    fp32 vectors read once; 2 operations a multiply-add of QKV, q k^T, P v,
+    proj, Lin1 and Lin2 (``perfbench/yardstick_rvt.py``'s counts)."""
+    hw = BLOCK_HW
+    n_bytes = 2 * M * hw * C * 2 + (4 * C * C + 2 * C * inner) * 2 + (11 * C + inner) * 4
+    flops = 2.0 * M * hw * (4 * C * C + 2 * hw * C + 2 * C * inner)
+    return bound_ms(n_bytes, flops, "bf16")
+
+
+def rvt_library_layer(torch, p, t, heads, dh, eps):
+    """RVT's layer on (M, hw, C) bf16 tokens in PyTorch's library calls
+    (``F.layer_norm``, cuBLAS ``F.linear``, the fused
+    ``F.scaled_dot_product_attention``, ``F.gelu``), weights from
+    ``fused_block.rvt_params``: the library version of the variant."""
+    F = torch.nn.functional
+    M, hw, C = t.shape
+
+    def v(key):
+        return p[key].to(t.dtype)
+
+    y = F.layer_norm(t, (C,), v("ln1_scale"), v("ln1_bias"), eps)
+    q, k, vv = F.linear(y, p["wqkv"], v("bqkv")).view(M, hw, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    a = F.scaled_dot_product_attention(q, k, vv).transpose(1, 2).reshape(M, hw, C)
+    h1 = t + v("ls1") * F.linear(a, p["wproj"], v("bproj"))
+    m = F.gelu(F.linear(F.layer_norm(h1, (C,), v("ln2_scale"), v("ln2_bias"), eps), p["w1"],
+                        v("b1")))
+    return h1 + v("ls2") * F.linear(m, p["w2"], v("b2"))
+
+
+def phase_rvt(torch, np):
+    """Phase 13: RVT-B (``MaxViTRNN``) on kernel D's RVT variant. (a) The
+    variant at the four stage shapes of the gen4 serving step at
+    ``RVT_LANES`` lanes (bf16, TF32 off, LayerScale 1 so that the update is
+    the layer's whole work) against its plain version on the same inputs
+    (``RVT_GAP`` on the update, ``rvt_update_gap``; the plain version with
+    float8 e4m3 matrices must read above it, so that the tolerance fails a
+    coarser kernel), bit-equal to its own second launch; timed beside the
+    plain version, the port's torch-op layer and the library version, with
+    its bound. (b) The captured serving step of gen4 RVT-B at
+    ``RVT_LANES`` lanes through ``process_batch``: 8 launches of the
+    variant a frame, counted from 0; replays under the sync debug mode
+    "error"; every token slot reported as attended; ms/step. Returns the
+    variant's row of the kernel table."""
+    from sast_tpu_torch.config import get_config
+    from sast_tpu_torch.models.detector import build_detector
+    from sast_tpu_torch.models.layers import Dense
+    from sast_tpu_torch.models.maxvit import PartitionAttention
+    from sast_tpu_torch.ops import fused_block
+    from sast_tpu_torch.packing import pack_event_batch
+    from sast_tpu_torch.serving import StreamingDetector
+
+    cfg = get_config("gen4", "base", **{"model.backbone.name": "MaxViTRNN"})
+    attn_cfg_rvt = cfg.model.backbone.attention
+    eps = attn_cfg_rvt.norm_eps
+    tot = dict(ms=0.0, call=0.0, plain=0.0, torch_ops=0.0, library=0.0, bound=0.0, by={})
+    worst, rows = 0.0, []
+    for si, (M, C) in enumerate(RVT_SHAPES):
+        heads, dh = C // attn_cfg_rvt.dim_head, attn_cfg_rvt.dim_head
+        torch.manual_seed(300 + si)
+        layer = PartitionAttention(C, attn_cfg_rvt, torch.bfloat16).to(DEVICE).eval()
+        with torch.no_grad():
+            for m in layer.modules():
+                if isinstance(m, Dense):
+                    m.kernel.normal_(0.0, m.kernel.shape[1] ** -0.5)
+                    m.bias.normal_(0.0, 0.1)
+            layer.ls1.gamma.fill_(1.0)
+            layer.ls2.gamma.fill_(1.0)
+            x = torch.randn(M, BLOCK_HW, C, device=DEVICE).to(torch.bfloat16)
+            p = fused_block.rvt_params(layer)
+            got = fused_block.rvt_window_block(x, p, heads, dh, eps)
+            again = fused_block.rvt_window_block(x, p, heads, dh, eps)
+            plain = fused_block.rvt_block_plain(x, p, heads, dh, eps)
+            coarse = fused_block.rvt_block_plain(
+                x, {k: v.to(torch.float8_e4m3fn) if k in fused_block.RVT_MATRICES else v
+                    for k, v in p.items()}, heads, dh, eps)
+            lib = rvt_library_layer(torch, p, x, heads, dh, eps)
+        torch.cuda.synchronize()
+        where = f"rvt_window_block stage {si + 1} ({M} windows, C {C})"
+        gap, gap_coarse, gap_lib = (rvt_update_gap(got, plain, x), rvt_update_gap(coarse, plain, x),
+                                    rvt_update_gap(lib, plain, x))
+        if got.dtype != torch.bfloat16 or not bool(torch.isfinite(got.float()).all()):
+            fail(f"{where}: not finite bf16 ({got.dtype})")
+        if not torch.equal(got, again):
+            fail(f"{where}: not bit-equal to its own second launch")
+        if gap > RVT_GAP:
+            fail(f"{where}: update gap to the plain version {gap:.3e} > {RVT_GAP}")
+        if not gap_coarse > RVT_GAP:
+            fail(f"{where}: the float8 plain version reads {gap_coarse:.3e} <= {RVT_GAP}: "
+                 "the tolerance would not fail a coarser kernel")
+        if gap_lib > 0.03:
+            fail(f"{where}: the library version's update gap {gap_lib:.3e} > 0.03")
+        worst = max(worst, gap)
+        inner = p["w1"].shape[0]
+        with torch.no_grad():
+            t = dict(
+                ms=cuda_ms(torch, lambda: fused_block.rvt_window_block(x, p, heads, dh, eps),
+                           iters=10, ahead=True),
+                call=cuda_ms(torch, lambda: fused_block.rvt_window_block(x, p, heads, dh, eps)),
+                plain=cuda_ms(torch, lambda: fused_block.rvt_block_plain(x, p, heads, dh, eps),
+                              iters=5, warmup=1),
+                torch_ops=cuda_ms(torch, lambda: layer.block_math(x[None]), iters=10, ahead=True),
+                library=cuda_ms(torch, lambda: rvt_library_layer(torch, p, x, heads, dh, eps),
+                                iters=10, ahead=True))
+            per_launch = launch_us(torch, lambda: fused_block.rvt_window_block(
+                x, p, heads, dh, eps), "rvt_block")
+        b, by = rvt_block_bound(M, C, inner)
+        for k in ("ms", "call", "plain", "torch_ops", "library"):
+            tot[k] += 2 * t[k]  # a window layer and a grid layer a stage
+        tot["bound"] += 2 * b
+        tot["by"][by] = tot["by"].get(by, 0.0) + 2 * b
+        rows.append(dict(stage=si + 1, M=M, C=C, gap=gap, gap_fp8_plain=gap_coarse,
+                         gap_library=gap_lib, bound_ms=b, bound_by=by, **t))
+        log(f"{where}: update gap {gap:.3e} (fp8 plain {gap_coarse:.3e}, library "
+            f"{gap_lib:.3e}); card ms {t['ms']:.4f} (call {t['call']:.4f}), plain "
+            f"{t['plain']:.4f}, torch ops {t['torch_ops']:.4f}, library {t['library']:.4f}, "
+            f"bound {b:.5f} ({by}, share {b / t['ms']:.4f}); us by launch: {per_launch}")
+        del layer, x, got, again, plain, coarse, lib
+    torch.cuda.empty_cache()
+
+    # (b) The captured serving step at the cell's lanes.
+    h, w = cfg.dataset.resolution_hw
+    model = build_detector(cfg.model, seed=0, device=DEVICE)
+    det = StreamingDetector(cfg, model, max_events=EVENTS_PER_FRAME, num_streams=RVT_LANES,
+                            device=DEVICE)
+    rng = np.random.RandomState(13)
+    frames = [[clustered_events(
+        np, rng, EVENTS_PER_FRAME - EVENTS_PER_FRAME // (2 * RVT_LANES) * s, h, w, f, s)
+               for s in range(RVT_LANES)] for f in range(FRAMES)]
+    resets = [np.array([f == FRAMES // 2 and s == 2 for s in range(RVT_LANES)])
+              for f in range(FRAMES)]
+    reset_counters()
+    outs = [det.process_batch(frames[f], reset=resets[f]) for f in range(FRAMES)]
+    torch.cuda.synchronize()
+    wrappers = read_counters()
+    counts = executed_launches(wrappers, [det])
+    log(f"rvt captured serving, {RVT_LANES} lanes, launches run over {FRAMES} frames: {counts} "
+        f"(the wrappers' counts {wrappers}, {det.steps[0].run.replays} replays)")
+    if counts["rvt_window_block"] != 8 * FRAMES:
+        fail(f"rvt serving: {counts['rvt_window_block']} launches of the variant over {FRAMES} "
+             f"frames, not 8 a frame")
+    if counts["stem_conv7x4"] < FRAMES or counts["greedy_keep"] < FRAMES:
+        fail(f"rvt serving did not launch the stem and NMS kernels on every frame: {counts}")
+    if det.steps[0].run.replays != FRAMES - 1:
+        fail(f"rvt serving: {det.steps[0].run.replays} replays over {FRAMES} frames")
+    slots = [2.0 * (h_ * w_) for h_, w_ in (
+        (cfg.model.backbone.in_res_hw[0] // s, cfg.model.backbone.in_res_hw[1] // s)
+        for s in cfg.model.backbone.stage_strides)]
+    for f, out in enumerate(outs):
+        if not np.isfinite(out["boxes"]).all() or not np.isfinite(out["scores"]).all():
+            fail(f"rvt serving frame {f}: non-finite outputs")
+        if not (np.asarray(out["selected_tokens"]) == np.asarray(slots)).all():
+            fail(f"rvt serving frame {f}: selected tokens {out['selected_tokens'][0]} != {slots}")
+    packed, n = pack_event_batch(frames[0], RVT_LANES, EVENTS_PER_FRAME)
+    pk, nk = torch.from_numpy(packed).to(DEVICE), torch.from_numpy(n).to(DEVICE)
+    no_reset = torch.zeros(RVT_LANES, dtype=torch.bool, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            det.step(pk, nk, no_reset)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    step_ms = cuda_ms(torch, lambda: det.step(pk, nk, no_reset), iters=30, warmup=5)
+    log(f"rvt captured serving step gen4 RVT-B b{RVT_LANES}: {step_ms:.3f} ms/step "
+        f"({RVT_LANES * 1e3 / step_ms:.1f} frames/s); the variant's 8 layers "
+        f"{tot['ms']:.4f} ms on the card alone ({tot['ms'] / step_ms:.3f} of the step)")
+    log(f"kernel rvt_window_block: sum over the 8 layers at {RVT_LANES} lanes, bf16: "
+        f"{tot['ms']:.4f} ms on the card ({tot['call']:.4f} ms per eager call), plain "
+        f"{tot['plain']:.4f} ms, torch ops {tot['torch_ops']:.4f} ms, library "
+        f"{tot['library']:.4f} ms, bound {tot['bound']:.5f} ms (share "
+        f"{tot['bound'] / tot['ms']:.4f}); worst update gap {worst:.3e}")
+    (OUT_DIR / "rvt_block.json").write_text(json.dumps(dict(
+        layers=rows, step_ms=step_ms, counts=counts), indent=1))
+    return dict(name="rvt_window_block", route="cuda", source="sast_tpu_torch/csrc/sparse_fwd.cu",
+                replaces=None, launches=counts["rvt_window_block"], max_abs_err=None,
+                max_update_gap=worst, ms=tot["ms"], plain_ms=tot["plain"],
+                bound_ms=tot["bound"], bound_by=max(tot["by"], key=tot["by"].get),
+                library_ms=tot["library"], call_ms=tot["call"], torch_ops_ms=tot["torch_ops"],
+                bound_share=tot["bound"] / tot["ms"], step_ms=step_ms)
+
+
 def main() -> None:
     if not (ROOT / "sast_tpu_torch" / "csrc").is_dir():
         fail("sast_tpu_torch/ not found beside chip_smoke.py: run it from a checkout")
@@ -4967,6 +5184,10 @@ def main() -> None:
             fail(f"kernel {name} was not launched from inside an artifact")
     log(f"phase 12: captured train and eval steps ok, and phase 10b beside it "
         f"({twelve['seconds']:.1f} s)")
+
+    t0 = time.perf_counter()
+    kernels.append(phase_rvt(torch, np))
+    log(f"phase 13: RVT-B on kernel D's RVT variant ok ({time.perf_counter() - t0:.1f} s)")
 
     record = dict(card=smi, kernels=kernels, serving=serving, cpu_parity=parity,
                   training=training, fit_validate=fit_validate, phase7=seven, phase8=eight,

@@ -25,6 +25,13 @@ through the masked torch-op math on a gathered prefix of kept windows, and
 ``pallas_density_threshold`` is the window density up to which the
 window-skipping kernel (``ops/sparse_block.py``) runs when the model was
 built with ``sparse_kernel`` (the JAX package's ``use_pallas``).
+
+Two backbones: ``BackboneConfig.name`` ``"SASTRNN"`` (the default, SAST's
+scene-adaptive backbone, ``models/backbone.py``, whose layers have a gated
+MLP) and ``"MaxViTRNN"`` (RVT's dense window-and-grid backbone,
+``models/maxvit.py``, whose layers have an ungated one; the JAX package has
+no such backbone): ``get_config(..., **{"model.backbone.name":
+"MaxViTRNN"})`` is RVT.
 """
 
 from __future__ import annotations
@@ -161,7 +168,7 @@ class LstmConfig:
 
 @dataclass(frozen=True)
 class BackboneConfig:
-    name: str = "SASTRNN"
+    name: str = "SASTRNN"  # or "MaxViTRNN" (module docstring)
     input_channels: int = 20
     enable_masking: bool = False
     partition_split_32: int = 1  # gen1: 1, gen4: 2

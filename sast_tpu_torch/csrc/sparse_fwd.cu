@@ -3,6 +3,10 @@
 // tokens (E), or the same steps as phases of one persistent cooperative
 // launch (F, a second entry point of this library).
 //
+// A third entry point, sast_rvt_block_fwd, is kernel D's RVT variant (the
+// namespace rvt_block below): the same machinery with the wiring of RVT's
+// MaxViT layer.
+//
 // E replaces the TPU kernel _block_kernel behind _sparse_window_block_impl /
 // sparse_window_block (sast_tpu/ops/pallas/sparse_block.py), which computes
 // _fwd_window on the kept-first work list ids = argsort(~win_keep, stable).
@@ -75,13 +79,14 @@ using namespace sast;
 
 struct Args {
   const void* y;              // (M, hw, C) YT
-  const unsigned char* keep;  // (M, hw)
+  const unsigned char* keep;  // (M, hw), or null: every token kept (the RVT variant)
   void* out;                  // (M, hw, C) YT
   float* h1;                  // (M, hw, C), or null
   const int* ids;             // work list
   const int* n_win;           // kept windows, on the device
   const float *ln2s, *ln2b, *bqkv, *bproj, *ls1, *bglu, *bout, *ls2;
   const void *wqkv, *wproj, *wglu, *wout;  // (out, in) rows
+  const float *ln1s, *ln1b;  // the RVT variant's LN1 (its Lin1 and Lin2 are wglu and wout)
   // Workspace, over the Rmax = M hw rows.
   float* zh;   // (Rmax, C) z, then h1
   void* zr;    // (Rmax, C) WT: Zr, then AO
@@ -187,7 +192,7 @@ __device__ __forceinline__ void core_item(const Args& a, const CoreLayout& L, co
     load4(QKV + row + 2 * C, in, x); store4(v + r * ldq + d, x);
   }
   for (int r = threadIdx.x; r < R; r += THREADS)
-    skeep[r] = r < hw ? a.keep[(size_t)wid * hw + r] : 0;
+    skeep[r] = r < hw ? (a.keep != nullptr ? a.keep[(size_t)wid * hw + r] : 1) : 0;
   __syncthreads();
 
   // logits = q k^T * scale, masked keys exactly MASK_VALUE; the softmax of
@@ -353,6 +358,153 @@ __global__ void __launch_bounds__(THREADS, MINB)
     if (clock) atomicMax(stamps + 7, globaltimer());
   }
 }
+
+// ---------------------------------------------------------------------------
+// Kernel D's RVT variant: the same machinery over every window (the identity
+// work list) with the wiring of RVT's MaxViT layer (Gehrig & Scaramuzza,
+// CVPR 2023), every key attended, an ungated MLP with the exact GELU:
+//   z   = LN1(x)                                    two-pass variance, fp32
+//   per head: q,k,v = round(z) Wqkv + b;  P = softmax(q k^T * dh^-0.5);  P v
+//   h1  = x + ls1 * (attn_out Wproj + b)
+//   out = h1 + ls2 * (gelu(round(LN2(h1)) W1 + b1) W2 + b2)
+// with the rounding points of kernel D (ops/fused_block.py rvt_block_plain
+// is the plain version). The launches, I = the MLP's inner width:
+//   1. prep: zh = x (fp32), Zr = round(LN1(x)).
+//   2. GEMM  QKV = round(Zr Wqkv + b).
+//   3. core, one block per (window, head): core_item with no key masked.
+//   4. GEMM  h1 = zh + ls1 * (AO Wproj + b), in place over zh.
+//   5. norm: H1r = round(LN2(h1)).
+//   6. GEMM  m = round(gelu(H1r W1 + b1)), rows of I over QKV.
+//   7. GEMM  out = h1 + ls2 * (m W2 + b2), at the row's token.
+// Every kernel it launches is named within namespace rvt_block (its own
+// kernels, and the shared GEMM through epilogue types of this namespace), so
+// that a device trace can tell them from kernel D's and E's.
+namespace rvt_block {
+
+// Rows b ROWS .. (b + 1) ROWS - 1 of the work list's order.
+template <typename YT, typename WT>
+__global__ void __launch_bounds__(THREADS) prep_kernel(const Args a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hw = a.hw, C = a.C;
+  const YT* y = static_cast<const YT*>(a.y);
+  WT* zr = static_cast<WT*>(a.zr);
+  for (int j = blockIdx.x * ROWS + warp; j < (blockIdx.x + 1) * ROWS; j += WARPS) {
+    if (j >= a.M * hw) return;
+    const int slot = j / hw;
+    const YT* yr = y + ((size_t)a.ids[slot] * hw + (j - slot * hw)) * C;
+    float mu, rstd;
+    row_stats([&](int c) { return to_f<YT>(yr[c]); }, C, a.eps, mu, rstd);
+    const size_t i = (size_t)j * C;
+    for (int c = lane; c < C; c += 32) {
+      const float x = to_f<YT>(yr[c]);
+      a.zh[i + c] = x;
+      zr[i + c] = from_f<WT>(layer_norm(x, mu, rstd, a.ln1s[c], a.ln1b[c]));
+    }
+  }
+}
+
+template <typename WT, int MT>
+__global__ void __launch_bounds__(THREADS) core_kernel(const Args a, const CoreLayout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if ((int)blockIdx.y >= *a.n_win) return;
+  core_item<WT, MT>(a, L, blockIdx.x, blockIdx.y, smem);
+}
+
+// H1r = round(LN2(h1)), a warp per row.
+template <typename WT>
+__global__ void __launch_bounds__(THREADS) norm_kernel(const Args a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int C = a.C;
+  WT* h1r = static_cast<WT*>(a.h1r);
+  for (int j = blockIdx.x * ROWS + warp; j < (blockIdx.x + 1) * ROWS; j += WARPS) {
+    if (j >= *a.n_win * a.hw) return;
+    const float* h = a.zh + (size_t)j * C;
+    float mu, rstd;
+    row_stats([&](int c) { return h[c]; }, C, a.eps, mu, rstd);
+    for (int c = lane; c < C; c += 32)
+      h1r[(size_t)j * C + c] = from_f<WT>(layer_norm(h[c], mu, rstd, a.ln2s[c], a.ln2b[c]));
+  }
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+}
+
+// 2: E's store, under this namespace's name.
+template <typename T>
+struct Store : StoreEpi<T> {};
+
+// 4: h1 = x + ls1 * (v + b), over zh.
+struct ResidualEpi {
+  static constexpr bool PAIR = false, COLSUM = false;
+  float* zh; const float *bias, *ls; int C;
+  __device__ float operator()(int i, int n, float v) const {
+    const size_t o = (size_t)i * C + n;
+    zh[o] += ls[n] * (v + bias[n]);
+    return 0.f;
+  }
+};
+
+// 6: m = round(gelu(v + b)), rows of I.
+template <typename WT>
+struct GeluEpi {
+  static constexpr bool PAIR = false, COLSUM = false;
+  WT* m; const float* bias; int I;
+  __device__ float operator()(int i, int n, float v) const {
+    m[(size_t)i * I + n] = from_f<WT>(gelu_erf(v + bias[n]));
+    return 0.f;
+  }
+};
+
+// 7: out = h1 + ls2 * (v + b) at the row's token.
+template <typename YT>
+struct OutEpi {
+  static constexpr bool PAIR = false, COLSUM = false;
+  Rows w; YT* out; const float* zh; const float *bias, *ls; int C;
+  __device__ float operator()(int i, int n, float v) const {
+    out[token(w, i) * C + n] = from_f<YT>(zh[(size_t)i * C + n] + ls[n] * (v + bias[n]));
+    return 0.f;
+  }
+};
+
+// The kernels are named with their namespace: an unqualified launch would
+// also find kernel E's prep_kernel and core_kernel by their argument types.
+template <typename YT, typename WT, int MT>
+int run(const Args& a, const CoreLayout& core, cudaStream_t s) {
+  const int C = a.C, I = a.I, rmax = a.M * a.hw, blocks = (rmax + ROWS - 1) / ROWS;
+  const Rows w = rows_of(a);
+  static bool core_ready = false;
+  int rc = allow_smem(rvt_block::core_kernel<WT, MT>, core.total, core_ready);
+  if (rc != 0) return rc;
+  WT* m = static_cast<WT*>(a.qkv);  // over QKV, dead after the core
+  rvt_block::prep_kernel<YT, WT><<<blocks, THREADS, 0, s>>>(a);
+  rc = rows_gemm<WT, WT, false>(w, rmax, GemmOp{a.zr, a.wqkv, 3 * C, C, 0},
+                                Store<WT>{{static_cast<WT*>(a.qkv), a.bqkv, 3 * C}}, s);
+  if (rc != 0) return rc;
+  rvt_block::core_kernel<WT, MT><<<dim3(a.heads, a.M), THREADS, core.total, s>>>(a, core);
+  rc = rows_gemm<WT, WT, false>(w, rmax, GemmOp{a.zr, a.wproj, C, C, 0},
+                                ResidualEpi{a.zh, a.bproj, a.ls1, C}, s);
+  if (rc != 0) return rc;
+  rvt_block::norm_kernel<WT><<<blocks, THREADS, 0, s>>>(a);
+  rc = rows_gemm<WT, WT, false>(w, rmax, GemmOp{a.h1r, a.wglu, I, C, 0},
+                                GeluEpi<WT>{m, a.bglu, I}, s);
+  if (rc == 0)
+    rc = rows_gemm<WT, WT, false>(w, rmax, GemmOp{m, a.wout, C, I, 0},
+                                  OutEpi<YT>{w, static_cast<YT*>(a.out), a.zh, a.bout, a.ls2, C},
+                                  s);
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+template <int MT>
+int dispatch_types(const Args& a, const CoreLayout& core, int y_bf16, int w_bf16,
+                   cudaStream_t s) {
+  if (!w_bf16) return rvt_block::run<float, float, MT>(a, core, s);
+  return y_bf16 ? rvt_block::run<bf16, bf16, MT>(a, core, s)
+                : rvt_block::run<float, bf16, MT>(a, core, s);
+}
+
+}  // namespace rvt_block
 
 // ---------------------------------------------------------------------------
 // Host side.
@@ -529,6 +681,33 @@ extern "C" int sast_sparse_fwd(const void* const* p, int np, void* work, long lo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return hw <= 64 ? dispatch_types<4>(a, P, y_bf16, w_bf16, s)
                   : dispatch_types<5>(a, P, y_bf16, w_bf16, s);
+}
+
+// Kernel D's RVT variant over the work list ids / n_win (the wrapper passes
+// the identity: every window). Pointer table, in this order: x, out, ids,
+// n_win, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj, ls1, ln2_scale,
+// ln2_bias, w1, b1, w2, b2, ls2 (18). Matrices as (out, in) rows in the
+// weights' type; vectors fp32. I is the MLP's inner width; the workspace is
+// sast_sparse_fwd_workspace's at that I.
+extern "C" int sast_rvt_block_fwd(const void* const* p, int np, void* work, long long nwork,
+                                  int M, int hw, int C, int I, int heads, int dh, float eps,
+                                  int y_bf16, int w_bf16, void* stream) {
+  using namespace sf;
+  if (np != 18 || heads * dh != C || (y_bf16 && !w_bf16)) return (int)cudaErrorInvalidValue;
+  Plan P;
+  if (make_plan(M, hw, C, I, dh, w_bf16 ? 2 : 4, &P) != 0 || nwork < P.bytes)
+    return (int)cudaErrorInvalidValue;
+  auto f32 = [&](int i) { return static_cast<const float*>(p[i]); };
+  Args a{};
+  a.y = p[0]; a.keep = nullptr; a.out = const_cast<void*>(p[1]); a.h1 = nullptr;
+  a.ids = static_cast<const int*>(p[2]); a.n_win = static_cast<const int*>(p[3]);
+  a.ln1s = f32(4); a.ln1b = f32(5); a.wqkv = p[6]; a.bqkv = f32(7); a.wproj = p[8];
+  a.bproj = f32(9); a.ls1 = f32(10); a.ln2s = f32(11); a.ln2b = f32(12); a.wglu = p[13];
+  a.bglu = f32(14); a.wout = p[15]; a.bout = f32(16); a.ls2 = f32(17);
+  set_shape(a, P, work, M, hw, C, I, heads, dh, eps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return hw <= 64 ? rvt_block::dispatch_types<4>(a, P.core, y_bf16, w_bf16, s)
+                  : rvt_block::dispatch_types<5>(a, P.core, y_bf16, w_bf16, s);
 }
 
 // Kernel F's workspace bytes, as sast_sparse_fwd_workspace.

@@ -97,7 +97,8 @@ def launch_counts() -> Dict[str, int]:
     from sast_tpu_torch.ops import density, fused_block, nms_keep, sparse_block, stem_conv
 
     wrappers = (stem_conv.stem_conv7x4, density.density_ratio, nms_keep.greedy_keep,
-                fused_block.fused_window_block, sparse_block.sparse_window_block,
+                fused_block.fused_window_block, fused_block.rvt_window_block,
+                sparse_block.sparse_window_block,
                 sparse_block.sparse_window_block_looped, sparse_block.sparse_block_mlp_bwd,
                 sparse_block.sparse_block_attn_bwd)
     return {w.__name__: w.launches for w in wrappers}

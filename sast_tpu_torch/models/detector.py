@@ -1,9 +1,10 @@
-"""Detector composition root: SAST backbone + PAFPN + YOLOX head.
+"""Detector composition root: recurrent backbone + PAFPN + YOLOX head.
 
 Port of sast_tpu/models/detector.py with the same forward_backbone /
 forward_detect split, plus ``build_detector``, which makes a detector with
 random weights drawn from a seeded ``torch.Generator`` on the requested
-device.
+device. The backbone is picked by ``BackboneConfig.name``: ``SASTRNN``
+(``models/backbone.py``) or RVT's ``MaxViTRNN`` (``models/maxvit.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from sast_tpu_torch.config import ModelConfig
 from sast_tpu_torch.models.backbone import LstmState, SASTBackbone
 from sast_tpu_torch.models.head import YoloXHead
 from sast_tpu_torch.models.layers import BatchNorm, Conv, Dense, DropoutKey, lecun_normal_
+from sast_tpu_torch.models.maxvit import MaxViTBackbone
 from sast_tpu_torch.models.pafpn import YoloPAFPN
 from sast_tpu_torch.models.sast import MaskedSparseAttention
 from sast_tpu_torch.parallel.mesh import Mesh
@@ -38,7 +40,8 @@ def resolve_device(device) -> torch.device:
 
 class YoloXDetector(nn.Module):
     """``sparse_kernel`` is the JAX detector's ``use_pallas``: the attention
-    layers run the window-skipping block kernel (``ops/sparse_block.py``)."""
+    layers run the window-skipping block kernel (``ops/sparse_block.py``);
+    ``MaxViTRNN`` refuses it."""
 
     def __init__(self, config: ModelConfig, sparse_kernel: bool = False):
         super().__init__()
@@ -47,7 +50,14 @@ class YoloXDetector(nn.Module):
         bb = config.backbone
         in_channels = tuple(bb.stage_dims[s - 1] for s in config.fpn.in_stages)
         strides = tuple(bb.stage_strides[s - 1] for s in config.fpn.in_stages)
-        self.backbone = SASTBackbone(bb, dtype, sparse_kernel)
+        if bb.name == "SASTRNN":
+            self.backbone = SASTBackbone(bb, dtype, sparse_kernel)
+        elif bb.name == "MaxViTRNN":
+            if sparse_kernel:
+                raise ValueError("MaxViTRNN selects no windows: it has no sparse-kernel path")
+            self.backbone = MaxViTBackbone(bb, dtype)
+        else:
+            raise ValueError(f"unknown backbone {bb.name!r}: SASTRNN or MaxViTRNN")
         self.fpn = YoloPAFPN(config.fpn.depth, in_channels, config.fpn.depthwise,
                              config.fpn.act, dtype)
         self.head = YoloXHead(config.head.num_classes, strides, in_channels,

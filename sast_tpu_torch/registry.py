@@ -29,7 +29,8 @@ def fetch_data_module(cfg: ExperimentConfig, rank: int = 0, world_size: int = 1)
 
 def build_detector(cfg: ExperimentConfig, sparse_kernel: bool = False, device="cuda", seed: int = 0):
     """Bare detector with seeded random weights on ``device``, for library
-    users (``sparse_kernel`` is the JAX package's ``use_pallas``)."""
+    users (``sparse_kernel`` is the JAX package's ``use_pallas``); the
+    backbone by ``cfg.model.backbone.name``, ``SASTRNN`` or ``MaxViTRNN``."""
     from sast_tpu_torch.models.detector import build_detector as build
 
     return build(cfg.model, seed=seed, device=device, sparse_kernel=sparse_kernel)
